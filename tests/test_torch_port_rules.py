@@ -1,0 +1,94 @@
+"""Rules of the PyTorch port that no parity test would catch.
+
+* ``repro_torch`` and ``chip_smoke.py`` import neither JAX nor ``repro``;
+* the card is the default device: without CUDA, building a relation with the
+  default device raises instead of landing on the CPU;
+* a CPU tensor takes a kernel's plain version and launches nothing;
+* ``chip_smoke.py`` fails, printing no result, without a card or without the
+  rest of the repository.
+"""
+
+import json
+import os
+import pkgutil
+import re
+import shutil
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+import repro_torch
+from repro_torch.core.relation import relation
+
+ROOT = Path(__file__).resolve().parents[1]
+PORT = ROOT / "src" / "repro_torch"
+FORBIDDEN = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|repro)(\.|\s|$)",
+                       re.MULTILINE)
+
+
+def _port_modules():
+    return sorted(m.name for m in pkgutil.walk_packages(
+        repro_torch.__path__, "repro_torch."))
+
+
+def test_port_modules_import_no_jax_and_no_reference():
+    mods = _port_modules()
+    assert "repro_torch.core.join" in mods and "repro_torch.kernels.ops" in mods
+    code = ("import importlib, json, sys\n"
+            f"for m in {mods!r}: importlib.import_module(m)\n"
+            "print(json.dumps(sorted(m for m in sys.modules if m == 'jax' or "
+            "m.startswith(('jax.', 'jaxlib', 'repro.')) or m == 'repro')))")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=300, cwd=ROOT,
+                         env={**os.environ, "PYTHONPATH": str(ROOT / "src")})
+    assert out.returncode == 0, out.stderr
+    assert json.loads(out.stdout.strip().splitlines()[-1]) == []
+
+
+def test_port_sources_name_no_jax_and_no_reference():
+    files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    assert len(files) > 10
+    bad = [f"{f}: {m.group(0).strip()}" for f in files
+           for m in FORBIDDEN.finditer(f.read_text())]
+    assert bad == []
+
+
+def test_default_device_is_the_card():
+    if torch.cuda.is_available():
+        assert relation([1, 2, 3]).keys.is_cuda
+    else:
+        with pytest.raises((AssertionError, RuntimeError)):
+            relation([1, 2, 3])
+
+
+def test_cpu_tensors_take_the_plain_versions():
+    from repro_torch.kernels import bloom_build, bloom_probe, edge_sample, ops
+    counters = (bloom_build.bloom_build_batched, bloom_probe.bloom_probe_batched,
+                edge_sample.edge_sample_batched)
+    before = [c.launches for c in counters]
+    r = relation(np.arange(100, dtype=np.uint32), device="cpu")
+    f = ops.build_filter(r.keys, r.valid, 64, seed=2**40 + 3)
+    assert ops.probe_filter(f.words, r.keys, seed=2**40 + 3).all()
+    assert [c.launches for c in counters] == before
+
+
+def _run_smoke(cwd):
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    return subprocess.run([sys.executable, "chip_smoke.py"], cwd=cwd,
+                          capture_output=True, text=True, timeout=300,
+                          env={**env, "CUDA_VISIBLE_DEVICES": ""})
+
+
+@pytest.mark.parametrize("alone", [False, True])
+def test_chip_smoke_fails_without_card_or_repo(alone, tmp_path):
+    """Hidden from every card (and, alone, from the package too), the smoke
+    run exits non-zero and prints no result line."""
+    if alone:
+        shutil.copy(ROOT / "chip_smoke.py", tmp_path / "chip_smoke.py")
+    out = _run_smoke(tmp_path if alone else ROOT)
+    assert out.returncode != 0
+    assert '"ok"' not in out.stdout and '"kernels"' not in out.stdout
