@@ -8,13 +8,17 @@ Phases, each of which fails the run (non-zero exit, no result line):
 1. device: a CUDA card must be present; prints its name and nvidia-smi's
    name and power limit;
 2. build: compiles the three CUDA kernels from ``src/repro_torch/csrc`` into
-   ``build/repro_torch_kernels/`` (one nvcc per source, in parallel);
+   ``build/repro_torch_kernels/`` (one nvcc per source, in parallel); prints
+   the card's integer rates (SMs x lanes x nvidia-smi's maximum SM clock)
+   and each kernel's integer operations per key or draw (``INT_OPS``);
 3. kernels: each kernel against its plain PyTorch version on the card, at
    the shapes the main path gives it (B = 1), and a B = 4 batch with mixed
    seeds against four B = 1 calls; filter words, probe masks and draw counts
    must match exactly, the float sums within rtol 1e-5 (atol 1e-3), since
    they add in another order.  Times each (CUDA events, median of 20 after
-   warm-up) beside its bound;
+   warm-up) beside its bound: the larger of its bytes over the memory rate
+   and its operations over the float32 and integer rates.  The build is
+   also checked and timed on 2^24 distinct keys, where every key commits;
 4. main path: ``approx_join(..., use_kernels=True)`` on two relations of
    2^24 rows (an exact SUM, a sampled SUM twice under one SigmaRegistry, a
    sampled AVG, a sampled SUM of products, twice over), checked against a
@@ -24,7 +28,8 @@ Phases, each of which fails the run (non-zero exit, no result line):
 
 It then prints one line ``{"kernels": [...]}`` and, last,
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
-It imports nothing of JAX.
+It imports nothing of JAX.  Run from a checkout of another commit (the
+script copied into it), it times that commit's kernels the same way.
 """
 
 from __future__ import annotations
@@ -48,9 +53,16 @@ B_MAX = 2048
 SEED = 0
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate (data sheet)
 F32_FLOPS = 67e12          # H100 SXM float32 rate outside the tensor cores
+# Hopper SM: 4 partitions, each with 16 lanes of the integer ALU pipe and
+# 16 of the multiply-add pipe that runs IMAD, and one warp instruction
+# dispatched a clock
+INT_LANES_PER_SM = 64
+DISPATCH_LANES_PER_SM = 128
 REPS = 20
 PLAIN_REPS = 10
 MIXED_SEEDS = (0, 1, 0x9E3779B1, 0xFFFFFFFF)
+# line of pl.pallas_call in each TPU kernel, src/repro/kernels/<name>.py
+REPLACES = {"bloom_build": 53, "bloom_probe": 67, "edge_sample": 94}
 
 
 def fail(msg: str):
@@ -80,10 +92,55 @@ def time_ms(fn, reps: int) -> float:
     return statistics.median(times)
 
 
-def bound(nbytes: float, flops: float = 0.0):
-    """(least ms the card could take, what bounds it)."""
+def int_rates(torch):
+    """(operations per second of each integer pipe, of instruction dispatch,
+    where the figures come from): SMs x lanes x the SM clock's maximum as
+    nvidia-smi reports it."""
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm",
+                          "--format=csv,noheader,nounits"],
+                         capture_output=True, text=True, timeout=60)
+    check(smi.returncode == 0, "nvidia-smi clocks.max.sm failed")
+    mhz = float(smi.stdout.split()[0])
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return (sms * INT_LANES_PER_SM * mhz * 1e6,
+            sms * DISPATCH_LANES_PER_SM * mhz * 1e6,
+            f"{sms} SMs x {INT_LANES_PER_SM} lanes (ALU pipe; IMAD pipe the "
+            f"same) or x {DISPATCH_LANES_PER_SM} (dispatch) x {mhz:.0f} MHz "
+            f"(nvidia-smi clocks.max.sm)")
+
+
+# Integer operations per key (bloom_build, bloom_probe) or per drawn edge
+# (edge_sample) that each function needs, counted from csrc/hashing.cuh and
+# the kernels' sources: one per 32-bit multiply, add, shift, compare or
+# logic operation (one LOP3 takes any logic of three inputs), once per key
+# even where two lanes share a key.  Loads, stores, address arithmetic and
+# per-stratum work are left out.  "fma": multiplies, and adds, which either
+# pipe runs, on the multiply-add pipe; "alu": shifts, logic and compares,
+# which only the ALU pipe runs.
+#   hash2_premixed: xor, fmix32 (3 shifts, 3 xors, 2 multiplies): 7 alu,
+#     2 fma; block index (h & mask): 1 alu; lane_masks: h * C + 1, fmix32,
+#     8 x (multiply, shift, 1 << s): 22 alu, 11 fma;
+#   bloom_build: + validity test, 8 ORs of the lanes' bits: 9 alu;
+#   bloom_probe: + 8 x (mask & ~word, OR-ed together), test for 0: 9 alu;
+#   edge_sample: t * GOLDEN, + 1 for side 1: 2 fma; per side 3 fmix32, 2
+#     xors and % by the stratum's count (multiply-high, multiply-subtract,
+#     2 compares, 2 conditional subtractions): 22 alu, 10 fma; the draw
+#     counter's add and compare with b_max: 1 fma, 1 alu.
+INT_OPS = {"bloom_build": dict(alu=39, fma=13),
+           "bloom_probe": dict(alu=39, fma=13),
+           "edge_sample": dict(alu=45, fma=23)}
+
+
+def bound(rates, nbytes: float, flops: float = 0.0, alu: float = 0.0,
+          fma: float = 0.0):
+    """(least ms the card could take, what bounds it): the larger of the
+    bytes over the memory rate, the float operations over the float32 rate,
+    each integer pipe's operations over its rate, and all operations (one
+    instruction each) over the dispatch rate."""
+    pipe, dispatch = rates
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / F32_FLOPS * 1e3
+    t_ops = max(flops / F32_FLOPS, alu / pipe, fma / pipe,
+                (alu + fma + flops) / dispatch) * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -106,10 +163,12 @@ def oracle(rels):
                 product=float(np.sum(s1 * s2)))
 
 
-def kernel_phase(rels, torch):
-    """Phase 3: each kernel against its plain version at main-path shapes."""
+def kernel_phase(rels, torch, rates):
+    """Phase 3: each kernel against its plain version at main-path shapes,
+    timed beside its bound (``rates``: the integer pipe and dispatch rates)."""
     from repro_torch.core import bloom
     from repro_torch.core.budget import QueryBudget
+    from repro_torch.core.hashing import fmix32
     from repro_torch.core.join import (decide_sample_sizes,
                                        prepare_stage_kernels)
     from repro_torch.kernels import bloom_build as kb
@@ -123,6 +182,20 @@ def kernel_phase(rels, torch):
     keys = [r.keys[None] for r in rels]
     valid = [r.valid[None] for r in rels]
     lines = []
+
+    def int_ops(name, items):
+        return {pipe: items * n for pipe, n in INT_OPS[name].items()}
+
+    def line(name, err, ms, plain_ms, nbytes, items, flops=0.0):
+        ops = int_ops(name, items)
+        b_ms, b_by = bound(rates, nbytes, flops, **ops)
+        return dict(name=name, route="cuda",
+                    source=f"src/repro_torch/csrc/{name}.cu",
+                    replaces=f"src/repro/kernels/{name}.py:{REPLACES[name]}",
+                    max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                    bound_by=b_by, bound_ops=sum(ops.values()),
+                    share_of_bound=b_ms / ms,
+                    library_ms=None)
 
     # --- bloom_build: one input's filter -------------------------------
     words_k = [kb.bloom_build_batched(k, v, nb, seed1)
@@ -141,14 +214,23 @@ def kernel_phase(rels, torch):
                  REPS)
     plain_ms = time_ms(
         lambda: kb.bloom_build_ref(keys[0], valid[0], nb, seed1), PLAIN_REPS)
-    b_ms, b_by = bound(ROWS * (8 + 1) + 8 + nb * 32)
-    lines.append(dict(name="bloom_build", route="cuda",
-                      source="src/repro_torch/csrc/bloom_build.cu",
-                      replaces="src/repro/kernels/bloom_build.py:53",
-                      max_abs_err=float((words_k[0].long()
-                                         - words_p.long()).abs().max()),
-                      ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-                      library_ms=None))
+    n_valid = float(valid[0].sum())
+    lines.append(line("bloom_build",
+                      float((words_k[0].long() - words_p.long()).abs().max()),
+                      ms, plain_ms, ROWS * (8 + 1) + 8 + nb * 32, n_valid))
+    # the worst case for committing only missing bits: 2^24 distinct keys
+    # (fmix32 is a bijection), every one of which must commit
+    dkeys = fmix32(torch.arange(ROWS, device=dev))[None]
+    dvalid = torch.ones_like(dkeys, dtype=torch.bool)
+    check(torch.equal(kb.bloom_build_batched(dkeys, dvalid, nb, seed1),
+                      kb.bloom_build_ref(dkeys, dvalid, nb, seed1)),
+          "bloom_build words != plain on distinct keys")
+    d_ms = time_ms(lambda: kb.bloom_build_batched(dkeys, dvalid, nb, seed1),
+                   REPS)
+    d_bound, d_by = bound(rates, ROWS * (8 + 1) + 8 + nb * 32, 0.0,
+                          **int_ops("bloom_build", ROWS))
+    print(f"kernel bloom_build on {ROWS} distinct keys: {d_ms:.4f} ms "
+          f"(bound {d_bound:.4f} ms by {d_by})")
 
     # --- bloom_probe: one input's keys against the join filter ---------
     jwords = words_k[0] & words_k[1]
@@ -167,14 +249,10 @@ def kernel_phase(rels, torch):
     ms = time_ms(lambda: kp.bloom_probe_batched(jwords, keys[0], seed1), REPS)
     plain_ms = time_ms(lambda: kp.bloom_probe_ref(jwords, keys[0], seed1),
                        PLAIN_REPS)
-    b_ms, b_by = bound(ROWS * 8 + nb * 32 + 8 + ROWS * 1)
-    lines.append(dict(name="bloom_probe", route="cuda",
-                      source="src/repro_torch/csrc/bloom_probe.cu",
-                      replaces="src/repro/kernels/bloom_probe.py:67",
-                      max_abs_err=float((mask_k.int() - mask_p.int())
-                                        .abs().max()),
-                      ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-                      library_ms=None))
+    lines.append(line("bloom_probe",
+                      float((mask_k.int() - mask_p.int()).abs().max()),
+                      ms, plain_ms, ROWS * 8 + nb * 32 + 8 + ROWS * 1,
+                      ROWS))
 
     # --- edge_sample: the sampled SUM's first (pilot) request ----------
     prep = prepare_stage_kernels(rels, nb, MAX_STRATA, SEED)
@@ -208,18 +286,16 @@ def kernel_phase(rels, torch):
                        PLAIN_REPS)
     S = st.keys.shape[0]
     gathered = sum(min(draws, v.shape[1]) * 4 for v in (v1, v2))
-    b_ms, b_by = bound(S * (8 + 4 * 8 + 1 + 4) + 8 + gathered + S * 3 * 4,
-                       flops=5 * draws)
     err = max(float((a - b).abs().max()) for a, b in zip(out_k, out_p))
-    lines.append(dict(name="edge_sample", route="cuda",
-                      source="src/repro_torch/csrc/edge_sample.cu",
-                      replaces="src/repro/kernels/edge_sample.py:94",
-                      max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                      bound_ms=b_ms, bound_by=b_by, library_ms=None))
+    lines.append(line("edge_sample", err, ms, plain_ms,
+                      S * (8 + 4 * 8 + 1 + 4) + 8 + gathered + S * 3 * 4,
+                      draws, flops=5 * draws))
     for ln in lines:
-        print(f"kernel {ln['name']}: {ln['ms']:.4f} ms (bound {ln['bound_ms']:.4f} "
-              f"ms by {ln['bound_by']}), plain {ln['plain_ms']:.4f} ms, "
-              f"max_abs_err {ln['max_abs_err']}")
+        print(f"kernel {ln['name']}: {ln['ms']:.4f} ms (bound "
+              f"{ln['bound_ms']:.4f} ms by {ln['bound_by']}, "
+              f"{100 * ln['share_of_bound']:.1f}% of it; "
+              f"{ln['bound_ops']:.4g} int ops), plain {ln['plain_ms']:.4f} "
+              f"ms, max_abs_err {ln['max_abs_err']}")
     print(f"kernel shapes: rows {ROWS}, num_blocks {nb}, strata {S}, "
           f"b_max {B_MAX}, draws {draws:.0f}")
     return lines
@@ -348,6 +424,10 @@ def main() -> int:
         for line in log.splitlines():
             if "Used" in line or "spill" in line:
                 print(f"  {name}: {line.strip()}")
+    *rates, rates_src = int_rates(torch)
+    print(f"integer rates: {rates[0]:.4g} operations/s a pipe, {rates[1]:.4g} "
+          f"dispatched = {rates_src}")
+    print(f"integer operations per key or draw, from the source: {INT_OPS}")
 
     from repro_torch.data.synthetic import overlapping_relations
     from repro_torch.kernels import bloom_build, bloom_probe, edge_sample
@@ -360,7 +440,7 @@ def main() -> int:
           f"oracle {truth}")
 
     # --- phase 3: kernels against their plain versions ---------------------
-    lines = kernel_phase(rels, torch)
+    lines = kernel_phase(rels, torch, rates)
 
     # --- phase 4: main path -----------------------------------------------
     wrappers = {"bloom_build": bloom_build.bloom_build_batched,

@@ -19,9 +19,21 @@ __device__ __forceinline__ uint32_t fmix32(uint32_t h) {
   return h;
 }
 
+// The half of hashing.hash2 that depends on the seed alone, so a kernel
+// whose keys share a seed mixes it once.
+__device__ __forceinline__ uint32_t mix_seed(uint32_t seed) {
+  return fmix32(seed * kGolden);
+}
+
+// hashing.hash2 of a key under a seed already mixed by mix_seed.
+__device__ __forceinline__ uint32_t hash2_premixed(uint32_t key,
+                                                   uint32_t mixed_seed) {
+  return fmix32(key ^ mixed_seed);
+}
+
 // hashing.hash2: fmix32(key ^ fmix32(seed * GOLDEN)).
 __device__ __forceinline__ uint32_t hash2(uint32_t key, uint32_t seed) {
-  return fmix32(key ^ fmix32(seed * kGolden));
+  return hash2_premixed(key, mix_seed(seed));
 }
 
 // hashing.counter_hash: the sampler's stateless draw.
@@ -44,6 +56,18 @@ __device__ __forceinline__ void lane_masks(uint32_t h, uint32_t m[8]) {
   m[5] = 1u << ((x * 0x2DF1424Bu) >> 27);
   m[6] = 1u << ((x * 0x9EFC4947u) >> 27);
   m[7] = 1u << ((x * 0x5C6BFB31u) >> 27);
+}
+
+// The 4 masks of one half of the block, lanes 4 half .. 4 half + 3, for a
+// build thread that shares its key with another thread writing the other
+// half.
+__device__ __forceinline__ void lane_masks_half(uint32_t h, int half,
+                                                uint32_t m[4]) {
+  const uint32_t x = fmix32(h * 0x85EBCA6Bu + 1u);
+  m[0] = 1u << ((x * (half ? 0x705495C7u : 0x47B6137Bu)) >> 27);
+  m[1] = 1u << ((x * (half ? 0x2DF1424Bu : 0x44974D91u)) >> 27);
+  m[2] = 1u << ((x * (half ? 0x9EFC4947u : 0x8824AD5Bu)) >> 27);
+  m[3] = 1u << ((x * (half ? 0x5C6BFB31u : 0xA2B7289Du)) >> 27);
 }
 
 }  // namespace repro

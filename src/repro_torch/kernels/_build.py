@@ -122,3 +122,10 @@ def require(name: str, t: torch.Tensor, dtype: torch.dtype, shape: tuple,
             f"{name}: want contiguous {dtype} {tuple(shape)} on {device}, got "
             f"{t.dtype} {tuple(t.shape)} on {t.device} "
             f"(contiguous={t.is_contiguous()})")
+
+
+def require_aligned(name: str, what: str, t: torch.Tensor, nbytes: int) -> None:
+    """Raise unless ``t``'s data starts on a multiple of ``nbytes``."""
+    if t.data_ptr() % nbytes:
+        raise ValueError(f"{name}: {what} must be {nbytes}-byte aligned, "
+                         f"starts at {t.data_ptr():#x}")

@@ -3,13 +3,25 @@
 
 Replaces the TPU kernel ``repro/kernels/bloom_build.py`` (``_kernel`` /
 ``bloom_hashes_batched``) together with the ``bloom.scatter_or`` commit its
-wrapper runs: TPU Pallas has no scatter atomics, Hopper does.  One thread per
-(slot, key) hashes the key and ``atomicOr``s its 8 lane bits into its block.
+wrapper runs: TPU Pallas has no scatter atomics, Hopper does.
 
-What bounds it on the card: bytes, 9 per key (int64 key + bool validity)
-plus one 32-byte filter block per key.  The filter (32 MiB at 2^24 keys and
-1% false positives) fits in the 50 MB L2, so the atomics resolve there and
-the words reach memory once.
+What held it back: the first Hopper version issued 8 32-bit ``atomicOr``
+per valid key, 134 M atomics for 2^24 keys, 1.6622 ms on an H100 80GB HBM3
+at 700 W (about 30x its byte bound): on the paper's microbenchmark each key
+repeats about 256 times, so the atomics queued on a few L2 words, and
+nearly all of them changed nothing.
+
+The kernel now reads each key's block (from L2, as the words change during
+the kernel) before any atomic, and commits only the bits the block lacks,
+with one 64-bit ``atomicOr`` per pair of lanes: at most 4 atomics per key,
+none once a key's bits are set.  Two threads share each key, each reading
+and committing one 16-byte half of its block, so a warp load asks for 16
+whole sectors; each thread has 4 keys' reads in flight, and the seed is
+mixed once per block.  What bounds it: bytes (9 per key, the 32-byte words
+once); the integer operations a key needs (hash, masks, the OR of its bits)
+take less time at the card's integer rates, and atomics are not in the
+bound (``chip_smoke.py`` computes both terms).  OR does not depend on
+order, so the words equal the plain version's bit for bit.
 
 The plain version is :func:`repro_torch.kernels.ref.bloom_build_ref`; a CPU
 tensor takes it, a CUDA tensor launches the kernel or raises.
@@ -50,6 +62,8 @@ def bloom_build_batched(keys: torch.Tensor, valid: torch.Tensor,
     words = torch.zeros((B, num_blocks, 8), dtype=torch.int32, device=dev)
     if B * n == 0:
         return words
+    # lanes are committed in pairs, as 8-byte words
+    _build.require_aligned("bloom_build", "words", words, 32)
     fn = _build.function("bloom_build", "bloom_build", "ppppiiip")
     with torch.cuda.device(dev):
         rc = fn(keys.data_ptr(), valid.data_ptr(), seeds.data_ptr(),

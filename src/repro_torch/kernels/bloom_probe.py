@@ -2,15 +2,21 @@
 
 Replaces the TPU kernel ``repro/kernels/bloom_probe.py`` (``_kernel`` /
 ``bloom_probe_batched``).  Every tuple of every input probes the join filter
-once (§3.1).  One thread per (slot, key) hashes the key, loads its 32-byte
-block as two 16-byte loads and compares the 8 lane bits; each slot probes its
-own filter.
+once (§3.1).  One thread per (slot, key) hashes the key under its slot's
+seed (mixed once per block), loads its 32-byte block as two 16-byte loads
+and compares the 8 lane bits; each slot probes its own filter.
 
 What bounds it on the card: bytes, 8 per key read, 1 per key written, plus
-one 32-byte sector of the filter per key.  The TPU kernel pins the stacked
-filters in VMEM and asserts they fit in 8 MiB; a Hopper block has 227 KB of
-shared memory and the join filter at 2^24 keys is 32 MiB, so the kernel
-reads it through the 50 MB L2 instead, and has no size limit of its own.
+the 32-byte words once; its integer operations take less time at the
+card's integer rates (``chip_smoke.py`` computes both).  More keys in
+flight did not make it faster on the paper's microbenchmark: 4 keys a
+thread, or two threads a key with 4 or 8 keys each, all took 0.17-0.21 ms
+for 2^24 keys on an H100 80GB HBM3 at 700 W, as this design does (see
+PERF.md).  The TPU kernel pins the stacked filters in VMEM and asserts they
+fit in 8 MiB; a Hopper block has 227 KB of shared memory and the join filter
+at 2^24 keys is 32 MiB, so the kernel reads it through L1 and the 50 MB L2
+instead, and has no size limit of its own.  ``words`` must be 32-byte
+aligned, so that each block is one sector.
 
 The plain version is :func:`repro_torch.kernels.ref.bloom_probe_ref`; a CPU
 tensor takes it, a CUDA tensor launches the kernel or raises.
@@ -43,8 +49,7 @@ def bloom_probe_batched(words: torch.Tensor, keys: torch.Tensor,
         raise ValueError(f"bloom_probe: num_blocks {nb} is not a power of 2")
     if B > 65535:
         raise ValueError(f"bloom_probe: at most 65535 slots, got {B}")
-    if words.data_ptr() % 16:
-        raise ValueError("bloom_probe: words must be 16-byte aligned")
+    _build.require_aligned("bloom_probe", "words", words, 32)
     out = torch.empty((B, n), dtype=torch.bool, device=dev)
     if B * n == 0:
         return out

@@ -19,7 +19,7 @@ from repro_torch.core.budget import QueryBudget
 from repro_torch.core.join import approx_join
 from repro_torch.core.relation import relation, sort_by_key
 from repro_torch.core.sampling import build_strata
-from repro_torch.kernels import bloom_build, bloom_probe, edge_sample
+from repro_torch.kernels import _build, bloom_build, bloom_probe, edge_sample
 
 pytestmark = pytest.mark.cuda
 
@@ -35,32 +35,46 @@ def card():
     return torch.device("cuda")
 
 
-def _keys(B, n, seed, device):
+def _keys(B, n, seed, device, kind="random"):
+    """[B, n] int64 keys holding uint32 values: random, all distinct, or 16
+    distinct values repeated (the contended case of the build)."""
     rng = np.random.default_rng(seed)
-    return torch.as_tensor(rng.integers(0, 2**32, (B, n)).astype(np.int64),
-                           device=device)
+    if kind == "distinct":
+        k = (np.arange(B * n, dtype=np.uint64) * 0x9E3779B1 + seed) % 2**32
+    elif kind == "dup16":
+        k = rng.integers(0, 2**32, 16)[rng.integers(0, 16, B * n)]
+    else:
+        k = rng.integers(0, 2**32, B * n)
+    return torch.as_tensor(k.astype(np.int64).reshape(B, n), device=device)
 
 
-@pytest.mark.parametrize("B,n", [(1, 1), (1, 5000), (3, 70001)])
-def test_build_and_hashes_match_plain(card, B, n):
-    keys = _keys(B, n, n, card)
+# A warp of the build takes 64 consecutive rows of a slot, 4 keys a lane
+# pair: (3, 70001) puts slots 1 and 2 on odd rows (keys off a 16-byte
+# boundary), (2, 3) has n below 4.
+@pytest.mark.parametrize("B,n,kind", [
+    (1, 1, "random"), (1, 5000, "random"), (3, 70001, "random"),
+    (2, 3, "random"), (1, 2**20, "dup16"), (2, 2**20 + 1, "distinct")])
+def test_build_and_hashes_match_plain(card, B, n, kind):
+    keys = _keys(B, n, n, card, kind)
     valid = torch.as_tensor(np.random.default_rng(B).random((B, n)) > 0.2,
                             device=card)
     seeds = torch.tensor(SEEDS[:B], device=card)
     nb = num_blocks_for(n, 0.01)
     words = bloom_build.bloom_build_batched(keys, valid, nb, seeds)
     torch.cuda.synchronize()
-    assert torch.equal(words.cpu(), bloom_build.bloom_build_ref(
-        keys.cpu(), valid.cpu(), nb, seeds.cpu()))
+    assert torch.equal(words, bloom_build.bloom_build_ref(keys, valid, nb,
+                                                          seeds))
     blk, masks = bloom_build.bloom_hashes_batched(keys, seeds, nb)
     rblk, rmasks = bloom_build.bloom_hashes_ref(keys, nb, seeds)
     assert torch.equal(blk, rblk) and torch.equal(masks, rmasks)
 
 
-@pytest.mark.parametrize("B,n", [(1, 3), (3, 40000)])
-def test_probe_matches_plain(card, B, n):
+@pytest.mark.parametrize("B,n,kind", [
+    (1, 3, "random"), (3, 40000, "random"), (3, 40001, "random"),
+    (1, 2**20, "dup16"), (2, 2**20, "distinct")])
+def test_probe_matches_plain(card, B, n, kind):
     seeds = torch.tensor(SEEDS[:B], device=card)
-    built = _keys(B, n, 1, card)
+    built = _keys(B, n, 1, card, kind)
     nb = num_blocks_for(n, 0.05)
     words = bloom_build.bloom_build_batched(
         built, torch.ones_like(built, dtype=torch.bool), nb, seeds)
@@ -126,7 +140,14 @@ def test_wrappers_raise_on_what_the_kernel_does_not_take(card):
         bloom_build.bloom_build_batched(keys.int(), keys > 0, 64,
                                         torch.zeros(1, dtype=torch.int64,
                                                     device=card))
+    seed = torch.zeros(1, dtype=torch.int64, device=card)
     with pytest.raises(ValueError, match="power of 2"):
         bloom_probe.bloom_probe_batched(
-            torch.zeros((1, 3, 8), dtype=torch.int32, device=card), keys,
-            torch.zeros(1, dtype=torch.int64, device=card))
+            torch.zeros((1, 3, 8), dtype=torch.int32, device=card), keys, seed)
+    # blocks 16 bytes off a 32-byte boundary would each span two sectors,
+    # and the build commits lanes in 8-byte pairs
+    flat = torch.zeros(64 * 8 + 4, dtype=torch.int32, device=card)
+    with pytest.raises(ValueError, match="32-byte aligned"):
+        bloom_probe.bloom_probe_batched(flat[4:].view(1, 64, 8), keys, seed)
+    with pytest.raises(ValueError, match="32-byte aligned"):
+        _build.require_aligned("bloom_build", "words", flat[4:], 32)

@@ -54,9 +54,16 @@ def test_bloom_hashes_plain_matches_pallas(B):
                                   tmasks.numpy())
 
 
-@pytest.mark.parametrize("B,n", [(1, 3000), (3, 2048)])
-def test_build_filter_plain_matches_pallas(B, n):
+# 8192 rows over 16 keys: the repeated keys the CUDA build is designed for
+@pytest.mark.parametrize("B,n,n_keys", [
+    pytest.param(1, 3000, None, id="1-3000"),
+    pytest.param(3, 2048, None, id="3-2048"),
+    pytest.param(1, 8192, 16, id="1-8192-16keys")])
+def test_build_filter_plain_matches_pallas(B, n, n_keys):
     keys = _keys(B, n, 10 + B)
+    if n_keys:
+        keys = _keys(1, n_keys, n)[0][
+            np.random.default_rng(n).integers(0, n_keys, (B, n))]
     valid = np.random.default_rng(B).random((B, n)) > 0.25
     seeds = np.asarray(SEEDS[:B], np.uint32)
     nb = tbloom.num_blocks_for(n, 0.01)
