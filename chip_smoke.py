@@ -15,10 +15,12 @@ Phases, each of which fails the run (non-zero exit, no result line):
    the shapes the main path gives it (B = 1), and a B = 4 batch with mixed
    seeds against four B = 1 calls; filter words, probe masks and draw counts
    must match exactly, the float sums within rtol 1e-5 (atol 1e-3), since
-   they add in another order.  Times each (CUDA events, median of 20 after
-   warm-up) beside its bound: the larger of its bytes over the memory rate
-   and its operations over the float32 and integer rates.  The build is
-   also checked and timed on 2^24 distinct keys, where every key commits;
+   they add in another order, and two edge_sample launches bit for bit.
+   Times each on the device (CUDA-graph replays) and from the host, beside
+   its bound: the larger of its bytes over the memory rate and its
+   operations over the float32 and integer rates.  The build is also
+   checked and timed on 2^24 distinct keys, where every key commits, and
+   edge_sample on the strata of two Zipf(1.5)-skewed relations;
 4. main path: ``approx_join(..., use_kernels=True)`` on two relations of
    2^24 rows (an exact SUM, a sampled SUM twice under one SigmaRegistry, a
    sampled AVG, a sampled SUM of products, twice over), checked against a
@@ -34,8 +36,10 @@ script copied into it), it times that commit's kernels the same way.
 
 from __future__ import annotations
 
+import ctypes
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -58,6 +62,11 @@ F32_FLOPS = 67e12          # H100 SXM float32 rate outside the tensor cores
 # dispatched a clock
 INT_LANES_PER_SM = 64
 DISPATCH_LANES_PER_SM = 128
+# edge_sample's sampler (csrc/edge_sample.cu): warps a block (kWarps), and
+# the draws a warp takes at once (kWarpDraws), above which a stratum takes
+# a block
+SAMPLER_WARPS = 4
+WARP_DRAWS = 256
 REPS = 20
 PLAIN_REPS = 10
 MIXED_SEEDS = (0, 1, 0x9E3779B1, 0xFFFFFFFF)
@@ -72,6 +81,20 @@ def fail(msg: str):
 def check(cond, msg: str) -> None:
     if not cond:
         fail(msg)
+
+
+def entry_name(mangled: str) -> str:
+    """A kernel's own name from its C++-mangled one
+    (``_ZN12_GLOBAL__N_113plan_kernelE...`` -> ``plan_kernel``)."""
+    if not mangled.startswith("_Z"):
+        return mangled
+    i, name = (3 if mangled.startswith("_ZN") else 2), mangled
+    while i < len(mangled) and mangled[i].isdigit():
+        j = i
+        while mangled[j].isdigit():
+            j += 1
+        name, i = mangled[j:j + int(mangled[i:j])], j + int(mangled[i:j])
+    return name
 
 
 def time_ms(fn, reps: int) -> float:
@@ -90,6 +113,35 @@ def time_ms(fn, reps: int) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def kernel_ms(fn, reps: int = REPS, inner: int = 10):
+    """(device ms of one call of ``fn``, ms of one call as ``time_ms`` sees
+    it).  The first is the median over ``reps`` of ``inner`` back-to-back
+    replays of a CUDA graph of ``fn`` between two events: the device's time,
+    gaps between the call's launches included, without the host's time to
+    issue them.  The second times one call from the host, the wrapper's
+    Python included when the device waits for it."""
+    import torch
+    call = time_ms(fn, reps)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    for _ in range(2):
+        graph.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(inner):
+            graph.replay()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / inner)
+    del graph
+    return statistics.median(times), call
 
 
 def int_rates(torch):
@@ -122,25 +174,37 @@ def int_rates(torch):
 #     8 x (multiply, shift, 1 << s): 22 alu, 11 fma;
 #   bloom_build: + validity test, 8 ORs of the lanes' bits: 9 alu;
 #   bloom_probe: + 8 x (mask & ~word, OR-ed together), test for 0: 9 alu;
-#   edge_sample: t * GOLDEN, + 1 for side 1: 2 fma; per side 3 fmix32, 2
-#     xors and % by the stratum's count (multiply-high, multiply-subtract,
-#     2 compares, 2 conditional subtractions): 22 alu, 10 fma; the draw
-#     counter's add and compare with b_max: 1 fma, 1 alu.
+#   edge_sample, per draw: counter_hash(seed, key, t, side) is three
+#     fmix32 rounds, but x -> x ^ (x >> 16) is its own inverse, so the last
+#     step of one round and the first of the next, around the xor with the
+#     key's or the seed's term, make one xor with a per-stratum constant
+#     (csrc/edge_sample.cu finish_hash).  Per side: that xor, a round's
+#     middle (multiply, shift, xor, multiply), the xor with the seed's
+#     constant, a round's middle, the last shift and xor: 8 alu, 4 fma; % by
+#     the segment's count (multiply-high by the stratum's magic number,
+#     multiply-add, add, min): 1 alu, 3 fma; per draw the counter's add and
+#     compare: 1 fma, 1 alu;
+#   edge_sample, once per (draw counter t < b_max, side) of a launch
+#     (INT_OPS_PER_LAUNCH): t * GOLDEN + side and the first round up to its
+#     last step, which depend on neither the stratum nor the seed: 4 alu,
+#     4 fma.
 INT_OPS = {"bloom_build": dict(alu=39, fma=13),
            "bloom_probe": dict(alu=39, fma=13),
-           "edge_sample": dict(alu=45, fma=23)}
+           "edge_sample": dict(alu=19, fma=15)}
+INT_OPS_PER_LAUNCH = {"edge_sample": dict(alu=4, fma=4)}
 
 
-def bound(rates, nbytes: float, flops: float = 0.0, alu: float = 0.0,
-          fma: float = 0.0):
+def bound(rates, nbytes: float, flops: float = 0.0, float_instr: float = 0.0,
+          alu: float = 0.0, fma: float = 0.0):
     """(least ms the card could take, what bounds it): the larger of the
     bytes over the memory rate, the float operations over the float32 rate,
-    each integer pipe's operations over its rate, and all operations (one
-    instruction each) over the dispatch rate."""
+    each integer pipe's operations over its rate, and all instructions (the
+    integer operations and ``float_instr`` float ones, an FFMA being two
+    flops in one) over the dispatch rate."""
     pipe, dispatch = rates
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = max(flops / F32_FLOPS, alu / pipe, fma / pipe,
-                (alu + fma + flops) / dispatch) * 1e3
+                (alu + fma + float_instr) / dispatch) * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -163,17 +227,127 @@ def oracle(rels):
                 product=float(np.sum(s1 * s2)))
 
 
+def edge_sample_case(label, rels, torch, line, whole_rounds=False):
+    """edge_sample on the strata of ``rels`` and the pilot sizes of
+    QueryBudget(error=0.01), as the sampled SUM's first request gives them:
+    n exact and the sums within tolerance of the plain version, a B = 4
+    batch with mixed seeds equal to four B = 1 calls, timed beside its
+    bound.  Prints the sampler's grid and the strata each of its blocks and
+    warps takes; with ``whole_rounds`` (every drawing stratum taking a
+    block) also times the call cut to whole rounds of the grid, to show what
+    the last, partly empty round costs.  Returns (its kernels-line entry,
+    its draws)."""
+    from repro_torch.core import bloom
+    from repro_torch.core.budget import QueryBudget
+    from repro_torch.core.join import (decide_sample_sizes,
+                                       prepare_stage_kernels)
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import edge_sample as ke
+
+    dev = rels[0].keys.device
+    nb = bloom.num_blocks_for(ROWS, 0.01)
+    prep = prepare_stage_kernels(rels, nb, MAX_STRATA, SEED)
+    st = prep.strata
+    b_i = decide_sample_sizes(QueryBudget(error=0.01), st, None, 0.0, None,
+                              0.95)
+    v1, v2 = (r.values[None] for r in prep.sorted_rels)
+    ops = [x[None].contiguous() for x in (st.keys, st.starts[0], st.counts[0],
+                                          st.starts[1], st.counts[1],
+                                          st.joinable, b_i)]
+    seed_s = torch.tensor([SEED + 1], device=dev)
+    seeds4 = torch.tensor(MIXED_SEEDS, device=dev)
+    out_k = ke.edge_sample_batched(v1, v2, *ops, seed_s, B_MAX)
+    out_p = ke.edge_sample_ref(v1, v2, *ops, B_MAX, seed_s)
+    check(torch.equal(out_k[0], out_p[0]),
+          f"edge_sample {label}: n_sampled != plain")
+    for got, want, what in zip(out_k[1:], out_p[1:], ("sum_f", "sum_f2")):
+        check(torch.allclose(got, want, rtol=1e-5, atol=1e-3),
+              f"edge_sample {label}: {what} != plain")
+    again = ke.edge_sample_batched(v1, v2, *ops, seed_s, B_MAX)
+    check(all(torch.equal(a, b) for a, b in zip(out_k, again)),
+          f"edge_sample {label}: two launches differ")
+    draws = float(out_k[0].sum())
+    check(draws > 0, f"edge_sample {label}: drew nothing")
+    rep4 = lambda x: x.expand(4, -1).contiguous()  # noqa: E731
+    out4 = ke.edge_sample_batched(rep4(v1), rep4(v2), *map(rep4, ops),
+                                  seeds4, B_MAX)
+    for b in range(4):
+        one = ke.edge_sample_batched(v1, v2, *ops, seeds4[b:b + 1], B_MAX)
+        for got, want in zip(out4, one):
+            check(torch.equal(got[b:b + 1], want),
+                  f"edge_sample {label}: B=4 slot {b} != B=1 call")
+    ms, call_ms = kernel_ms(
+        lambda: ke.edge_sample_batched(v1, v2, *ops, seed_s, B_MAX))
+    plain_ms = time_ms(lambda: ke.edge_sample_ref(v1, v2, *ops, B_MAX, seed_s),
+                       PLAIN_REPS)
+    # the same call with no stratum joinable: what a launch costs before
+    # and beside its draws
+    idle = [*ops[:5], torch.zeros_like(ops[5]), ops[6]]
+    idle_ms, _ = kernel_ms(
+        lambda: ke.edge_sample_batched(v1, v2, *idle, seed_s, B_MAX))
+    # bytes: each stratum's operands and results, and per side the values a
+    # joinable stratum's draws need, min(draws, count) of them
+    join = st.joinable
+    n_i = out_k[0][0]
+    gathered = sum(float(torch.minimum(n_i, c.float())[join].sum()) * 4
+                   for c in (st.counts[0], st.counts[1]))
+    S = st.keys.shape[0]
+    nbytes = S * (8 + 4 * 8 + 1 + 4) + 8 + gathered + S * 3 * 4
+    err = max(float((a - b).abs().max()) for a, b in zip(out_k, out_p))
+    # float work a draw: f (an add or a multiply), sum += f and sum2 += f * f
+    # (one FFMA): 4 flops in 3 instructions
+    ln = line("edge_sample", err, ms, call_ms, plain_ms, nbytes, draws,
+              flops=4 * draws, float_instr=3 * draws, per_launch=2 * B_MAX)
+    d = n_i[join]
+    print(f"edge_sample {label}: {int(join.sum())} joinable strata, draws "
+          f"{draws:.0f}, per joinable stratum min {float(d.min()):.0f} median "
+          f"{float(d.median()):.0f} max {float(d.max()):.0f}, "
+          f"{int((d == B_MAX).sum())} draw b_max; values read "
+          f"{gathered / 1e6:.3f} MB; {idle_ms:.4f} ms on the device with "
+          f"no stratum joinable")
+    # the sampler's persistent grid: a stratum of more draws than a warp
+    # takes at once goes to a block, the others to a warp, in turn (an
+    # older kernel without a persistent sampler exports no grid)
+    if not hasattr(_build.load("edge_sample"), "edge_sample_grid_blocks"):
+        return ln, draws
+    blocks = _build.function("edge_sample", "edge_sample_grid_blocks", "",
+                             ctypes.c_int64)()
+    warps = blocks * SAMPLER_WARPS
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    by_block = int((n_i > WARP_DRAWS).sum())
+    by_warp = int(((n_i > 0) & (n_i <= WARP_DRAWS)).sum())
+    print(f"edge_sample {label}: sampler grid {blocks} blocks ({blocks / sms:g} "
+          f"an SM) of {SAMPLER_WARPS} warps; {by_block} strata a block "
+          f"(mean {by_block / blocks:.2f}, most {-(-by_block // blocks)} a "
+          f"block), {by_warp} strata a warp (mean {by_warp / warps:.2f}, most "
+          f"{-(-by_warp // warps)} a warp)")
+    if whole_rounds:
+        check(by_warp == 0 and by_block >= blocks,
+              f"edge_sample {label}: not every drawing stratum takes a block")
+        kept = by_block // blocks * blocks
+        cut = ops[5].clone()
+        cut[0, torch.nonzero(cut[0])[kept:, 0]] = False
+        cut_ops = [*ops[:5], cut, ops[6]]
+        cut_ms, _ = kernel_ms(
+            lambda: ke.edge_sample_batched(v1, v2, *cut_ops, seed_s, B_MAX))
+        balanced = idle_ms + (cut_ms - idle_ms) * by_block / kept
+        print(f"edge_sample {label}: cut to {kept} strata ({kept // blocks} "
+              f"whole rounds) {cut_ms:.4f} ms on the device; {by_block} "
+              f"strata spread evenly would take {balanced:.4f} ms, so the "
+              f"last round's tail costs {ms - balanced:.4f} ms of the "
+              f"{ms - 2 * ln['bound_ms']:.4f} ms between this call and twice "
+              f"its bound")
+    return ln, draws
+
+
 def kernel_phase(rels, torch, rates):
     """Phase 3: each kernel against its plain version at main-path shapes,
     timed beside its bound (``rates``: the integer pipe and dispatch rates)."""
     from repro_torch.core import bloom
-    from repro_torch.core.budget import QueryBudget
     from repro_torch.core.hashing import fmix32
-    from repro_torch.core.join import (decide_sample_sizes,
-                                       prepare_stage_kernels)
+    from repro_torch.data.synthetic import skewed_relation
     from repro_torch.kernels import bloom_build as kb
     from repro_torch.kernels import bloom_probe as kp
-    from repro_torch.kernels import edge_sample as ke
 
     dev = rels[0].keys.device
     nb = bloom.num_blocks_for(ROWS, 0.01)
@@ -183,16 +357,20 @@ def kernel_phase(rels, torch, rates):
     valid = [r.valid[None] for r in rels]
     lines = []
 
-    def int_ops(name, items):
-        return {pipe: items * n for pipe, n in INT_OPS[name].items()}
+    def int_ops(name, items, per_launch=0):
+        once = INT_OPS_PER_LAUNCH.get(name, {})
+        return {pipe: items * n + per_launch * once.get(pipe, 0)
+                for pipe, n in INT_OPS[name].items()}
 
-    def line(name, err, ms, plain_ms, nbytes, items, flops=0.0):
-        ops = int_ops(name, items)
-        b_ms, b_by = bound(rates, nbytes, flops, **ops)
+    def line(name, err, ms, call_ms, plain_ms, nbytes, items, flops=0.0,
+             float_instr=0.0, per_launch=0):
+        ops = int_ops(name, items, per_launch)
+        b_ms, b_by = bound(rates, nbytes, flops, float_instr, **ops)
         return dict(name=name, route="cuda",
                     source=f"src/repro_torch/csrc/{name}.cu",
                     replaces=f"src/repro/kernels/{name}.py:{REPLACES[name]}",
-                    max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                    max_abs_err=err, ms=ms, call_ms=call_ms,
+                    plain_ms=plain_ms, bound_ms=b_ms,
                     bound_by=b_by, bound_ops=sum(ops.values()),
                     share_of_bound=b_ms / ms,
                     library_ms=None)
@@ -210,14 +388,15 @@ def kernel_phase(rels, torch, rates):
                                      seeds4[b:b + 1])
         check(torch.equal(words4[b:b + 1], one),
               f"bloom_build B=4 slot {b} != B=1 call")
-    ms = time_ms(lambda: kb.bloom_build_batched(keys[0], valid[0], nb, seed1),
-                 REPS)
+    ms, call_ms = kernel_ms(
+        lambda: kb.bloom_build_batched(keys[0], valid[0], nb, seed1))
     plain_ms = time_ms(
         lambda: kb.bloom_build_ref(keys[0], valid[0], nb, seed1), PLAIN_REPS)
     n_valid = float(valid[0].sum())
     lines.append(line("bloom_build",
                       float((words_k[0].long() - words_p.long()).abs().max()),
-                      ms, plain_ms, ROWS * (8 + 1) + 8 + nb * 32, n_valid))
+                      ms, call_ms, plain_ms, ROWS * (8 + 1) + 8 + nb * 32,
+                      n_valid))
     # the worst case for committing only missing bits: 2^24 distinct keys
     # (fmix32 is a bijection), every one of which must commit
     dkeys = fmix32(torch.arange(ROWS, device=dev))[None]
@@ -225,12 +404,12 @@ def kernel_phase(rels, torch, rates):
     check(torch.equal(kb.bloom_build_batched(dkeys, dvalid, nb, seed1),
                       kb.bloom_build_ref(dkeys, dvalid, nb, seed1)),
           "bloom_build words != plain on distinct keys")
-    d_ms = time_ms(lambda: kb.bloom_build_batched(dkeys, dvalid, nb, seed1),
-                   REPS)
-    d_bound, d_by = bound(rates, ROWS * (8 + 1) + 8 + nb * 32, 0.0,
+    d_ms, _ = kernel_ms(
+        lambda: kb.bloom_build_batched(dkeys, dvalid, nb, seed1))
+    d_bound, d_by = bound(rates, ROWS * (8 + 1) + 8 + nb * 32,
                           **int_ops("bloom_build", ROWS))
-    print(f"kernel bloom_build on {ROWS} distinct keys: {d_ms:.4f} ms "
-          f"(bound {d_bound:.4f} ms by {d_by})")
+    extra = [f"kernel bloom_build on {ROWS} distinct keys: {d_ms:.4f} ms "
+             f"(bound {d_bound:.4f} ms by {d_by})"]
 
     # --- bloom_probe: one input's keys against the join filter ---------
     jwords = words_k[0] & words_k[1]
@@ -246,58 +425,42 @@ def kernel_phase(rels, torch, rates):
               f"bloom_probe B=4 slot {b} != B=1 call")
         check(bool(one[valid4[b:b + 1]].all()),
               f"bloom_probe slot {b}: a built key missed")
-    ms = time_ms(lambda: kp.bloom_probe_batched(jwords, keys[0], seed1), REPS)
+    ms, call_ms = kernel_ms(
+        lambda: kp.bloom_probe_batched(jwords, keys[0], seed1))
     plain_ms = time_ms(lambda: kp.bloom_probe_ref(jwords, keys[0], seed1),
                        PLAIN_REPS)
     lines.append(line("bloom_probe",
                       float((mask_k.int() - mask_p.int()).abs().max()),
-                      ms, plain_ms, ROWS * 8 + nb * 32 + 8 + ROWS * 1,
+                      ms, call_ms, plain_ms, ROWS * 8 + nb * 32 + 8 + ROWS * 1,
                       ROWS))
 
     # --- edge_sample: the sampled SUM's first (pilot) request ----------
-    prep = prepare_stage_kernels(rels, nb, MAX_STRATA, SEED)
-    st = prep.strata
-    b_i = decide_sample_sizes(QueryBudget(error=0.01), st, None, 0.0, None,
-                              0.95)
-    v1, v2 = (r.values[None] for r in prep.sorted_rels)
-    ops = [x[None].contiguous() for x in (st.keys, st.starts[0], st.counts[0],
-                                          st.starts[1], st.counts[1],
-                                          st.joinable, b_i)]
-    seed_s = torch.tensor([SEED + 1], device=dev)
-    out_k = ke.edge_sample_batched(v1, v2, *ops, seed_s, B_MAX)
-    out_p = ke.edge_sample_ref(v1, v2, *ops, B_MAX, seed_s)
-    check(torch.equal(out_k[0], out_p[0]), "edge_sample n_sampled != plain")
-    for got, want, what in zip(out_k[1:], out_p[1:], ("sum_f", "sum_f2")):
-        check(torch.allclose(got, want, rtol=1e-5, atol=1e-3),
-              f"edge_sample {what} != plain")
-    draws = float(out_k[0].sum())
-    check(draws > 0, "edge_sample drew nothing")
-    rep4 = lambda x: x.expand(4, -1).contiguous()  # noqa: E731
-    out4 = ke.edge_sample_batched(rep4(v1), rep4(v2), *map(rep4, ops),
-                                  seeds4, B_MAX)
-    for b in range(4):
-        one = ke.edge_sample_batched(v1, v2, *ops, seeds4[b:b + 1], B_MAX)
-        for got, want in zip(out4, one):
-            check(torch.equal(got[b:b + 1], want),
-                  f"edge_sample B=4 slot {b} != B=1 call")
-    ms = time_ms(lambda: ke.edge_sample_batched(v1, v2, *ops, seed_s, B_MAX),
-                 REPS)
-    plain_ms = time_ms(lambda: ke.edge_sample_ref(v1, v2, *ops, B_MAX, seed_s),
-                       PLAIN_REPS)
-    S = st.keys.shape[0]
-    gathered = sum(min(draws, v.shape[1]) * 4 for v in (v1, v2))
-    err = max(float((a - b).abs().max()) for a, b in zip(out_k, out_p))
-    lines.append(line("edge_sample", err, ms, plain_ms,
-                      S * (8 + 4 * 8 + 1 + 4) + 8 + gathered + S * 3 * 4,
-                      draws, flops=5 * draws))
+    # on the main path's strata (uniform: every joinable stratum draws
+    # b_max) and on two Zipf-skewed relations; the line is the uniform one
+    uniform, draws = edge_sample_case("uniform", rels, torch, line,
+                                      whole_rounds=True)
+    lines.append(uniform)
+    skewed_rels = [skewed_relation(ROWS, KEYS_PER_DATASET, zipf_a=1.5, lam=10,
+                                   seed=s, device=dev) for s in (1, 2)]
+    skewed, _ = edge_sample_case("skewed", skewed_rels, torch, line)
+    del skewed_rels
+    extra.append(
+        f"kernel edge_sample on skewed strata: {skewed['ms']:.4f} ms on the "
+        f"device, {skewed['call_ms']:.4f} ms a call from the host (bound "
+        f"{skewed['bound_ms']:.4f} ms by {skewed['bound_by']}, "
+        f"{100 * skewed['share_of_bound']:.1f}% of it), plain "
+        f"{skewed['plain_ms']:.4f} ms, max_abs_err {skewed['max_abs_err']}")
     for ln in lines:
-        print(f"kernel {ln['name']}: {ln['ms']:.4f} ms (bound "
+        print(f"kernel {ln['name']}: {ln['ms']:.4f} ms on the device, "
+              f"{ln['call_ms']:.4f} ms a call from the host (bound "
               f"{ln['bound_ms']:.4f} ms by {ln['bound_by']}, "
               f"{100 * ln['share_of_bound']:.1f}% of it; "
               f"{ln['bound_ops']:.4g} int ops), plain {ln['plain_ms']:.4f} "
               f"ms, max_abs_err {ln['max_abs_err']}")
-    print(f"kernel shapes: rows {ROWS}, num_blocks {nb}, strata {S}, "
-          f"b_max {B_MAX}, draws {draws:.0f}")
+    for msg in extra:
+        print(msg)
+    print(f"kernel shapes: rows {ROWS}, num_blocks {nb}, strata "
+          f"{MAX_STRATA}, b_max {B_MAX}, draws {draws:.0f}")
     return lines
 
 
@@ -421,13 +584,18 @@ def main() -> int:
     report = _build.build()
     print(f"build: {time.perf_counter() - t0:.1f} s for {sorted(report)}")
     for name, (_, log) in sorted(report.items()):
+        entry = "?"
         for line in log.splitlines():
-            if "Used" in line or "spill" in line:
-                print(f"  {name}: {line.strip()}")
+            m = re.search(r"Compiling entry function '(\w+)'", line)
+            if m:
+                entry = entry_name(m.group(1))
+            elif "Used" in line or "spill" in line:
+                print(f"  {name} {entry}: {line.strip()}")
     *rates, rates_src = int_rates(torch)
     print(f"integer rates: {rates[0]:.4g} operations/s a pipe, {rates[1]:.4g} "
           f"dispatched = {rates_src}")
-    print(f"integer operations per key or draw, from the source: {INT_OPS}")
+    print(f"integer operations per key or draw, from the source: {INT_OPS}; "
+          f"per draw counter and side of a launch: {INT_OPS_PER_LAUNCH}")
 
     from repro_torch.data.synthetic import overlapping_relations
     from repro_torch.kernels import bloom_build, bloom_probe, edge_sample

@@ -93,13 +93,13 @@ def load(name: str) -> ctypes.CDLL:
 
 
 @functools.cache
-def function(lib: str, fn: str, argspec: str):
+def function(lib: str, fn: str, argspec: str, restype=ctypes.c_int):
     """C entry point ``fn`` of library ``lib``; ``argspec`` has one letter
     per argument: ``p`` for a pointer or the stream, ``i`` for an int64."""
     f = getattr(load(lib), fn)
     f.argtypes = [ctypes.c_void_p if c == "p" else ctypes.c_int64
                   for c in argspec]
-    f.restype = ctypes.c_int
+    f.restype = restype
     return f
 
 

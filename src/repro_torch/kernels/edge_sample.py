@@ -2,23 +2,32 @@
 (``csrc/edge_sample.cu``).
 
 Replaces the TPU kernel ``repro/kernels/edge_sample.py`` (``_kernel`` /
-``edge_sample_batched``).  One warp per (slot, stratum): its lanes stride
-over the draws ``t < min(b_max, b_i)`` of a joinable stratum, hash each draw
-into both sides' segments, gather the two values, form ``f`` and keep
-``n``, ``sum f`` and ``sum f^2`` in registers, then reduce with warp
-shuffles.  No ``[S, b_max]`` tile exists, and a masked draw reads nothing.
+``edge_sample_batched``).  A joinable stratum draws the ``n_i`` draws
+``t < b_max`` with ``float(t) < b_i``; each draw hashes into both sides'
+segments, gathers the two values and forms ``f``; the kernel returns ``n``,
+``sum f`` and ``sum f^2`` per stratum.  No ``[S, b_max]`` tile exists, and a
+masked draw reads nothing.
 
-What bounds it on the card: bytes, as random 4-byte gathers (two per draw)
-from the sorted value arrays, plus 45 bytes of operands and 12 of results
-per stratum.  The TPU kernel pins both value arrays in VMEM and asserts they
-fit in 8 MiB; at 2^24 rows per side they are 64 MiB each, so here they stay
-in global memory and the gathers go through L2.
+What bounds it on the card: operations, per draw the rest of two counter
+hashes and two remainders, and each stratum's chain of dependent steps; its
+bytes need far less time.  A plan kernel lists the drawing strata with
+their operands in a compact list and writes zeros for the others; a
+persistent grid then gives a stratum of more than 256 draws a block of 4
+warps and the others a warp each, 8 draws a thread at once so 16 gathers are
+in flight.  The draw counter's hash round comes from a table made once per
+launch, the rounds' meeting xor-shifts cancel, and ``h % count`` is a
+multiply-high by a per-stratum magic number.  The sums are added in a fixed
+order whichever block or warp takes a stratum, so the results are
+deterministic: two launches agree bit for bit, and a ``B``-slot launch
+equals ``B`` one-slot launches.
 
 The plain version is :func:`repro_torch.kernels.ref.edge_sample_ref`; a CPU
 tensor takes it, a CUDA tensor launches the kernel or raises.
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
@@ -61,21 +70,26 @@ def edge_sample_batched(values1: torch.Tensor, values2: torch.Tensor,
     req("edge_sample", joinable, torch.bool, (B, S), dev)
     req("edge_sample", b_i, torch.float32, (B, S), dev)
     req("edge_sample", seeds, torch.int64, (B,), dev)
-    if not 0 <= b_max < 2**31:
-        raise ValueError(f"edge_sample: b_max {b_max} out of range")
-    if B > 65535:
-        raise ValueError(f"edge_sample: at most 65535 slots, got {B}")
+    if not 0 <= b_max <= 2**24:
+        # every t < b_max is a float32, so n_sampled is exact
+        raise ValueError(f"edge_sample: b_max {b_max} not in [0, 2^24]")
+    if max(n1, n2, B * S) >= 2**31:
+        raise ValueError("edge_sample: values and B * S must stay below 2^31")
     out = torch.empty((3, B, S), dtype=torch.float32, device=dev)
     if B * S == 0:
         return out[0], out[1], out[2]
-    fn = _build.function("edge_sample", "edge_sample", "ppiippppppppiiiipppp")
+    nbytes = _build.function("edge_sample", "edge_sample_scratch_bytes", "iii",
+                             ctypes.c_int64)(B, S, b_max)
+    scratch = torch.empty(nbytes, dtype=torch.uint8, device=dev)
+    fn = _build.function("edge_sample", "edge_sample",
+                         "ppiippppppppiiiippppp")
     with torch.cuda.device(dev):
         rc = fn(values1.data_ptr(), values2.data_ptr(), n1, n2,
                 keys.data_ptr(), start1.data_ptr(), count1.data_ptr(),
                 start2.data_ptr(), count2.data_ptr(), joinable.data_ptr(),
                 b_i.data_ptr(), seeds.data_ptr(), B, S, b_max,
                 int(expr == "product"), out[0].data_ptr(), out[1].data_ptr(),
-                out[2].data_ptr(), _build.stream(dev))
+                out[2].data_ptr(), scratch.data_ptr(), _build.stream(dev))
     edge_sample_batched.launches += 1
     _build.check(rc, "edge_sample")
     return out[0], out[1], out[2]

@@ -84,28 +84,89 @@ def test_probe_matches_plain(card, B, n, kind):
     assert bool(got[:, :n].all())
 
 
-@pytest.mark.parametrize("expr", ["sum", "product"])
-def test_edge_sample_matches_plain(card, expr):
+# (strata S, b_max, keys per side and rows) of each edge-sample case:
+# mixed: overlapping key ranges, b_i uniform in [0, 400); bi_edges: b_i at
+# the mask's edges; count1: every key of side 2 once; absent: side 1's upper
+# keys missing from side 2 (start at its end); garbage: non-joinable strata
+# with starts and counts pointing anywhere; full: every stratum draws b_max
+# (the smoke's shape, smaller); zipf: Zipf(1.5) keys, pilot-sized b_i;
+# odd / odd_big: b_max above one chunk and not a multiple of any; huge: a
+# b_max that takes several rounds a chunk.
+EDGE_CASES = {
+    "mixed": (700, 300), "bi_edges": (700, 128), "count1": (700, 300),
+    "absent": (700, 300), "garbage": (700, 300), "full": (200, 2048),
+    "zipf": (4096, 2048), "odd": (1000, 2049), "odd_big": (1000, 5000),
+    "huge": (64, 20000)}
+BI_EDGES = (0.0, -1.0, -0.5, 0.3, 1.0, 7.0, 7.5, 127.0, 127.5, 128.0, 129.0,
+            1e30, float("inf"), float("nan"))
+
+
+def _edge_side(rng, case, side):
+    """(uint32 keys, float32 values) of one side of a case."""
+    if case == "zipf":
+        k = np.minimum(rng.zipf(1.5, 1 << 17), 1 << 12) - 1
+    elif case in ("full", "huge"):
+        k = np.repeat(np.arange(EDGE_CASES[case][0]), 160)
+    elif case == "count1" and side == 1:
+        k = rng.permutation(np.arange(300, 1000))
+    else:
+        lo, hi = {"absent": ((300, 1000), (0, 700))}.get(
+            case, ((0, 600), (300, 1000)))[side]
+        k = rng.integers(lo, hi, 20000)
+    v = rng.normal((10.0, 5.0)[side], 2, k.size)
+    return k.astype(np.uint32), v.astype(np.float32)
+
+
+def _edge_args(card, case, B=3):
+    """The nine array operands of edge_sample, [B, ...] on the card."""
     rng = np.random.default_rng(5)
-    B, S, b_max = 3, 700, 300
+    S, b_max = EDGE_CASES[case]
     cols = []
     for b in range(B):
-        rels = [relation(rng.integers(lo, hi, 20000).astype(np.uint32),
-                         rng.normal(mu, 2, 20000).astype(np.float32),
-                         device=card)
-                for lo, hi, mu in ((0, 600, 10.0), (300, 1000, 5.0))]
-        srt = [sort_by_key(r) for r in rels]
+        srt = [sort_by_key(relation(*_edge_side(rng, case, side),
+                                    device=card)) for side in (0, 1)]
         st = build_strata(srt, S)
-        b_i = torch.as_tensor(rng.uniform(0, 400, S).astype(np.float32),
-                              device=card)
-        cols.append((srt[0].values, srt[1].values, st.keys, st.starts[0],
-                     st.counts[0], st.starts[1], st.counts[1], st.joinable,
-                     b_i))
-    args = [torch.stack(c) for c in zip(*cols)]
+        starts, counts = st.starts.clone(), st.counts.clone()
+        if case == "garbage":
+            junk = torch.as_tensor(rng.integers(0, 2**40, (2, S)),
+                                   device=card)
+            starts = torch.where(st.joinable, starts, junk)
+            counts = torch.where(st.joinable, counts, junk.flip(0))
+        if case == "bi_edges":
+            b_i = np.asarray(BI_EDGES, np.float32)[
+                rng.integers(0, len(BI_EDGES), S)]
+        elif case in ("full", "zipf"):
+            b_i = np.ceil(0.1 * st.population.cpu().numpy())
+        else:
+            b_i = rng.uniform(0, 400 * b_max / 300, S)
+        b_i = torch.as_tensor(b_i.astype(np.float32), device=card)
+        if case == "full":
+            assert bool((b_i[st.joinable] >= b_max).all())
+        cols.append((srt[0].values, srt[1].values, st.keys, starts[0],
+                     counts[0], starts[1], counts[1], st.joinable, b_i))
+    return [torch.stack(c) for c in zip(*cols)], b_max
+
+
+def _edge_params():
+    for case in EDGE_CASES:
+        for expr in ("sum", "product"):
+            yield pytest.param(case, expr,
+                               id=expr if case == "mixed" else
+                               f"{expr}-{case}")
+
+
+@pytest.mark.parametrize("case,expr", _edge_params())
+def test_edge_sample_matches_plain(card, case, expr):
+    args, b_max = _edge_args(card, case)
+    B = args[0].shape[0]
     seeds = torch.tensor(SEEDS, device=card)
     got = edge_sample.edge_sample_batched(*args, seeds, b_max, expr)
+    again = edge_sample.edge_sample_batched(*args, seeds, b_max, expr)
     want = edge_sample.edge_sample_ref(*args, b_max, seeds, expr)
+    torch.cuda.synchronize()
+    assert all(torch.equal(x, y) for x, y in zip(got, again))  # deterministic
     assert torch.equal(got[0], want[0])
+    assert float(got[0].sum()) > 0
     for g, w in zip(got[1:], want[1:]):
         torch.testing.assert_close(g, w, rtol=1e-5, atol=1e-3)
     for b in range(B):  # a batch equals its slots one by one
@@ -151,3 +212,7 @@ def test_wrappers_raise_on_what_the_kernel_does_not_take(card):
         bloom_probe.bloom_probe_batched(flat[4:].view(1, 64, 8), keys, seed)
     with pytest.raises(ValueError, match="32-byte aligned"):
         _build.require_aligned("bloom_build", "words", flat[4:], 32)
+    # n_sampled is exact only while every draw counter is a float32
+    args, _ = _edge_args(card, "mixed", B=1)
+    with pytest.raises(ValueError, match="b_max"):
+        edge_sample.edge_sample_batched(*args, seed, 2**24 + 1)

@@ -104,18 +104,41 @@ def test_probe_plain_matches_pallas(B):
         tops.probe_filter(tw[0], _t(probe[0, :1500]), int(seeds[0])).numpy())
 
 
-def _strata_operands(B, S, seed):
+# b_i at the edges of the draw mask float(t) < b_i, for b_max = 128
+BI_EDGES = np.asarray([0.0, -1.0, -0.5, 0.3, 1.0, 7.0, 7.5, 127.0, 127.5,
+                       128.0, 129.0, 1e30, np.inf, np.nan], np.float32)
+
+
+def _side_keys(rng, case, side):
+    """uint32 keys of one side for an edge-sample case:
+    mixed: overlapping ranges (strata on one side only, start 0 or at the
+    end); count1: every key of side 2 once; absent: side 1's upper keys
+    missing from side 2 (start at side 2's end); zipf: Zipf(1.5) over 64
+    keys (a few large strata, many of one row)."""
+    if case == "zipf":
+        return (np.minimum(rng.zipf(1.5, 3000), 64) - 1).astype(np.uint32)
+    if case == "count1" and side == 1:
+        return rng.permutation(np.arange(100, 260)).astype(np.uint32)
+    lo, hi = {"absent": ((100, 300), (0, 200))}.get(
+        case, ((0, 150), (100, 260)))[side]
+    return rng.integers(lo, hi, 1500).astype(np.uint32)
+
+
+def _strata_operands(B, S, seed, case="mixed"):
     """Per-slot sorted values + strata from real relations, padded to S
     strata: some joinable, some present on one side only (start at the
-    side's end), b_i fractional, above and below b_max."""
+    side's end), b_i fractional, above and below b_max (``case`` as in
+    :func:`_side_keys`; bi_edges takes b_i from ``BI_EDGES``, zipf the pilot
+    sizes ceil(0.1 x population))."""
     rng = np.random.default_rng(seed)
     cols = {k: [] for k in ("v1", "v2", "keys", "s1", "c1", "s2", "c2",
                             "join", "bi")}
     for b in range(B):
-        rels = [relation(rng.integers(lo, hi, 1500).astype(np.uint32),
-                         rng.normal(mu, 2, 1500).astype(np.float32),
-                         device="cpu")
-                for lo, hi, mu in ((0, 150, 10.0), (100, 260, 5.0))]
+        rels = []
+        for side, mu in enumerate((10.0, 5.0)):
+            k = _side_keys(rng, case, side)
+            rels.append(relation(k, rng.normal(mu, 2, k.size)
+                                 .astype(np.float32), device="cpu"))
         srt = [sort_by_key(r) for r in rels]
         st = build_strata(srt, S)
         cols["v1"].append(srt[0].values.numpy())
@@ -126,17 +149,34 @@ def _strata_operands(B, S, seed):
         cols["s2"].append(st.starts[1].numpy().astype(np.int32))
         cols["c2"].append(st.counts[1].numpy().astype(np.int32))
         cols["join"].append(st.joinable.numpy())
-        cols["bi"].append(np.round(rng.uniform(0, 200, S), 1)
-                          .astype(np.float32))
+        if case == "bi_edges":
+            bi = BI_EDGES[rng.integers(0, BI_EDGES.size, S)]
+        elif case == "zipf":
+            bi = np.ceil(0.1 * st.population.numpy()).astype(np.float32)
+        else:
+            bi = np.round(rng.uniform(0, 200, S), 1).astype(np.float32)
+        cols["bi"].append(bi)
     return {k: np.stack(v) for k, v in cols.items()}
 
 
-@pytest.mark.parametrize("B", [1, 3])
-@pytest.mark.parametrize("expr", ["sum", "product"])
-def test_edge_sample_plain_matches_pallas(B, expr):
+def _edge_cases():
+    for B in (1, 3):
+        for expr in ("sum", "product"):
+            yield pytest.param(B, expr, "mixed", id=f"{expr}-{B}")
+    for case in ("bi_edges", "count1", "absent", "zipf"):
+        for expr in ("sum", "product"):
+            yield pytest.param(3, expr, case, id=f"{expr}-3-{case}")
+
+
+@pytest.mark.parametrize("B,expr,case", _edge_cases())
+def test_edge_sample_plain_matches_pallas(B, expr, case):
     S, b_max = 256, 128
-    o = _strata_operands(B, S, 40 + B)
+    o = _strata_operands(B, S, 40 + B, case)
     assert (~o["join"]).any() and o["join"].any()
+    if case == "count1":
+        assert (o["c2"][o["join"]] == 1).all()
+    if case == "absent":
+        assert (o["s2"][~o["join"] & (o["c1"] > 0)] == o["v2"].shape[1]).any()
     seeds = np.asarray(SEEDS[:B], np.uint32)
     names = ("v1", "v2", "keys", "s1", "c1", "s2", "c2", "join", "bi")
     want = j_edge(*(jnp.asarray(o[k]) for k in names), jnp.asarray(seeds),
