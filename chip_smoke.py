@@ -26,7 +26,29 @@ Phases, each of which fails the run (non-zero exit, no result line):
    sampled AVG, a sampled SUM of products, twice over), checked against a
    float64 numpy oracle of the exact join; every kernel must have launched
    during it;
-5. profile: device time by kernel for one more warm sampled request.
+5. profile: device time by kernel for one more warm sampled request;
+6. serving: one ``JoinServer(batch_slots=8)`` serves, through the three
+   kernels, a large class (the phase-4 pair registered as a dataset: 8 SUM
+   requests, 3 query ids under an error budget twice each and 2 exact,
+   mixed seeds with 0xFFFFFFFF among them) and a small class (16 tenants of
+   2 x 2^16 rows, 4 requests each, interleaved), twice.  Every result of
+   the first pass must equal the port's direct
+   ``approx_join(use_kernels=True)`` bit for bit (each query id's requests
+   through a sequential driver with its own SigmaRegistry); exact SUMs
+   within rtol 1e-4 of the oracle, sampled ones within 3 x their bound (a
+   bound of 0, every stratum drawn in full, within 3 x the bound without
+   its finite-population term, which must reject the answer of a sampler
+   that draws only each stratum's first edge on most such results).
+   Every step must launch the probe once per input (and once more per input
+   when it warms a fresh prepare stage) and the sampler at most once, the
+   builds must equal the filter-cache misses, the second pass must build
+   nothing, each class must serve a step of more than one slot, a traced
+   step must pass ``validate_chrome_trace``, and a large step's peak device
+   memory must stay within 1.5 x ``slot_bytes`` x its slots.  Prints each
+   class's q/s and latency percentiles over the warm second pass, every
+   step's time and peak, a traced step's host time by part, the device busy
+   share and longest device ops of a step of each class, and
+   ``bloom_probe`` timed at the small class's served shape beside its bound.
 
 It then prints one line ``{"kernels": [...]}`` and, last,
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -70,6 +92,17 @@ WARP_DRAWS = 256
 REPS = 20
 PLAIN_REPS = 10
 MIXED_SEEDS = (0, 1, 0x9E3779B1, 0xFFFFFFFF)
+# phase 6: the JoinServer's width, and its small class: 16 tenants, each a
+# pair of 2^16 rows over 2^12 keys, 4 requests each
+SERVE_SLOTS = 8
+SMALL_ROWS = 1 << 16
+SMALL_KEYS = 1 << 12
+SMALL_STRATA = 1 << 13
+SMALL_TENANTS = 16
+SMALL_ROUNDS = 4
+# a large step's measured peak device memory over slot_bytes x its slots:
+# what join_serve.SLOT_MEMORY_SHARE leaves room for
+PEAK_MARGIN = 1.5
 # line of pl.pallas_call in each TPU kernel, src/repro/kernels/<name>.py
 REPLACES = {"bloom_build": 53, "bloom_probe": 67, "edge_sample": 94}
 
@@ -520,13 +553,30 @@ def main_path(rels, truth, torch):
         sampled_ok(f"{rnd}/sampled-product", est, bnd, truth["product"])
 
 
+def device_profile(torch, run):
+    """(wall microseconds of one ``run()``, {device op name: (microseconds,
+    count)}) from torch.profiler's device trace; ``run`` must end in a
+    synchronize.  The dict is empty when the profiler saw no device."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    by_name = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            us, n = by_name.get(e.name, (0.0, 0))
+            by_name[e.name] = (us + e.time_range.elapsed_us(), n + 1)
+    return wall_us, by_name
+
+
 def profile_phase(rels, torch):
     """Phase 5: where the time of one warm sampled SUM request goes, from
     torch.profiler's device trace: kernel time by name and the share of the
     request's wall time the device was busy."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
     from repro_torch.core.budget import QueryBudget
     from repro_torch.core.join import approx_join
 
@@ -538,16 +588,7 @@ def profile_phase(rels, torch):
         torch.cuda.synchronize()
 
     run()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        run()
-        wall_us = (time.perf_counter() - t0) * 1e6
-    by_name = {}
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
-            us, n = by_name.get(e.name, (0.0, 0))
-            by_name[e.name] = (us + e.time_range.elapsed_us(), n + 1)
+    wall_us, by_name = device_profile(torch, run)
     busy = sum(us for us, _ in by_name.values())
     if not by_name:
         print("profile: the profiler recorded no device time (not measured)")
@@ -557,6 +598,458 @@ def profile_phase(rels, torch):
           f"{sum(n for _, n in by_name.values())} device events")
     for name, (us, n) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:12]:
         print(f"  {us / 1e3:9.4f} ms {n:4d}x  {name[:90]}")
+
+
+class Serving:
+    """Phase 6's server and the record of every step it serves: each step's
+    launches of the three kernels, checked against one launch of the probe
+    per input (two more when the step warms a fresh prepare stage), at most
+    one of the sampler, and one build per filter-cache miss; and each
+    step's peak device memory above what was allocated before it."""
+
+    def __init__(self, torch, wrappers):
+        from repro_torch.runtime.join_serve import JoinServer
+        self.torch, self.wrappers = torch, wrappers
+        self.srv = JoinServer(batch_slots=SERVE_SLOTS)
+        self.steps = []          # dicts: class, real, slots, ms, peak
+
+    def counts(self):
+        return {name: w.launches for name, w in self.wrappers.items()}
+
+    def prepares(self):
+        return sum(1 for key in self.srv._exec_cache if key[0] == "prepare")
+
+    def submit(self, dataset, spec, **kw):
+        """Submit (query id, budget, seed) triples on a registered dataset;
+        returns the requests."""
+        from repro_torch.runtime.join_serve import JoinRequest
+        return [self.srv.submit(JoinRequest(
+            dataset=dataset, budget=budget, query_id=qid, seed=seed,
+            b_max=B_MAX, use_kernels=True, **kw)) for qid, budget, seed in spec]
+
+    def step(self, label):
+        """Serve one step, check its launches, record its time and peak."""
+        from repro_torch.core.relation import bucket_capacity
+        torch, srv = self.torch, self.srv
+        before, fresh0 = self.counts(), self.prepares()
+        builds0 = srv.diagnostics.filter_builds
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        n = srv.step()
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        d = {k: v - before[k] for k, v in self.counts().items()}
+        fresh = self.prepares() - fresh0
+        check(d["bloom_probe"] == 2 * (1 + fresh),
+              f"serve {label}: {d['bloom_probe']} probe launches in a step "
+              f"({fresh} fresh prepare)")
+        check(d["edge_sample"] <= 1,
+              f"serve {label}: {d['edge_sample']} sampler launches in a step")
+        check(d["bloom_build"] == srv.diagnostics.filter_builds - builds0,
+              f"serve {label}: build launches {d['bloom_build']} != filter "
+              f"builds")
+        self.steps.append(dict(label=label, real=n,
+                               slots=bucket_capacity(n), ms=ms, fresh=fresh,
+                               peak=torch.cuda.max_memory_allocated() - base))
+        return n
+
+    def drain(self, label):
+        t0 = time.perf_counter()
+        while self.srv.queue:
+            self.step(label)
+        return time.perf_counter() - t0
+
+
+def large_spec(tag=""):
+    """The large class's 8 SUM requests in submission order: 3 query ids
+    under an error budget, each twice (sigma pipelining defers the repeat a
+    step), and 2 exact ones, with mixed seeds (0xFFFFFFFF among them)."""
+    from repro_torch.core.budget import QueryBudget
+    e, x = QueryBudget(error=0.01), QueryBudget()
+    return [(f"L{tag}/a", e, 0), (f"L{tag}/b", e, 0xFFFFFFFF),
+            (f"L{tag}/x0", x, 5), (f"L{tag}/c", e, 7), (f"L{tag}/a", e, 1),
+            (f"L{tag}/b", e, 2), (f"L{tag}/x1", x, 0x9E3779B1),
+            (f"L{tag}/c", e, 3)]
+
+
+def four_spec(seeds):
+    """Four large SUM requests of distinct query ids under the error
+    budget: three with a sigma from the passes before, one without; the
+    seeds are among the passes' own, so their filter words are cached."""
+    from repro_torch.core.budget import QueryBudget
+    e = QueryBudget(error=0.01)
+    return [(f"L/{q}", e, s) for q, s in zip("abcd", seeds)]
+
+
+def small_spec(rounds=range(SMALL_ROUNDS), tenants=range(SMALL_TENANTS)):
+    """(dataset, (query id, budget, seed)) of the small class: each tenant's
+    own query id under QueryBudget(error=0.05), the tenants interleaved."""
+    from repro_torch.core.budget import QueryBudget
+    return [(f"s{t}", (f"s{t}/sum", QueryBudget(error=0.05), 1000 * q + t))
+            for q in rounds for t in tenants]
+
+
+def check_served(label, reqs, rels, truth):
+    """Every served request against the port's approx_join(use_kernels=True)
+    on the same relations and seed, bit for bit: each query id's requests
+    in order through one sequential driver with its own SigmaRegistry (the
+    first is then a plain direct call).  Exact SUMs within rtol 1e-4 of the
+    float64 oracle, sampled ones as ``served_ok`` says.  Returns (requests
+    checked, the readings of the sampled ones of bound 0)."""
+    from repro_torch.core.cost import SigmaRegistry
+    from repro_torch.core.join import approx_join
+
+    regs, zero = {}, []
+    fields = ("estimate", "error_bound", "count", "dof")
+    for q in reqs:
+        reg = regs.setdefault(q.query_id, SigmaRegistry())
+        d = approx_join(rels, q.budget, seed=q.seed, max_strata=q.max_strata,
+                        b_max=q.b_max, use_kernels=True, query_id=q.query_id,
+                        sigma_registry=reg)
+        got = [float(getattr(q.result, f)) for f in fields]
+        want = [float(getattr(d, f)) for f in fields]
+        check(got == want, f"serve {label} {q.query_id} seed {q.seed}: "
+                           f"served {got} != direct {want}")
+        if q.budget.is_exact:
+            est = got[0]
+            check(abs(est - truth["sum"]) <= 1e-4 * abs(truth["sum"]),
+                  f"serve {label} {q.query_id}: exact SUM {est} vs oracle "
+                  f"{truth['sum']}")
+        else:
+            r = served_ok(f"{label} {q.query_id}", q.result, truth["sum"])
+            zero += [r] if r else []
+    return len(reqs), zero
+
+
+def replacement_bound(stats, confidence: float = 0.95) -> float:
+    """The expansion estimator's CLT bound without the finite-population
+    term: what drawing b_i edges WITH replacement leaves, sum_i B_i^2 r_i^2
+    / b_i under the normal quantile (float64, from a result's stats)."""
+    import torch
+    f64 = torch.float64
+    b = stats.n_sampled.to(f64)
+    ok = stats.valid & (b > 0)
+    b = torch.clamp(b, min=1.0)
+    r2 = torch.clamp((stats.sum_f2.to(f64) - stats.sum_f.to(f64) ** 2 / b)
+                     / torch.clamp(b - 1.0, min=1.0), min=0.0)
+    var = (stats.population.to(f64) ** 2 * r2 / b)[ok].sum()
+    z = torch.special.ndtri(torch.tensor(0.5 + confidence / 2, dtype=f64))
+    return float(z * torch.sqrt(var))
+
+
+def served_ok(label, res, want):
+    """A sampled estimate within 3 x its error bound.  The CLT bound's
+    finite-population term is 0 where a stratum drew as many edges as it
+    holds, though the draws are with replacement and the estimate keeps
+    their error: a bound of 0 is allowed only where every joinable stratum
+    drew its whole population, and the estimate is then held to 3 x the
+    bound without that term (``replacement_bound``).  Returns None for a
+    bound above 0, else (want, that bound, |est - want| over it)."""
+    est, bnd = float(res.estimate), float(res.error_bound)
+    if bnd == 0:
+        st = res.stats
+        full = bool((st.n_sampled >= st.population)[st.valid].all())
+        wr = replacement_bound(st)
+        check(full and abs(est - want) <= 3 * wr,
+              f"serve {label}: bound 0 (every stratum drawn in full: {full})"
+              f" and |{est} - {want}| > 3 x {wr}, the bound without the "
+              f"finite-population term")
+        return want, wr, abs(est - want) / wr
+    check(bnd > 0 and abs(est - want) <= 3 * bnd,
+          f"serve {label}: |{est} - {want}| > 3 x bound {bnd}")
+    return None
+
+
+def first_edge_sum(rels):
+    """SUM(v1 + v2) as a sampler would answer it whose draws all land on
+    each stratum's first edge (its index hash reduced to 0), where it draws
+    every stratum in full: each key's first row on each side, times the
+    stratum's edges (float64, on the host)."""
+    from repro_torch.core.relation import to_numpy
+    parts = []
+    for r in rels:
+        k, v = to_numpy(r)
+        u, first, c = np.unique(k, return_index=True, return_counts=True)
+        parts.append((u, c.astype(np.float64), v[first].astype(np.float64)))
+    (u1, c1, f1), (u2, c2, f2) = parts
+    _, i1, i2 = np.intersect1d(u1, u2, assume_unique=True,
+                               return_indices=True)
+    return float(np.sum(c1[i1] * c2[i2] * (f1[i1] + f2[i2])))
+
+
+def small_shape_kernels(small, torch, rates):
+    """The three kernels at the small class's served shape (8 slots of 2^16
+    keys, a 4,096-block filter each, the strata of those slots): build,
+    probe and sampler against their plain versions, as in phase 3; the
+    probe timed beside its bound.  Returns the probe's timing."""
+    from repro_torch.core import bloom
+    from repro_torch.core.budget import QueryBudget
+    from repro_torch.core.join import (_slot, decide_sample_sizes,
+                                       prepare_stage_kernels_batched)
+    from repro_torch.core.relation import Relation
+    from repro_torch.kernels import bloom_build as kb
+    from repro_torch.kernels import bloom_probe as kp
+    from repro_torch.kernels import edge_sample as ke
+
+    B = SERVE_SLOTS
+    pairs = [small[f"s{t}"] for t in range(B)]
+    sides = [Relation(*(torch.stack([p[i][f] for p in pairs])
+                        for f in range(3))) for i in range(2)]
+    nb = bloom.num_blocks_for(SMALL_ROWS, 0.01)
+    seeds = torch.tensor([1000 * SMALL_ROUNDS + t for t in range(B)],
+                         device=sides[0].keys.device)
+    words = [kb.bloom_build_batched(r.keys, r.valid, nb, seeds)
+             for r in sides]
+    for w, r in zip(words, sides):
+        check(torch.equal(w, kb.bloom_build_ref(r.keys, r.valid, nb, seeds)),
+              "bloom_build at the small served shape != plain")
+    jw, keys = words[0] & words[1], sides[0].keys
+    check(torch.equal(kp.bloom_probe_batched(jw, keys, seeds),
+                      kp.bloom_probe_ref(jw, keys, seeds)),
+          "bloom_probe at the small served shape != plain")
+    prep = prepare_stage_kernels_batched(sides, torch.stack(words, 1),
+                                         SMALL_STRATA, seeds)
+    st = prep.strata
+    b_i = torch.stack([decide_sample_sizes(QueryBudget(error=0.05),
+                                           _slot(st, b), None, 0.0, None,
+                                           0.95) for b in range(B)])
+    args = [prep.sorted_rels[0].values, prep.sorted_rels[1].values, st.keys,
+            st.starts[:, 0].contiguous(), st.counts[:, 0].contiguous(),
+            st.starts[:, 1].contiguous(), st.counts[:, 1].contiguous(),
+            (st.valid & (st.counts > 0).all(1)).contiguous(), b_i]
+    got = ke.edge_sample_batched(*args, seeds, B_MAX)
+    want = ke.edge_sample_ref(*args, B_MAX, seeds)
+    check(torch.equal(got[0], want[0]) and float(got[0].sum()) > 0,
+          "edge_sample at the small served shape: n_sampled != plain")
+    check(all(torch.allclose(g, w, rtol=1e-5, atol=1e-3)
+              for g, w in zip(got[1:], want[1:])),
+          "edge_sample at the small served shape: sums != plain")
+    ms, call_ms = kernel_ms(lambda: kp.bloom_probe_batched(jw, keys, seeds))
+    n_keys = B * SMALL_ROWS
+    b_ms, b_by = bound(rates, n_keys * 8 + B * nb * 32 + B * 8 + n_keys,
+                       **{p: n_keys * v
+                          for p, v in INT_OPS["bloom_probe"].items()})
+    print(f"serve small shape: bloom_build, bloom_probe and edge_sample "
+          f"({float(got[0].sum()):.0f} draws) match their plain versions")
+    print(f"kernel bloom_probe at the small served shape ({B} slots x "
+          f"{SMALL_ROWS} keys, {nb} blocks = {nb * 32 // 1024} KiB a filter):"
+          f" {ms:.4f} ms on the device, {call_ms:.4f} ms a call from the "
+          f"host (bound {b_ms:.4f} ms by {b_by}, {100 * b_ms / ms:.1f}% of "
+          f"it)")
+    return dict(slots=B, keys=SMALL_ROWS, num_blocks=nb, ms=ms,
+                call_ms=call_ms, bound_ms=b_ms, bound_by=b_by,
+                share_of_bound=b_ms / ms)
+
+
+def serve_phase(rels, truth, torch, rates, wrappers):
+    """Phase 6: a JoinServer(batch_slots=8) on the card serving a large
+    class (the smoke's pair, 8 requests) and a small class (16 tenants, 64
+    requests) through the three kernels.  Returns (each kernel's launches
+    while it served, the probe's timing at the small served shape)."""
+    from repro_torch.data.synthetic import overlapping_relations
+    from repro_torch.runtime.join_serve import (NULL_TRACER, slot_bytes,
+                                                slot_budget)
+    from repro_torch.runtime.telemetry import (Tracer, chrome_trace,
+                                               validate_chrome_trace)
+
+    dev = rels[0].keys.device
+    t0 = time.perf_counter()
+    small = {f"s{t}": overlapping_relations(
+        [SMALL_ROWS, SMALL_ROWS], 0.1, keys_per_dataset=SMALL_KEYS, lam=10,
+        seed=t, device=dev) for t in range(SMALL_TENANTS)}
+    small_truth = {name: oracle(r) for name, r in small.items()}
+    sv = Serving(torch, wrappers)
+    srv = sv.srv
+    srv.register_dataset("large", rels)
+    for name, r in small.items():
+        srv.register_dataset(name, r)
+    print(f"serve: {SMALL_TENANTS} small tenants of 2 x {SMALL_ROWS} rows "
+          f"made and {1 + SMALL_TENANTS} datasets registered in "
+          f"{time.perf_counter() - t0:.1f} s")
+    small_kw = dict(max_strata=SMALL_STRATA)
+
+    def submit_small(spec):
+        return [r for ds, s in spec for r in sv.submit(ds, [s], **small_kw)]
+
+    # -- the path: every count from 0 -----------------------------------
+    for w in wrappers.values():
+        w.launches = 0
+    # pass 1: both classes, checked against direct calls below
+    large1 = sv.submit("large", large_spec(), max_strata=MAX_STRATA)
+    sv.drain("large/1")
+    small1 = submit_small(small_spec())
+    sv.drain("small/1")
+    builds1 = sv.counts()["bloom_build"]
+    check(builds1 == srv.diagnostics.filter_builds,
+          f"serve: {builds1} build launches != {srv.diagnostics.filter_builds}"
+          f" filter builds")
+    # pass 2, timed: the same requests again, warm
+    timed = {}
+    for cls, submit in (
+            ("large", lambda: sv.submit("large", large_spec(),
+                                        max_strata=MAX_STRATA)),
+            ("small", lambda: submit_small(small_spec()))):
+        srv.diagnostics.reset_latencies()
+        reqs = submit()
+        dt = sv.drain(f"{cls}/2")
+        zero = [r for q in reqs if not q.budget.is_exact
+                for r in [served_ok(f"{cls}/2 {q.query_id}", q.result,
+                                    (truth if cls == "large" else
+                                     small_truth[q.dataset])["sum"])] if r]
+        timed[cls] = (len(reqs), dt, srv.diagnostics.snapshot(), zero)
+    check(sv.counts()["bloom_build"] == builds1,
+          "serve: the second pass over the same datasets built filters")
+    # one large request alone: a step of one slot
+    sv.submit("large", [("L/one", large_spec()[0][1], 11)],
+              max_strata=MAX_STRATA)
+    sv.step("large/B=1")
+    # a traced large step of 4 slots (3 ids with sigma), its host time split
+    srv.tracer = Tracer(enabled=True)
+    split = {}
+
+    def synced(name):
+        fn = getattr(srv, name)
+
+        def run(*a, **k):
+            t = time.perf_counter()
+            out = fn(*a, **k)
+            torch.cuda.synchronize()
+            split[name] = split.get(name, 0.0) + time.perf_counter() - t
+            return out
+        setattr(srv, name, run)
+
+    parts = ("_batch_inputs", "_decide_b_rows", "_finish_batch")
+    for n in parts:
+        synced(n)
+    filter_s0 = srv.diagnostics.filter_s
+    sv.submit("large", four_spec((0, 0xFFFFFFFF, 7, 5)), max_strata=MAX_STRATA)
+    sv.step("large/traced")
+    split["prepare"] = srv.diagnostics.filter_s - filter_s0
+    for n in parts:
+        delattr(srv, n)
+    trace = chrome_trace(srv.tracer,
+                         reconciliation=srv.reconciliation_report())
+    n_events = validate_chrome_trace(trace)
+    stage_ms = {e["name"]: e["dur"] * 1e3 for e in srv.tracer.events
+                if e["tid"] == "engine" and e["cat"] in ("stage", "serve")}
+    srv.tracer = NULL_TRACER
+    # one large and one small step under the profiler
+    profiles = {}
+    for cls, submit in (
+            ("large", lambda: sv.submit(
+                "large", four_spec((1, 2, 3, 0x9E3779B1)),
+                max_strata=MAX_STRATA)),
+            ("small", lambda: submit_small(small_spec(
+                rounds=[SMALL_ROUNDS], tenants=range(SERVE_SLOTS))))):
+        reqs = submit()
+        profiles[cls] = (len(reqs), device_profile(
+            torch, lambda: sv.step(f"{cls}/profiled")))
+    launches = sv.counts()
+    for name, n in launches.items():
+        check(n > 0, f"{name} never launched while serving")
+    check(launches["bloom_build"] == srv.diagnostics.filter_builds,
+          "serve: build launches != filter builds")
+    d = srv.diagnostics
+    by_cls = {}
+    for s in sv.steps:
+        by_cls.setdefault(s["label"].split("/")[0], []).append(s["real"])
+    for cls, ns in sorted(by_cls.items()):
+        check(max(ns) > 1, f"serve {cls}: no step served more than one slot")
+    check(d.max_batch > 1, "serve: max_batch 1")
+    # -- end of the path ------------------------------------------------
+
+    n_checked, zero = check_served("large/1", large1, rels, truth)
+    wrong = tried = 0
+    for name, r in small.items():
+        n, z = check_served("small/1", [q for q in small1 if q.dataset == name],
+                            r, small_truth[name])
+        n_checked, zero = n_checked + n, zero + z
+        # the gate against a wrong answer: a sampler whose draws all hit
+        # each stratum's first edge, held to the served result's own bound
+        bad = first_edge_sum(r)
+        wrong += sum(abs(bad - want) > 3 * wr for want, wr, _ in z)
+        tried += len(z)
+    print(f"serve: {n_checked} served results of the first pass equal the "
+          f"port's approx_join(use_kernels=True) bit for bit; exact SUMs "
+          f"within rtol 1e-4 of the oracle, sampled within 3 x their bound "
+          f"({len(zero)} of bound 0, every stratum drawn in full, within 3 x"
+          f" the bound without its finite-population term)")
+    timed_zero = [z for t in timed.values() for z in t[3]]
+    for when, z in (("first pass", zero), ("timed pass", timed_zero)):
+        if z:
+            print(f"serve {when}: bound-0 results' |est - want| / that "
+                  f"bound: largest {max(x for *_, x in z):.4f}, median "
+                  f"{statistics.median(x for *_, x in z):.4f}, over {len(z)};"
+                  f" 3 x the bound is at most "
+                  f"{3 * max(wr / w for w, wr, _ in z):.3e} of the SUM")
+    if tried:
+        print(f"serve: a sampler drawing only each stratum's first edge "
+              f"would fail the bound-0 gate on {wrong} of {tried} small-class"
+              f" first-pass results")
+        check(2 * wrong > tried, f"serve: the bound-0 gate rejects the "
+              f"first-edge sampler's answer on only {wrong} of {tried}")
+
+    print(f"serve: launches while serving {launches}; steps {d.steps}, "
+          f"max_batch {d.max_batch}, compiles {d.compiles}, cache_hits "
+          f"{d.cache_hits}, filter_builds {d.filter_builds}, "
+          f"filter_cache_hits {d.filter_cache_hits}, sigma_deferrals "
+          f"{d.sigma_deferrals}, deadline_promotions "
+          f"{d.deadline_promotions}")
+    for s in sv.steps:
+        print(f"  step {s['label']}: {s['real']} requests in {s['slots']} "
+              f"slots, {s['ms']:.3f} ms{' (warms its stage)' * bool(s['fresh'])}"
+              f", peak {s['peak'] / 2**30:.3f} GiB above the step's start")
+    for cls, (n, dt, snap, zero) in timed.items():
+        print(f"serve {cls}: {n} queries in {dt * 1e3:.3f} ms = "
+              f"{n / dt:.2f} q/s (warm), {len(zero)} sampled with every "
+              f"stratum drawn in full (bound 0); queue latency p50 "
+              f"{snap['queue_latency_p50_s'] * 1e3:.3f} p95 "
+              f"{snap['queue_latency_p95_s'] * 1e3:.3f} ms, e2e p50 "
+              f"{snap['e2e_latency_p50_s'] * 1e3:.3f} p95 "
+              f"{snap['e2e_latency_p95_s'] * 1e3:.3f} ms")
+    # peak memory of a large step against the rule's slot_bytes x slots
+    large_cls = large1[0]._class
+    per_slot = slot_bytes(large_cls)
+    print(f"serve large: slot_bytes {per_slot / 2**30:.4f} GiB, budget "
+          f"{slot_budget(dev) / 2**30:.2f} GiB (cap "
+          f"{srv._slot_cap(large_cls, dev)} slots of {SERVE_SLOTS})")
+    for s in sv.steps:
+        if s["label"].startswith("large"):
+            ratio = s["peak"] / (s["slots"] * per_slot)
+            print(f"  {s['label']}: peak {s['peak'] / 2**30:.3f} GiB = "
+                  f"{ratio:.3f} x slot_bytes x {s['slots']}")
+            check(ratio <= PEAK_MARGIN, f"serve {s['label']}: peak "
+                  f"{ratio:.3f} x slot_bytes x B, beyond the margin of "
+                  f"{PEAK_MARGIN} that SLOT_MEMORY_SHARE leaves room for")
+    small_cls = small1[0]._class
+    small_peak = max(s["peak"] / s["slots"] for s in sv.steps
+                     if s["label"].startswith("small"))
+    print(f"serve small: slot_bytes {slot_bytes(small_cls) / 2**20:.3f} MiB, "
+          f"largest peak a slot {small_peak / 2**20:.3f} MiB")
+    total = sum(split.values())
+    stages = ", ".join(f"{k} {v:.3f} ms" for k, v in stage_ms.items())
+    print(f"serve large/traced (4 requests, 3 with sigma): {n_events} trace "
+          f"events valid; stages {stages}; host split (each part "
+          f"synchronized): "
+          + ", ".join(f"{k.strip('_')} {v * 1e3:.3f} ms"
+                      for k, v in split.items())
+          + f", {total * 1e3:.3f} ms in all")
+    for cls, (n, (wall_us, by_name)) in profiles.items():
+        if not by_name:
+            print(f"serve {cls} profile: no device time recorded (not "
+                  f"measured)")
+            continue
+        busy = sum(us for us, _ in by_name.values())
+        print(f"serve {cls} profile: a step of {n} requests, wall "
+              f"{wall_us / 1e3:.3f} ms, device busy {busy / 1e3:.3f} ms "
+              f"({100 * busy / wall_us:.1f}%); longest device ops:")
+        for name, (us, k) in sorted(by_name.items(),
+                                    key=lambda kv: -kv[1][0])[:5]:
+            print(f"  {us / 1e3:9.4f} ms {k:4d}x  {name[:90]}")
+
+    return launches, small_shape_kernels(small, torch, rates)
 
 
 def main() -> int:
@@ -628,6 +1121,13 @@ def main() -> int:
 
     # --- phase 5: where the time goes --------------------------------------
     profile_phase(rels, torch)
+
+    # --- phase 6: serving -------------------------------------------------
+    served, small_probe = serve_phase(rels, truth, torch, rates, wrappers)
+    for ln in lines:
+        ln["serve_launches"] = served[ln["name"]]
+        if ln["name"] == "bloom_probe":
+            ln["small_served"] = small_probe
 
     print(json.dumps({"kernels": lines}))
     print(json.dumps({"ok": True, "device": {

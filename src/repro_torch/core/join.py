@@ -202,9 +202,16 @@ def _slot(tree, b: int):
     return type(tree)(*(_slot(x, b) for x in tree))
 
 
+def pad_stack(outs: list, B: int):
+    """Stack ``len(outs) <= B`` per-slot outputs leafwise, the last one
+    repeated over the remaining slots."""
+    return _stack(outs + outs[-1:] * (B - len(outs)))
+
+
 def prepare_stage_kernels_batched(rels: Sequence[Relation],
                                   filter_words: torch.Tensor,
-                                  max_strata: int, seeds) -> PrepareOut:
+                                  max_strata: int, seeds,
+                                  n_real: Optional[int] = None) -> PrepareOut:
     """Slot-batched kernel prepare: the serving engine's counterpart.
 
     ``rels`` carry slot-stacked ``[B, N]`` tensors, ``filter_words`` is
@@ -212,6 +219,11 @@ def prepare_stage_kernels_batched(rels: Sequence[Relation],
     ``[B]``.  The AND-merge and the probe run over the whole batch (the probe
     kernel owns the slot dimension); the sort/group-by tail runs per slot
     and is stacked, so every slot equals :func:`prepare_stage_kernels`.
+
+    ``n_real`` says that the slots from ``n_real`` on repeat slot
+    ``n_real - 1``'s inputs (an engine's pad slots): the tail then runs for
+    the first ``n_real`` slots only, and the last one's outputs fill the
+    rest, which is what running it for them would give.
     """
     from repro_torch.kernels import ops as kops
     if filter_words.shape[1] != len(rels):
@@ -224,9 +236,10 @@ def prepare_stage_kernels_batched(rels: Sequence[Relation],
     live = [Relation(r.keys, r.values,
                      r.valid & kops.probe_filter_batched(jwords, r.keys, seeds))
             for r in rels]
-    return _stack([_prepare_tail(_slot(live, b), _slot(list(rels), b),
-                                 max_strata)
-                   for b in range(filter_words.shape[0])])
+    B = filter_words.shape[0]
+    return pad_stack([_prepare_tail(_slot(live, b), _slot(list(rels), b),
+                                    max_strata)
+                      for b in range(B if n_real is None else n_real)], B)
 
 
 def _finish(est, cnt, agg: str):

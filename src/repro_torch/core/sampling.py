@@ -192,19 +192,24 @@ def sample_edges(sorted_rels: Sequence[Relation], strata: Strata,
 def per_stratum_value_sums(sorted_rels, strata) -> torch.Tensor:
     """[n_sides, S] sum of values per stratum per side.
 
-    A scatter-add keyed by stratum slot, so each stratum's sum depends only
-    on its own rows.  Only the rows that belong to a stratum are added: the
-    reference sends the others to an overflow row, which on the card would
-    put every filtered-out row's atomic add on one address.
+    A segment sum over the sorted rows, where a stratum's rows lie together:
+    each stratum's sum depends only on its own rows, added in the same
+    order on every call.  (A float scatter-add on the card adds in the order
+    its atomics land, so two calls on the same rows could differ in their
+    last bits.)  Only the rows that belong to a stratum are added: the
+    reference sends the others to an overflow row.
     """
     S = strata.keys.shape[0]
+    bounds = torch.arange(S + 1, device=strata.keys.device)
     sums = []
     for r in sorted_rels:
         mk = r.masked_keys(SENTINEL)
         slot = torch.clamp(torch.searchsorted(strata.keys, mk), 0, S - 1)
         ok = r.valid & (strata.keys[slot] == mk) & strata.valid[slot]
-        acc = torch.zeros(S, dtype=torch.float32, device=mk.device)
-        sums.append(acc.index_add_(0, slot[ok], r.values[ok]))
+        # the rows are sorted by key, so slot[ok] ascends
+        offsets = torch.searchsorted(slot[ok], bounds)
+        sums.append(torch.segment_reduce(r.values[ok], "sum", offsets=offsets,
+                                         unsafe=True))
     return torch.stack(sums)
 
 

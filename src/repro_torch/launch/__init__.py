@@ -1,0 +1,3 @@
+"""Command-line drivers: ``python -m repro_torch.launch.join_serve`` serves
+a multi-tenant query stream, ``python -m repro_torch.launch.trace_dump``
+reads the trace it writes."""

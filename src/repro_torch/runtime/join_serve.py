@@ -1,0 +1,1001 @@
+"""Batched multi-tenant ApproxJoin serving engine (single device).
+
+The port of the JAX package's ``runtime/join_serve.py`` without its mesh,
+plan, snapshot and async parts.  The ``JoinServer`` batches ApproxJoin
+queries the way LLM serving engines batch token decodes across slots.  A
+:class:`JoinRequest` carries relations (or a named dataset handle), a
+:class:`QueryBudget`, the aggregate/expression, and a tenant ``query_id``.
+The engine:
+
+* **buckets** every relation to a power-of-two capacity
+  (:func:`repro_torch.core.relation.bucket_to_pow2`) so queries fall into a
+  small number of *shape classes*;
+* keeps a **stage cache** keyed by ``(stage, shape_class, batch)``: one
+  build per key (``ServerDiagnostics.compiles``), reuses counted in
+  ``cache_hits``.  PyTorch compiles nothing, so a build makes a stage
+  callable; the first call of a fresh one also loads the CUDA kernels and
+  makes PyTorch's first allocations, and runs off the clock;
+* **batches same-shape-class queries** across the filter-probe/sort/strata
+  and sample/estimate stages.  On the kernel route (``use_kernels=True``)
+  one engine step is one launch of the probe per input and one of the
+  sampler for the whole batch, whatever its width: the kernels own the slot
+  dimension (``core.join.prepare_stage_kernels_batched`` /
+  ``sample_stage_kernels_batched``), and only the sort/strata tail and the
+  estimator finish run per slot.  The plain route runs the per-query stages
+  slot by slot and stacks them;
+* caches **per-dataset Bloom filter words** keyed by
+  ``(relation fingerprint, num_blocks, seed)``: a registered dataset pays
+  the filter build once, then every later step reuses the cached words
+  (``ServerDiagnostics.filter_builds`` / ``filter_cache_hits``);
+* shares one :class:`SigmaRegistry` and :class:`CostModel` across tenants, so
+  a repeated ``query_id`` gets the paper's §3.2-II adaptive sample sizing,
+  and tenants never see each other's sigmas (the registry is keyed by
+  ``query_id``).
+
+Results are bit-identical to a direct :func:`repro_torch.core.join.approx_join`
+call on the same (bucketed) relations with the same seed.  That rests on
+every float sum of a slot being added in a fixed order: the CUDA kernels add
+theirs so, and the exact stage sums each stratum's values as a segment sum,
+not as a scatter of atomic adds.  The tests hold it on the CPU on both
+routes, and on the card on the kernel route, with whole-number and with
+fractional values; the plain route on the card is not tested.
+
+Per-query dynamic decisions (exact-affordable?  per-stratum ``b_i`` from the
+budget + sigma feedback) stay on the host, exactly as in ``approx_join``.
+Sigma feedback lands *between engine steps*, which is why the scheduler runs
+**cross-step sigma pipelining** (``sigma_pipeline``, on by default):
+same-``query_id`` error-budget repeats are deferred to the NEXT step, so
+every execution sees the previous one's measured sigma, bit-identical to a
+sequential driver, and the freed slot fills with the next same-class query.
+
+Scheduling is FIFO until the queue backs up past ``backlog_slots``, then
+**deadline-aware**: latency-budget queries (deadline = submission +
+``latency_s``) are served before error-budget/exact ones (deadline
+infinity), FIFO on ties.  Queue latency is tracked as a bounded sample ring
+and surfaced as p50/p95/max in ``ServerDiagnostics.snapshot()``.
+
+A kernel class's batch width is bounded by device memory (:func:`slot_bytes`
+and :func:`slot_budget`); the CUDA kernels have no size limit of their own.
+
+``JoinRequest.filter_seed`` decouples the filter hash from the sampling
+seed, and ``_words`` carries prebuilt filter words past the per-dataset
+cache (what a streaming window's OR-merged sub-window words will use).
+"""
+
+from __future__ import annotations
+
+import functools
+import time
+from collections import OrderedDict
+from dataclasses import dataclass, field
+from functools import partial
+from typing import NamedTuple, Optional, Sequence
+
+import torch
+
+from repro_torch.core import bloom
+from repro_torch.core.budget import QueryBudget
+from repro_torch.core.cost import CostModel, SigmaRegistry, sync
+from repro_torch.core.hashing import MASK
+from repro_torch.core.join import (EXPRS, TUPLE_BYTES, JoinDiagnostics,
+                                   JoinResult, _slot, decide_sample_sizes,
+                                   exact_stage, filter_exchange_bytes,
+                                   measured_sigma, pad_stack,
+                                   prepare_stage_kernels_batched,
+                                   prepare_stage_pre, sample_stage,
+                                   sample_stage_kernels_batched)
+from repro_torch.core.relation import (Relation, bucket_capacity,
+                                       bucket_to_pow2, fingerprint)
+from repro_torch.runtime.telemetry import (NULL_TRACER, Histogram,
+                                           MetricsRegistry, Tracer,
+                                           latency_pcts, recon_pair,
+                                           span_tree)
+from repro_torch.runtime.telemetry import \
+    reconciliation_report as _recon_report
+
+DEFAULT_B_MAX = 2048
+AGGS = ("sum", "count", "avg", "stdev")
+
+# Share of the card's memory that one step's slots may hold (slot_budget).
+# chip_smoke.py holds a step's measured peak to 1.5 x slot_bytes x B, so a
+# step at the cap peaks at no more than 0.75 of the card.  The quarter left
+# holds the registered datasets and the filter-word cache: at most 256
+# entries (JoinServer's filter_cache_entries), 32 MiB each for an input of
+# 2^24 rows, 8 GiB in all, a tenth of an 80 GB card.
+SLOT_MEMORY_SHARE = 0.5
+# The same budget for a step on the CPU, in bytes.
+HOST_SLOT_MEMORY = 8 << 30
+
+
+def tenant_of(query_id: str) -> str:
+    """Tenant key of a query id — the ``'/'``-prefix convention
+    (``'tenantA/sum0'`` -> ``'tenantA'``; un-prefixed ids are their own
+    tenant).  Per-tenant latency percentiles group by it."""
+    return query_id.split("/", 1)[0]
+
+
+class ShapeClass(NamedTuple):
+    """Static signature of a query (the stage-cache key).
+
+    ``mesh``, ``serve_mode`` and ``bucket_cap`` keep the JAX package's key
+    layout; a single-device server always has ``()``, ``'exact-parity'``
+    and 0 there.
+    """
+
+    caps: tuple[int, ...]    # per-side bucketed capacities
+    n_inputs: int
+    max_strata: int
+    b_max: int
+    expr: str
+    agg: str
+    dedup: bool
+    use_kernels: bool
+    fp_rate: float
+    confidence: float
+    mesh: tuple = ()
+    serve_mode: str = "exact-parity"
+    bucket_cap: int = 0      # mesh classes only; 0 = single-device
+
+
+@dataclass(eq=False)
+class JoinRequest:
+    """One tenant query: relations (or dataset handle) + budget + query id.
+
+    ``eq=False``: requests are identities, not values — a generated
+    ``__eq__`` would compare the relation tensors, and queue bookkeeping
+    must never conflate two requests that happen to carry equal payloads.
+    """
+
+    rels: Optional[Sequence[Relation]] = None
+    dataset: Optional[str] = None
+    budget: QueryBudget = QueryBudget()
+    agg: str = "sum"
+    expr: str = "sum"
+    query_id: str = "q0"
+    seed: int = 0
+    fp_rate: float = 0.01
+    max_strata: Optional[int] = None
+    b_max: Optional[int] = DEFAULT_B_MAX
+    dedup: bool = False
+    use_kernels: bool = False
+    # filter-hash seed, decoupled from the sampling seed so a streaming
+    # session can vary draws per window while reusing cached filter words
+    # (None -> ``seed``, the classic coupled behaviour)
+    filter_seed: Optional[int] = None
+    # streaming metadata (carried into the trace)
+    stream: Optional[str] = None
+    window_id: Optional[int] = None
+    # filled by the server
+    result: Optional[JoinResult] = None
+    done: bool = False
+    queue_latency_s: float = 0.0       # ingest -> dispatch (batch former wait)
+    e2e_latency_s: float = 0.0         # ingest -> complete
+    _class: Optional[ShapeClass] = field(default=None, repr=False)
+    _submit_t: float = field(default=0.0, repr=False)
+    # ingest -> dispatch -> complete timestamps (perf_counter); a front
+    # door may pre-stamp _ingest_t, else submit() does (== _submit_t)
+    _ingest_t: float = field(default=0.0, repr=False)
+    _dispatch_t: float = field(default=0.0, repr=False)
+    _complete_t: float = field(default=0.0, repr=False)
+    _fps: Optional[list[str]] = field(default=None, repr=False)
+    # prebuilt per-side filter words; when set, the batch path uses them
+    # verbatim instead of fetching through the per-dataset cache
+    _words: Optional[list] = field(default=None, repr=False)
+    # tracer span id grouping every span of this request's execution
+    _span_id: Optional[int] = field(default=None, repr=False)
+
+
+# ServerDiagnostics scalar counters in snapshot order (the JAX package's
+# schema; the mesh and plan meters stay 0 on a single-device server):
+#   queries..kernel_queries — served-query counts by decision/backend
+#   queue_latency_s/e2e_latency_s — summed ingest->dispatch / ->complete
+#   plan_compiles/plan_cache_hits — compiled-plan cache misses/reuses
+#   sigma_deferrals — same-id repeats pushed to the next step
+#   deadline_promotions — backlog steps served out of FIFO order
+#   filter_s/filter_build_s/filter_builds/filter_cache_hits — Bloom stage
+#   shuffled_bytes_saved — repartition-vs-filtered delta over served queries
+#   kernel_gather_bytes — host gather bytes for kernel queries on a mesh
+#   dist_shuffled_tuple_bytes, dist_dropped_tuples, dist_wire_bytes_model —
+#     mesh shuffle meters
+#   filter_exchange_bytes_model — summed §3.1 (n+1)-exchange model over
+#     served queries; filter_exchange_bytes_measured its mesh meter
+#   tenant_evictions — per-tenant latency rings LRU-evicted past tenant_cap
+_DIAG_SCALAR_FIELDS = (
+    "queries", "steps", "cache_hits", "compiles", "exact_queries",
+    "sampled_queries", "kernel_queries", "queue_latency_s", "e2e_latency_s",
+    "plan_compiles", "plan_cache_hits", "sigma_deferrals",
+    "deadline_promotions", "filter_s", "filter_build_s", "filter_builds",
+    "filter_cache_hits", "shuffled_bytes_saved", "kernel_gather_bytes",
+    "dist_shuffled_tuple_bytes", "dist_dropped_tuples",
+    "dist_wire_bytes_model", "filter_exchange_bytes_model",
+    "filter_exchange_bytes_measured", "tenant_evictions", "max_batch")
+# per-device meters (mesh servers only; None here)
+_DIAG_VECTOR_FIELDS = ("per_device_shuffled_bytes",
+                       "per_device_dropped_tuples")
+
+
+class ServerDiagnostics:
+    """Server-level counters (cumulative since construction).
+
+    Every field is backed by a
+    :class:`repro_torch.runtime.telemetry.MetricsRegistry` metric (scalars
+    by counters, per-device meters by gauges, the latency rings by
+    histograms) — the registry is the single store behind ``snapshot()``
+    and the Prometheus export.  Attribute access routes through the
+    registry, so ``diag.queries += 1`` call sites work unchanged.
+
+    Per-tenant latency rings are LRU-bounded at ``tenant_cap`` distinct
+    tenants (an adversarial tenant-id stream must not grow ``per_tenant``
+    without limit); evictions are counted in ``tenant_evictions``.
+    """
+
+    _SCALARS = frozenset(_DIAG_SCALAR_FIELDS)
+    _VECTORS = frozenset(_DIAG_VECTOR_FIELDS)
+
+    def __init__(self, registry: Optional[MetricsRegistry] = None,
+                 tenant_cap: int = 256):
+        self.registry = MetricsRegistry() if registry is None else registry
+        self.tenant_cap = tenant_cap
+        for f in _DIAG_SCALAR_FIELDS:
+            self.registry.counter("serve_" + f)
+        for f in _DIAG_VECTOR_FIELDS:
+            self.registry.gauge("serve_" + f)
+        # bounded rings of recent per-query latencies; snapshot() reduces
+        # each to p50/p95/max (a running sum cannot see tail latency)
+        self._q_hist = self.registry.histogram("serve_queue_latencies")
+        self._e_hist = self.registry.histogram("serve_e2e_latencies")
+        # tenant -> (queue Histogram, e2e Histogram), LRU order
+        self._tenants: OrderedDict = OrderedDict()
+
+    def __getattr__(self, name):
+        # only reached when normal lookup fails — i.e. the registry-backed
+        # fields and the ring views
+        d = object.__getattribute__(self, "__dict__")
+        reg = d.get("registry")
+        if reg is not None:
+            if name in self._SCALARS:
+                return reg.counter("serve_" + name).value
+            if name in self._VECTORS:
+                return reg.gauge("serve_" + name).value
+            if name == "queue_latencies":
+                return d["_q_hist"].samples
+            if name == "e2e_latencies":
+                return d["_e_hist"].samples
+            if name == "tenant_latencies":
+                return {t: (qh.samples, eh.samples)
+                        for t, (qh, eh) in d["_tenants"].items()}
+        raise AttributeError(name)
+
+    def __setattr__(self, name, value):
+        if name in self._SCALARS:
+            self.registry.counter("serve_" + name).value = value
+        elif name in self._VECTORS:
+            self.registry.gauge("serve_" + name).value = value
+        else:
+            object.__setattr__(self, name, value)
+
+    def note_latency(self, tenant: str, queue_s: float, e2e_s: float,
+                     cap: int) -> None:
+        """Record one finished query's ingest->dispatch / ingest->complete
+        latencies into the global and per-tenant bounded rings."""
+        self.queue_latency_s += queue_s
+        self.e2e_latency_s += e2e_s
+        per = self._tenants.get(tenant)
+        if per is None:
+            per = (Histogram(f"tenant_queue_latencies/{tenant}", cap),
+                   Histogram(f"tenant_e2e_latencies/{tenant}", cap))
+            self._tenants[tenant] = per
+            while len(self._tenants) > self.tenant_cap:
+                self._tenants.popitem(last=False)
+                self.tenant_evictions += 1
+        else:
+            self._tenants.move_to_end(tenant)
+        for hist, x in ((self._q_hist, queue_s), (self._e_hist, e2e_s),
+                        (per[0], queue_s), (per[1], e2e_s)):
+            hist.cap = cap
+            hist.observe(x)
+
+    def reset_latencies(self) -> None:
+        """Clear the latency sample rings (cumulative counters stay).  A
+        bench reusing one warmed server calls this between timed segments
+        so warmup-era samples cannot leak into a later segment's
+        percentiles."""
+        self._q_hist.reset_samples()
+        self._e_hist.reset_samples()
+        self._tenants.clear()
+
+    def scalars(self) -> dict:
+        """The scalar counters as a plain dict."""
+        return {f: getattr(self, f) for f in _DIAG_SCALAR_FIELDS}
+
+    def prometheus(self, prefix: str = "repro") -> str:
+        """Prometheus text exposition of the backing registry."""
+        return self.registry.prometheus(prefix)
+
+    def snapshot(self) -> dict:
+        """Point-in-time dict view — strictly read-only and idempotent:
+        building a snapshot mutates nothing, and two consecutive snapshots
+        of an idle server are equal."""
+        d: dict = self.scalars()
+        for f in _DIAG_VECTOR_FIELDS:
+            v = getattr(self, f)
+            d[f] = None if v is None else [float(x) for x in v]
+        d.update(latency_pcts(self._q_hist.samples, "queue_latency"))
+        d.update(latency_pcts(self._e_hist.samples, "e2e_latency"))
+        d["per_tenant"] = {
+            t: {"samples": len(qh.samples),
+                **latency_pcts(qh.samples, "queue_latency"),
+                **latency_pcts(eh.samples, "e2e_latency")}
+            for t, (qh, eh) in self._tenants.items()}
+        return d
+
+
+def shape_class_of(req: JoinRequest) -> ShapeClass:
+    caps = tuple(bucket_capacity(r.capacity) for r in req.rels)
+    return ShapeClass(caps, len(caps), req.max_strata, req.b_max,
+                      req.expr, req.agg, req.dedup, req.use_kernels,
+                      req.fp_rate, req.budget.confidence)
+
+
+def slot_bytes(cls: ShapeClass) -> int:
+    """Bytes one slot of a step of ``cls`` holds on its device.
+
+    Per input at its bucketed capacity: the stacked keys, values and
+    validity (int64, float32, bool: 13 bytes a row), their sorted copies
+    (13) and the prepare tail's argsort indices (int64: 8); the per-input
+    filter words and the join filter, ``num_blocks * 32`` bytes each; and
+    the strata arrays over ``max_strata`` slots: keys (8 bytes), validity
+    (1), per input starts and counts (16), population, ``b_i`` and the
+    sampler's three sums (20).
+    """
+    nb = bloom.num_blocks_for(max(cls.caps), cls.fp_rate)
+    rows = sum(cls.caps) * (13 + 13 + 8)
+    filters = (cls.n_inputs + 1) * nb * bloom.WORDS_PER_BLOCK * 4
+    strata = cls.max_strata * (8 + 1 + 16 * cls.n_inputs + 20)
+    return rows + filters + strata
+
+
+@functools.cache
+def _card_memory(index: int) -> int:
+    return torch.cuda.get_device_properties(index).total_memory
+
+
+def slot_budget(device) -> int:
+    """Bytes one step's slots may hold on ``device``: ``SLOT_MEMORY_SHARE``
+    of the card's memory (read once per card), or ``HOST_SLOT_MEMORY`` on
+    the CPU."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        return HOST_SLOT_MEMORY
+    index = torch.cuda.current_device() if device.index is None \
+        else device.index
+    return int(SLOT_MEMORY_SHARE * _card_memory(index))
+
+
+# -- stage builders.  Every stage callable takes the engine's slot-stacked
+# -- batch plus ``n_real``, the number of slots before the pad slots (which
+# -- repeat the last real one); its outputs cover all the batch's slots. ---
+
+def _make_prepare(max_strata: int):
+    def fn(rels, words, seeds, n_real):
+        return pad_stack([prepare_stage_pre(_slot(rels, b), words[b],
+                                            max_strata, seeds[b])
+                          for b in range(n_real)], words.shape[0])
+    return fn
+
+
+def _make_sample(b_max: int, agg: str, dedup: bool, confidence: float,
+                 expr: str):
+    f_fn = EXPRS[expr][0]
+
+    def fn(sorted_rels, strata, b_i, seeds, n_real):
+        return pad_stack([list(sample_stage(
+            _slot(sorted_rels, b), _slot(strata, b), b_i[b], b_max, seeds[b],
+            agg=agg, dedup=dedup, confidence=confidence, f_fn=f_fn))
+            for b in range(n_real)], b_i.shape[0])
+    return fn
+
+
+def _make_exact(agg: str, expr: str):
+    def fn(sorted_rels, strata, n_real):
+        return pad_stack([list(exact_stage(_slot(sorted_rels, b),
+                                           _slot(strata, b), agg=agg,
+                                           expr=expr))
+                          for b in range(n_real)], strata.keys.shape[0])
+    return fn
+
+
+def _make_filter_build(num_blocks: int):
+    def fn(keys, valid, seed):
+        return bloom.build(keys, valid, num_blocks, seed).words
+    return fn
+
+
+# -- kernel-backed stage builders (the kernels own the slot dimension, so
+# -- these take the engine's slot-stacked batch whole) -----------------------
+
+def _make_prepare_kernels(max_strata: int):
+    def fn(rels, words, seeds, n_real):
+        return prepare_stage_kernels_batched(rels, words, max_strata, seeds,
+                                             n_real=n_real)
+    return fn
+
+
+def _make_sample_kernels(b_max: int, agg: str, confidence: float, expr: str):
+    def fn(sorted_rels, strata, b_i, seeds, n_real):
+        return sample_stage_kernels_batched(
+            sorted_rels, strata, b_i, b_max, seeds, agg=agg,
+            confidence=confidence, expr=expr)
+    return fn
+
+
+def _make_filter_build_kernels(num_blocks: int):
+    from repro_torch.kernels import ops as kops
+
+    def fn(keys, valid, seed):
+        return kops.build_filter(keys, valid, num_blocks, seed).words
+    return fn
+
+
+class JoinServer:
+    """Slot-based batched ApproxJoin engine (caller-driven ``step()`` loop).
+
+    Every batch runs on the device its relations lie on: register or submit
+    relations made on the card to serve there.
+    """
+
+    def __init__(self, *, batch_slots: int = 4,
+                 cost_model: Optional[CostModel] = None,
+                 sigma_registry: Optional[SigmaRegistry] = None,
+                 filter_cache_entries: int = 256,
+                 sigma_pipeline: bool = True,
+                 backlog_slots: Optional[int] = None,
+                 latency_samples: int = 4096,
+                 tracer: Optional[Tracer] = None,
+                 metrics: Optional[MetricsRegistry] = None):
+        self.batch_slots = batch_slots
+        # cross-step sigma pipelining: same-query_id error-budget repeats
+        # are deferred to the NEXT step so each sees the previous
+        # execution's measured sigma (sequential-feedback adaptive sizing);
+        # slots freed by a deferral fill with other same-class queries
+        self.sigma_pipeline = sigma_pipeline
+        # queue length beyond which the scheduler goes deadline-aware:
+        # latency-budget queries (deadline = submit + latency_s) are served
+        # before error-budget/exact ones (deadline = infinity), FIFO on ties
+        self.backlog_slots = 2 * batch_slots if backlog_slots is None \
+            else backlog_slots
+        self.latency_samples = latency_samples
+        self.cost_model = cost_model
+        self.sigma = SigmaRegistry() if sigma_registry is None \
+            else sigma_registry
+        self.queue: list[JoinRequest] = []
+        self.datasets: dict[str, list[Relation]] = {}
+        self._dataset_fps: dict[str, list[str]] = {}
+        self._exec_cache: dict = {}
+        # LRU of (fingerprint, num_blocks, seed) -> words: bounded so a
+        # long-running server with ever-fresh seeds cannot accumulate
+        # device-resident filter words without limit
+        self._filter_words: OrderedDict = OrderedDict()
+        self.filter_cache_entries = filter_cache_entries
+        # telemetry: a disabled NULL_TRACER by default — span()/event()/
+        # instant() early-return, so the untraced hot path pays one
+        # attribute read per site.  The metrics registry is the single
+        # backing store of the diagnostics.
+        self.tracer = NULL_TRACER if tracer is None else tracer
+        self.trace_name = "engine"   # lane/replica label for step spans
+        self.diagnostics = ServerDiagnostics(registry=metrics)
+        # per-step scratch the tracer consumes (None while tracing is off)
+        self._stage_trace: Optional[dict] = None
+        self._recon_batch: Optional[dict] = None
+        # completion callback (request -> None), fired by _notify_done for
+        # every finished request
+        self.on_done = None
+
+    # -- admission ----------------------------------------------------------
+
+    def register_dataset(self, name: str, rels: Sequence[Relation]) -> None:
+        """Store a named (bucketed) dataset for handle queries.
+
+        Fingerprints are taken here, once — N steps over the dataset build
+        its Bloom filter words exactly once per ``(num_blocks, seed)``, and
+        re-registering identical relations under a new name reuses the same
+        cached words.
+        """
+        self.datasets[name] = [bucket_to_pow2(r) for r in rels]
+        self._dataset_fps[name] = [fingerprint(r) for r in self.datasets[name]]
+
+    def submit(self, req: JoinRequest) -> JoinRequest:
+        if req.rels is None:
+            if req.dataset is None:
+                raise ValueError("JoinRequest needs rels or a dataset handle")
+            if req.dataset not in self.datasets:
+                raise ValueError(f"unknown dataset {req.dataset!r}")
+            req.rels = self.datasets[req.dataset]
+            req._fps = self._dataset_fps[req.dataset]
+        else:
+            # inline relations are NOT fingerprinted: hashing every ad-hoc
+            # submission would put a device-to-host copy + sha1 of the whole
+            # key set on the admission hot path to feed a cache that only
+            # pays off for repeated identical key sets — that contract
+            # belongs to register_dataset.  Their filter words build per
+            # step, uncached.
+            req.rels = [bucket_to_pow2(r) for r in req.rels]
+            req._fps = [None] * len(req.rels)
+        if len(req.rels) < 2:
+            raise ValueError("join needs at least two relations")
+        if req.expr not in EXPRS:
+            raise ValueError(f"unknown expr {req.expr!r}")
+        if req.agg not in AGGS:
+            raise ValueError(f"unknown agg {req.agg!r}")
+        if req.max_strata is None:
+            # size from the LARGEST input (mirrors approx_join)
+            req.max_strata = max(r.capacity for r in req.rels)
+        if req.b_max is None:
+            # approx_join's b_max=None adaptive grid sizes the draw capacity
+            # from data-dependent peak b_i — incompatible with a pre-keyed
+            # stage cache, so refuse rather than silently diverge.
+            raise ValueError("JoinServer needs a concrete b_max "
+                             f"(e.g. the default {DEFAULT_B_MAX}); the "
+                             "adaptive b_max=None grid is driver-side only")
+        req._class = shape_class_of(req)
+        req._submit_t = time.perf_counter()
+        if not req._ingest_t:
+            req._ingest_t = req._submit_t
+        if self.tracer.enabled:
+            if req._span_id is None:
+                req._span_id = self.tracer.next_id()
+            self.tracer.instant(
+                "ingest", cat="admission", tid=self.trace_name,
+                ts=req._ingest_t, query_id=req.query_id,
+                tenant=tenant_of(req.query_id), qspan=req._span_id)
+        self.queue.append(req)
+        return req
+
+    # -- stage + filter-word caches -----------------------------------------
+
+    def _executable(self, stage: str, cls, variant, builder):
+        """Fetch-or-build a stage callable; ``variant`` is the rest of the
+        cache key (the batch bucket).  Returns (fn, freshly_built)."""
+        key = (stage, cls, variant)
+        fn = self._exec_cache.get(key)
+        fresh = fn is None
+        if fresh:
+            fn = builder()
+            self._exec_cache[key] = fn
+            self.diagnostics.compiles += 1
+        else:
+            self.diagnostics.cache_hits += 1
+        return fn, fresh
+
+    def _words_for(self, rel: Relation, fp: Optional[str], num_blocks: int,
+                   seed: int, use_kernels: bool = False) -> torch.Tensor:
+        """Per-relation dataset-filter words, built once per (fp, nb, seed).
+
+        ``fp=None`` (inline relations) always builds — no cache entry.
+        ``use_kernels`` builds through the CUDA build kernel (its plain
+        version for a relation on the CPU); the words are bit-identical
+        either way, so kernel and plain queries share one word cache.
+        """
+        key = (fp, num_blocks, seed)
+        if fp is not None:
+            words = self._filter_words.get(key)
+            if words is not None:
+                self._filter_words.move_to_end(key)
+                self.diagnostics.filter_cache_hits += 1
+                return words
+        t0 = time.perf_counter()
+        if use_kernels:
+            build, _ = self._executable(
+                "fbuild_k", (rel.capacity, num_blocks), None,
+                partial(_make_filter_build_kernels, num_blocks))
+        else:
+            build, _ = self._executable(
+                "fbuild", (rel.capacity, num_blocks), None,
+                partial(_make_filter_build, num_blocks))
+        words = build(rel.keys, rel.valid, seed)
+        sync(words.device)
+        if fp is not None:
+            self._filter_words[key] = words
+            while len(self._filter_words) > self.filter_cache_entries:
+                self._filter_words.popitem(last=False)
+        self.diagnostics.filter_builds += 1
+        self.diagnostics.filter_build_s += time.perf_counter() - t0
+        return words
+
+    # -- engine -------------------------------------------------------------
+
+    def _deadline(self, req: JoinRequest) -> float:
+        """Absolute serve-by time: latency budgets are deadlines, error and
+        exact budgets are best-effort (infinite deadline)."""
+        if req.budget.latency_s is None:
+            return float("inf")
+        return req._ingest_t + req.budget.latency_s
+
+    def _slot_cap(self, cls: ShapeClass, device) -> int:
+        """Batch width cap for one step of this shape class on ``device``.
+
+        A kernel class's step holds :func:`slot_bytes` per slot, pad slots
+        included, so the width is the largest power of two whose slots fit
+        :func:`slot_budget` (at least 1, at most ``batch_slots``).  The
+        plain route is the reference route and keeps ``batch_slots``.
+        """
+        if not cls.use_kernels:
+            return self.batch_slots
+        cap = min(slot_budget(device) // slot_bytes(cls), self.batch_slots)
+        cap = max(cap, 1)
+        return 1 << (cap.bit_length() - 1)          # floor to pow2
+
+    def _take_batch(self) -> tuple:
+        """Pick the next step's shape class and batch.
+
+        FIFO until the queue backs up past ``backlog_slots``; then
+        deadline-aware — the class of the tightest-deadline request is
+        served, and within the class candidates are ordered by deadline
+        (stable, so all-error queues stay FIFO).  With ``sigma_pipeline``,
+        at most one error-budget request per ``query_id`` joins a batch:
+        the repeat is deferred one step so it sees this step's measured
+        sigma (sequential-feedback adaptive sizing), and its slot fills
+        with the next same-class query instead.
+        """
+        backlog = len(self.queue) > self.backlog_slots
+        if backlog:
+            head = min(self.queue, key=self._deadline)
+            if head._class != self.queue[0]._class:
+                self.diagnostics.deadline_promotions += 1
+            cls = head._class
+        else:
+            cls = self.queue[0]._class
+        candidates = [r for r in self.queue if r._class == cls]
+        if backlog:
+            candidates.sort(key=self._deadline)   # stable: FIFO on ties
+        batch, seen_ids = [], set()
+        slots = self._slot_cap(cls, candidates[0].rels[0].keys.device)
+        for r in candidates:
+            if len(batch) == slots:
+                break
+            if (self.sigma_pipeline and r.budget.error is not None
+                    and r.query_id in seen_ids):
+                self.diagnostics.sigma_deferrals += 1
+                continue
+            batch.append(r)
+            seen_ids.add(r.query_id)
+        taken = set(map(id, batch))
+        self.queue = [r for r in self.queue if id(r) not in taken]
+        return cls, batch
+
+    def step(self) -> int:
+        """Serve one batch of same-shape-class queries; returns batch size."""
+        if not self.queue:
+            return 0
+        t_form = time.perf_counter()
+        cls, batch = self._take_batch()
+        t_dispatch = time.perf_counter()
+        self.diagnostics.steps += 1
+        self.diagnostics.max_batch = max(self.diagnostics.max_batch,
+                                         len(batch))
+        self._run_batch(cls, batch)
+        t_done = time.perf_counter()
+        for req in batch:
+            req._dispatch_t = t_dispatch
+            req._complete_t = t_done
+            req.queue_latency_s = t_dispatch - req._ingest_t
+            req.e2e_latency_s = t_done - req._ingest_t
+            req.done = True
+            self.diagnostics.note_latency(
+                tenant_of(req.query_id), req.queue_latency_s,
+                req.e2e_latency_s, self.latency_samples)
+            self.diagnostics.queries += 1
+            d = req.result.diagnostics
+            self.diagnostics.shuffled_bytes_saved += float(
+                d.shuffled_bytes_repartition - d.shuffled_bytes_filtered)
+            self._notify_done(req)
+        if self.tracer.enabled:
+            self._trace_step(cls, batch, t_form, t_dispatch, t_done)
+        self._stage_trace = self._recon_batch = None
+        return len(batch)
+
+    def _path_of(self, cls: ShapeClass) -> str:
+        """Serving-path tag for trace/reconciliation grouping."""
+        return "kernel" if cls.use_kernels else "single"
+
+    def _trace_step(self, cls: ShapeClass, batch: list[JoinRequest],
+                    t_form: float, t_dispatch: float, t_done: float) -> None:
+        """Emit the step's spans: one engine-lane group (batch-formation,
+        step, stage timings) plus a complete per-query span tree (query ->
+        queued/execute -> prepare/sample|exact -> complete) on a lane per
+        request instance, and the per-query byte reconciliation records
+        collected by ``_run_batch``."""
+        tr, lane, path = self.tracer, self.trace_name, self._path_of(cls)
+        tr.event("batch-formation", t_form, t_dispatch - t_form, cat="batch",
+                 tid=lane, batch=len(batch), path=path)
+        tr.event("step", t_dispatch, t_done - t_dispatch, cat="serve",
+                 tid=lane, batch=len(batch), path=path)
+        stages = self._stage_trace or {}
+        for name, (ts, dur, extra) in stages.items():
+            tr.event(name, ts, dur, cat="stage", tid=lane, path=path,
+                     **extra)
+        recs = self._recon_batch or {}
+        for req in batch:
+            tid = f"q:{req.query_id}#{req._span_id}"
+            base = dict(query_id=req.query_id, qspan=req._span_id, path=path)
+            if req.stream is not None:
+                base.update(stream=req.stream, window=req.window_id)
+            tr.event("query", req._ingest_t,
+                     req._complete_t - req._ingest_t, cat="query", tid=tid,
+                     seed=req.seed, tenant=tenant_of(req.query_id), **base)
+            tr.event("queued", req._ingest_t,
+                     req._dispatch_t - req._ingest_t, cat="query", tid=tid,
+                     **base)
+            tr.event("execute", req._dispatch_t,
+                     req._complete_t - req._dispatch_t, cat="query", tid=tid,
+                     **base)
+            for name, (ts, dur, extra) in stages.items():
+                tr.event(name, ts, dur, cat="stage", tid=tid, **base,
+                         **extra)
+            rec = recs.get(id(req))
+            if rec is not None:
+                tr.note_recon(rec)
+                # zero-duration sub-phase markers carrying the byte pairs
+                # (the filter exchange and the shuffle are modeled costs of
+                # the prepare stage, so they mark, not span)
+                p_ts, p_dur, _ = stages.get("prepare",
+                                            (req._dispatch_t, 0.0, None))
+                pairs = {p["name"]: p for p in rec["pairs"]}
+                fe = pairs.get("filter_exchange_bytes")
+                if fe is not None:
+                    tr.event("filter-exchange", p_ts + p_dur, 0.0,
+                             cat="stage", tid=tid, modeled=fe["modeled"],
+                             **base)
+                sh = pairs.get("live_tuple_bytes")
+                if sh is not None:
+                    tr.event("shuffle", p_ts + p_dur, 0.0, cat="stage",
+                             tid=tid, modeled=sh["modeled"],
+                             measured=sh["measured"], **base)
+            tr.instant("complete", cat="query", tid=tid,
+                       ts=req._complete_t, **base)
+
+    def _notify_done(self, req: JoinRequest) -> None:
+        """Completion hook — fires once per finished request, after its
+        result is fully populated."""
+        if self.on_done is not None:
+            self.on_done(req)
+
+    def run(self, max_steps: int = 10_000) -> None:
+        for _ in range(max_steps):
+            if self.step() == 0:
+                break
+
+    # -- execution ----------------------------------------------------------
+
+    def _batch_inputs(self, cls: ShapeClass, batch: list[JoinRequest]):
+        """Pad to the pow2 batch bucket; stack relations, words and seeds.
+
+        Seeds come back as int64 ``[B]`` tensors on the batch's device,
+        each wrapped mod 2^32, as the kernels take them."""
+        B = bucket_capacity(len(batch))
+        reqs = batch + [batch[-1]] * (B - len(batch))  # pad slots (discarded)
+        rels_b = [Relation(torch.stack([r.rels[s].keys for r in reqs]),
+                           torch.stack([r.rels[s].values for r in reqs]),
+                           torch.stack([r.rels[s].valid for r in reqs]))
+                  for s in range(cls.n_inputs)]
+        dev = rels_b[0].keys.device
+        seeds = torch.tensor([r.seed & MASK for r in reqs], device=dev)
+        fseeds = torch.tensor([(r.seed if r.filter_seed is None
+                                else r.filter_seed) & MASK for r in reqs],
+                              device=dev)
+        num_blocks = bloom.num_blocks_for(max(cls.caps), cls.fp_rate)
+        # words are fetched per REAL request only (pad slots replay the last
+        # request's words) so the build/reuse counters stay honest; a
+        # request may carry prebuilt words instead
+        per_req = []
+        for r in batch:
+            if r._words is not None:
+                if len(r._words) != cls.n_inputs:
+                    raise ValueError(f"{len(r._words)} prebuilt filters for "
+                                     f"{cls.n_inputs} inputs")
+                ws = list(r._words)
+            else:
+                fs = r.seed if r.filter_seed is None else r.filter_seed
+                ws = [self._words_for(r.rels[s], r._fps[s], num_blocks, fs,
+                                      use_kernels=cls.use_kernels)
+                      for s in range(cls.n_inputs)]
+            per_req.append(torch.stack(ws))
+        words_b = torch.stack(per_req + [per_req[-1]] * (B - len(batch)))
+        return B, rels_b, words_b, seeds, fseeds, num_blocks
+
+    def _decide_b_rows(self, batch, B, population, skeys, strata_slice,
+                       d_filter):
+        """Host decisions: exact-affordable?  b_i from budget + sigma."""
+        sampled_idx, b_rows = [], []
+        zeros_b = torch.zeros((population.shape[1],), dtype=torch.float32,
+                              device=strata_slice(0).keys.device)
+        for i, req in enumerate(batch):
+            budget, total_pop = req.budget, float(population[i].sum())
+            exact_ok = budget.is_exact or (
+                budget.latency_s is not None and self.cost_model is not None
+                and float(self.cost_model.beta_compute) * total_pop
+                + self.cost_model.epsilon + d_filter <= budget.latency_s
+                and budget.error is None)
+            if exact_ok:
+                b_rows.append(zeros_b)
+                continue
+            sigma = None
+            if budget.error is not None and self.sigma.has(req.query_id):
+                sigma = self.sigma.lookup(req.query_id, skeys[i])
+            b_rows.append(decide_sample_sizes(
+                budget, strata_slice(i), self.cost_model, d_filter, sigma,
+                budget.confidence))
+            sampled_idx.append(i)
+        exact_idx = [i for i in range(len(batch)) if i not in sampled_idx]
+        b_rows += [zeros_b] * (B - len(batch))
+        return sampled_idx, exact_idx, b_rows
+
+    def _finish_batch(self, batch, *, strata_slice, live_counts, total_counts,
+                      fbytes, d_filter, exact_idx, e_est, e_cnt,
+                      value, err, cnt, dof, stats, skeys):
+        """Per-query results + sigma feedback."""
+        n = batch[0]._class.n_inputs
+        for i, req in enumerate(batch):
+            strata_i = strata_slice(i)
+            live_i, tot_i = live_counts[i], total_counts[i]
+            diag = dict(
+                total_counts=tot_i, live_counts=live_i,
+                overlap_fraction=live_i.sum()
+                / torch.clamp(tot_i.sum(), min=1),
+                filter_bytes=fbytes,
+                shuffled_bytes_filtered=live_i.sum() * TUPLE_BYTES
+                + filter_exchange_bytes(n, fbytes),
+                shuffled_bytes_repartition=tot_i.sum() * TUPLE_BYTES,
+                num_strata=strata_i.num_strata,
+                strata_overflow=strata_i.overflow,
+                total_population=strata_i.population.sum(),
+                d_filter_s=d_filter)
+            if i in exact_idx:
+                zero = torch.zeros((), device=e_est.device)
+                req.result = JoinResult(
+                    e_est[i], zero, e_cnt[i], zero,
+                    JoinDiagnostics(sample_draws=zero, sampled=False, **diag),
+                    strata=strata_i)
+                self.diagnostics.exact_queries += 1
+                continue
+            stats_i = _slot(stats, i)
+            req.result = JoinResult(
+                value[i], err[i], cnt[i], dof[i],
+                JoinDiagnostics(sample_draws=stats_i.n_sampled.sum(),
+                                sampled=True, **diag),
+                stats=stats_i, strata=strata_i)
+            sig = measured_sigma(stats_i).cpu().numpy()
+            ok = (stats_i.valid & (stats_i.n_sampled > 1)).cpu().numpy()
+            self.sigma.update(req.query_id, skeys[i], sig, ok)
+            self.diagnostics.sampled_queries += 1
+
+    def _stage_builders(self, cls: ShapeClass) -> dict:
+        """Per-route stage builders.
+
+        The plain and kernel routes share every other line of the step
+        (warmup, timing, host decisions, result assembly).  The fused
+        sampler kernel is two-way and non-dedup (the paper's hot case);
+        other kernel classes keep the kernel prepare and take the plain
+        sampler — exactly approx_join's own use_kernels composition.
+        """
+        prepare = partial(_make_prepare, cls.max_strata)
+        sample = partial(_make_sample, cls.b_max, cls.agg, cls.dedup,
+                         cls.confidence, cls.expr)
+        if cls.use_kernels:
+            prepare = partial(_make_prepare_kernels, cls.max_strata)
+            if cls.n_inputs == 2 and not cls.dedup:
+                sample = partial(_make_sample_kernels, cls.b_max, cls.agg,
+                                 cls.confidence, cls.expr)
+        return dict(prepare=prepare, sample=sample,
+                    exact=partial(_make_exact, cls.agg, cls.expr))
+
+    def _run_batch(self, cls: ShapeClass, batch: list[JoinRequest]) -> None:
+        """One engine step: one call per stage for the whole batch."""
+        B, rels_b, words_b, seeds, fseeds, num_blocks = \
+            self._batch_inputs(cls, batch)
+        n_real, device = len(batch), words_b.device
+        builders = self._stage_builders(cls)
+        # stage-timing scratch for the tracer ({} only while tracing, so the
+        # untraced path waits for the device no more than it must)
+        stages = {} if self.tracer.enabled else None
+
+        prepare, fresh = self._executable("prepare", cls, B,
+                                          builders["prepare"])
+        if fresh:
+            # warm the stage off the clock: d_filter feeds the latency cost
+            # function (§3.2), which models repeated query execution —
+            # charging the kernels' load and the first allocations would
+            # skew every latency budget on the first batch of a class
+            tc = time.perf_counter()
+            prepare(rels_b, words_b, fseeds, n_real)
+            sync(device)
+            if stages is not None:
+                stages["compile"] = (tc, time.perf_counter() - tc,
+                                     {"stage": "prepare"})
+        t0 = time.perf_counter()
+        prep = prepare(rels_b, words_b, fseeds, n_real)
+        sync(device)
+        d_filter = time.perf_counter() - t0
+        self.diagnostics.filter_s += d_filter
+        if stages is not None:
+            stages["prepare"] = (t0, d_filter, {})
+
+        population = prep.population.cpu().numpy()
+        skeys = prep.strata.keys.cpu().numpy()
+
+        def slice_i(i):
+            return _slot(prep.strata, i)
+
+        sampled_idx, exact_idx, b_rows = self._decide_b_rows(
+            batch, B, population, skeys, slice_i, d_filter)
+
+        # -- one call per stage, whole batch --------------------------------
+        value = err = cnt = dof = stats = e_est = e_cnt = None
+        if sampled_idx:
+            sample, _ = self._executable("sample", cls, B,
+                                         builders["sample"])
+            ts = time.perf_counter()
+            value, err, cnt, dof, stats = sample(
+                prep.sorted_rels, prep.strata, torch.stack(b_rows),
+                (seeds + 1) & MASK, n_real)
+            if stages is not None:
+                sync(device)
+                stages["sample"] = (ts, time.perf_counter() - ts,
+                                    {"queries": len(sampled_idx)})
+        if exact_idx:
+            exact, _ = self._executable("exact", cls, B, builders["exact"])
+            ts = time.perf_counter()
+            e_est, e_cnt = exact(prep.sorted_rels, prep.strata, n_real)
+            if stages is not None:
+                sync(device)
+                stages["exact"] = (ts, time.perf_counter() - ts,
+                                   {"queries": len(exact_idx)})
+
+        if cls.use_kernels:
+            self.diagnostics.kernel_queries += len(batch)
+        fbytes = num_blocks * bloom.WORDS_PER_BLOCK * 4
+        self._finish_batch(
+            batch, strata_slice=slice_i, live_counts=prep.live_counts,
+            total_counts=prep.total_counts, fbytes=fbytes, d_filter=d_filter,
+            exact_idx=exact_idx, e_est=e_est, e_cnt=e_cnt, value=value,
+            err=err, cnt=cnt, dof=dof, stats=stats, skeys=skeys)
+        self.diagnostics.filter_exchange_bytes_model += \
+            len(batch) * float(filter_exchange_bytes(cls.n_inputs, fbytes))
+        if stages is not None:
+            self._stage_trace = stages
+            self._recon_batch = self._recon_records(cls, batch, prep, fbytes)
+
+    def _recon_records(self, cls: ShapeClass, batch: list[JoinRequest],
+                       prep, fbytes: int) -> dict:
+        """Per-query byte-reconciliation records (traced steps only): each
+        modeled cost paired with its metered counterpart, keyed by request
+        identity for ``_trace_step``.  A single-device server moves no
+        tuples or filters over a wire, so both pairs are unmetered."""
+        live = prep.live_counts[:len(batch)].cpu().numpy()
+        path = self._path_of(cls)
+        fe_model = float(filter_exchange_bytes(cls.n_inputs, fbytes))
+        out = {}
+        for i, req in enumerate(batch):
+            # live-tuple bytes: §3.1's filtered-shuffle volume
+            pairs = [recon_pair("live_tuple_bytes",
+                                float(live[i].sum()) * TUPLE_BYTES, None),
+                     recon_pair("filter_exchange_bytes", fe_model, None)]
+            out[id(req)] = {"query_id": req.query_id, "path": path,
+                            "stream": req.stream, "window_id": req.window_id,
+                            "pairs": pairs}
+        return out
+
+    def reconciliation_report(self) -> dict:
+        """Modeled-vs-metered byte report: per-query records (traced
+        queries), per-path aggregates, and the cumulative server-level
+        pairs that exist with tracing off too."""
+        d = self.diagnostics
+        server_pairs = [recon_pair("filter_exchange_bytes",
+                                   d.filter_exchange_bytes_model, None)]
+        return _recon_report(self.tracer.recon, server_pairs)
+
+    def query_trace(self, query_id: str) -> list:
+        """Span forest of every traced execution of ``query_id`` (each
+        request instance roots its own ``query`` span)."""
+        return span_tree(e for e in self.tracer.events
+                         if e["args"].get("query_id") == query_id)

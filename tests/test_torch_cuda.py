@@ -18,8 +18,11 @@ from repro_torch.core.bloom import num_blocks_for
 from repro_torch.core.budget import QueryBudget
 from repro_torch.core.join import approx_join
 from repro_torch.core.relation import relation, sort_by_key
-from repro_torch.core.sampling import build_strata
+from repro_torch.core.sampling import build_strata, per_stratum_value_sums
 from repro_torch.kernels import _build, bloom_build, bloom_probe, edge_sample
+from repro_torch.runtime import join_serve
+from repro_torch.runtime.join_serve import (JoinRequest, JoinServer,
+                                            ShapeClass, slot_bytes)
 
 pytestmark = pytest.mark.cuda
 
@@ -216,3 +219,134 @@ def test_wrappers_raise_on_what_the_kernel_does_not_take(card):
     args, _ = _edge_args(card, "mixed", B=1)
     with pytest.raises(ValueError, match="b_max"):
         edge_sample.edge_sample_batched(*args, seed, 2**24 + 1)
+
+
+# -- the JoinServer on the card ----------------------------------------------
+
+SERVE_N = 1 << 15
+SERVE = dict(max_strata=4096, b_max=256, use_kernels=True)
+COUNTERS = (bloom_build.bloom_build_batched, bloom_probe.bloom_probe_batched,
+            edge_sample.edge_sample_batched)
+
+
+def _serve_rels(card, values="poisson"):
+    """Two relations of SERVE_N rows with Poisson values, as the paper's
+    workloads have, whose sums are whole numbers and exact in float32; or
+    normal ones, whose float32 sums depend on the order they are added
+    in."""
+    rng = np.random.default_rng(11)
+    draw = {"poisson": lambda: rng.poisson(10, SERVE_N),
+            "normal": lambda: rng.normal(10, 3, SERVE_N)}[values]
+    return [relation(rng.integers(lo, hi, SERVE_N).astype(np.uint32),
+                     draw().astype(np.float32), device=card)
+            for lo, hi in ((0, 3000), (2000, 5000))]
+
+
+def _fields(res):
+    return [float(getattr(res, f))
+            for f in ("estimate", "error_bound", "count", "dof")]
+
+
+def _served_equals_direct(q, rels):
+    d = approx_join(rels, q.budget, seed=q.seed, **SERVE)
+    assert _fields(q.result) == _fields(d), q.query_id
+    if d.stats is not None:
+        for f in ("n_sampled", "sum_f", "sum_f2"):
+            assert torch.equal(getattr(q.result.stats, f),
+                               getattr(d.stats, f)), (q.query_id, f)
+
+
+@pytest.mark.parametrize("values", ["poisson", "normal"])
+def test_join_server_batch_equals_direct_calls(card, values):
+    """One step of B = 4 mixed seeds (0xFFFFFFFF among them, an exact
+    request too) on the card: every slot equal bit for bit to its own
+    approx_join(use_kernels=True), with whole-number and with fractional
+    values."""
+    rels = _serve_rels(card, values)
+    srv = JoinServer(batch_slots=4)
+    srv.register_dataset("ds", rels)
+    budgets = [QueryBudget(error=0.5)] * 3 + [QueryBudget()]
+    qs = [srv.submit(JoinRequest(dataset="ds", budget=b, query_id=f"t{i}",
+                                 seed=s, **SERVE))
+          for i, (s, b) in enumerate(zip((3, 2**32 - 1, 3, 250), budgets))]
+    assert srv.step() == 4
+    for q in qs:
+        _served_equals_direct(q, rels)
+    assert srv.diagnostics.kernel_queries == 4
+
+
+@pytest.mark.parametrize("n_keys", [16, 4096])
+def test_exact_value_sums_deterministic_on_card(card, n_keys):
+    """The exact stage's per-stratum value sums over 2^22 rows a side of
+    normal float values: the same bits on every call, and within rtol 1e-4
+    of a float64 sum on the host (a float32 sum of up to 2^18 rows a
+    stratum, added in turn, rounds by about 2e-5)."""
+    n = 1 << 22
+    rng = np.random.default_rng(n_keys)
+    rels = [sort_by_key(relation(
+        rng.integers(0, n_keys, n).astype(np.uint32),
+        rng.normal(10, 3, n).astype(np.float32), device=card))
+        for _ in range(2)]
+    strata = build_strata(rels, n_keys)
+    runs = [per_stratum_value_sums(rels, strata) for _ in range(8)]
+    distinct = sum(not torch.equal(r, runs[0]) for r in runs[1:])
+    assert distinct == 0, f"{distinct} of 7 repeats differ from the first"
+    for side, r in enumerate(rels):
+        k = r.keys.cpu().numpy()
+        want = np.bincount(k, weights=r.values.cpu().numpy().astype(np.float64),
+                           minlength=n_keys)
+        got = runs[0][side].cpu().numpy()
+        order = strata.keys.cpu().numpy()[:n_keys]
+        np.testing.assert_allclose(got, want[order], rtol=1e-4)
+
+
+def test_join_server_launches_once_per_step_and_stage(card):
+    """A step of any width launches the probe once per input and the
+    sampler at most once; the build launches once per filter-cache miss."""
+    rels = _serve_rels(card)
+    srv = JoinServer(batch_slots=4)
+    srv.register_dataset("ds", rels)
+
+    def counts():
+        return [c.launches for c in COUNTERS]
+
+    def serve(k, budget, tag):
+        before = counts()
+        for i in range(k):
+            srv.submit(JoinRequest(dataset="ds", budget=budget,
+                                   query_id=f"{tag}{i}", seed=i,
+                                   filter_seed=7, **SERVE))
+        assert srv.step() == k
+        return [a - b for a, b in zip(counts(), before)]
+
+    # the first step of a width also warms its fresh prepare stage
+    assert serve(4, QueryBudget(error=0.5), "w") == [2, 4, 1]
+    assert srv.diagnostics.filter_builds == 2
+    for k, budget, want in ((4, QueryBudget(error=0.5), [0, 2, 1]),
+                            (3, QueryBudget(error=0.5), [0, 2, 1]),
+                            (4, QueryBudget(), [0, 2, 0])):
+        assert serve(k, budget, f"k{k}{want[2]}") == want
+    assert srv.diagnostics.filter_builds == 2
+    # every request after the first finds both inputs' words cached
+    assert srv.diagnostics.filter_cache_hits == 2 * (3 + 4 + 3 + 4)
+
+
+def test_join_server_slot_cap_binds_on_card(card, monkeypatch):
+    """With the memory share cut to three slots' worth of the card, a
+    kernel class serves in batches of two, each slot still equal bit for
+    bit to its direct call."""
+    rels = _serve_rels(card)
+    cls = ShapeClass((SERVE_N, SERVE_N), 2, SERVE["max_strata"],
+                     SERVE["b_max"], "sum", "sum", False, True, 0.01, 0.95)
+    total = torch.cuda.get_device_properties(card).total_memory
+    monkeypatch.setattr(join_serve, "SLOT_MEMORY_SHARE",
+                        3 * slot_bytes(cls) / total)
+    srv = JoinServer(batch_slots=4)
+    qs = [srv.submit(JoinRequest(rels=rels, budget=QueryBudget(error=0.5),
+                                 query_id=f"t{i}", seed=i, **SERVE))
+          for i in range(4)]
+    assert qs[0]._class == cls
+    srv.run()
+    assert srv.diagnostics.max_batch == 2 and srv.diagnostics.steps == 2
+    for q in qs:
+        _served_equals_direct(q, rels)

@@ -2,7 +2,8 @@
 
 * ``repro_torch`` and ``chip_smoke.py`` import neither JAX nor ``repro``;
 * the card is the default device: without CUDA, building a relation with the
-  default device raises instead of landing on the CPU;
+  default device raises instead of landing on the CPU, and so does the
+  serving launcher unless ``--device cpu`` asks for the CPU;
 * a CPU tensor takes a kernel's plain version and launches nothing;
 * ``chip_smoke.py`` fails, printing no result, without a card or without the
   rest of the repository.
@@ -37,7 +38,10 @@ def _port_modules():
 
 def test_port_modules_import_no_jax_and_no_reference():
     mods = _port_modules()
-    assert "repro_torch.core.join" in mods and "repro_torch.kernels.ops" in mods
+    for m in ("repro_torch.core.join", "repro_torch.kernels.ops",
+              "repro_torch.runtime.join_serve", "repro_torch.runtime.telemetry",
+              "repro_torch.launch.join_serve", "repro_torch.launch.trace_dump"):
+        assert m in mods, m
     code = ("import importlib, json, sys\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
             "print(json.dumps(sorted(m for m in sys.modules if m == 'jax' or "
@@ -63,6 +67,21 @@ def test_default_device_is_the_card():
     else:
         with pytest.raises((AssertionError, RuntimeError)):
             relation([1, 2, 3])
+
+
+def test_launcher_without_a_card_fails_and_serves_nothing():
+    """Run without ``--device cpu`` and hidden from every card, the serving
+    launcher raises instead of falling back to the CPU."""
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.join_serve", "--tenants",
+         "1", "--queries-per-tenant", "1", "--base-n", "256"],
+        capture_output=True, text=True, timeout=300, cwd=ROOT,
+        env={**env, "PYTHONPATH": str(ROOT / "src"),
+             "CUDA_VISIBLE_DEVICES": ""})
+    assert out.returncode != 0
+    assert "no CUDA card" in out.stderr
+    assert "[join-serve]" not in out.stdout
 
 
 def test_cpu_tensors_take_the_plain_versions():
