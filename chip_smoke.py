@@ -48,7 +48,28 @@ Phases, each of which fails the run (non-zero exit, no result line):
    class's q/s and latency percentiles over the warm second pass, every
    step's time and peak, a traced step's host time by part, the device busy
    share and longest device ops of a step of each class, and
-   ``bloom_probe`` timed at the small class's served shape beside its bound.
+   ``bloom_probe`` timed at the small class's served shape beside its bound;
+7. streaming: one ``StreamJoinServer(batch_slots=4, window_slots=8)`` serves
+   three sessions through the three kernels, every window a SUM under
+   ``QueryBudget(error=0.01)``: A slides windows of 8 sub-windows of 2^20
+   rows a side by one over the phase-4 pair cut into 16 micro-batches, B
+   the same over a second pair (seed 1), C tumbles over the phase-4 pair;
+   16 ticks push one micro-batch a session and input, then ``run()``.  Every
+   window must equal its rows registered as a dataset on a fresh
+   ``JoinServer(batch_slots=1)`` bit for bit (the session's query id, seeds
+   and budget, in window order), its ORed words a fresh build over its rows;
+   the builds, filter-cache hits and retired word entries must be as
+   reckoned (``STREAM_*``), every step launch the probe twice (four times
+   when it warms a fresh stage) and the sampler once; each window within 3 x
+   its bound of a float64 oracle of its rows (per-tick key counts and sums,
+   grouped on the card), C's running estimate within 3 x its bound of its
+   windows' summed oracle; every session's sketch equal to the same folds of
+   CPU copies bit for bit; each step's peak within 1.5 x ``slot_bytes`` x
+   slots; ``edge_sample`` on the operands a step of 3 windows gave it equal
+   to its plain version bit for bit.  Prints windows a second, window e2e
+   p50/p95, the pushes' host time by part, each step, the device busy share
+   of a steady-state step, and ``bloom_build`` and ``bloom_probe`` timed at
+   the stream's shapes.
 
 It then prints one line ``{"kernels": [...]}`` and, last,
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -103,6 +124,33 @@ SMALL_ROUNDS = 4
 # a large step's measured peak device memory over slot_bytes x its slots:
 # what join_serve.SLOT_MEMORY_SHARE leaves room for
 PEAK_MARGIN = 1.5
+# phase 7: a StreamJoinServer of 4 slots, 8 queued windows a session;
+# windows of 8 sub-windows of 2^20 rows a side, 16 ticks (the phase-4 pair
+# cut into micro-batches)
+STREAM_SLOTS = 4
+STREAM_WINDOW_SLOTS = 8
+STREAM_SIZE = 8
+STREAM_TICKS = 16
+STREAM_SUB_ROWS = ROWS // STREAM_TICKS
+# (stream, slide) of each session, in push order: A and B slide by one
+# sub-window over streams A and B, C tumbles over stream A
+STREAM_SESSIONS = {"A": ("A", 1), "B": ("B", 1), "C": ("A", STREAM_SIZE)}
+# Reckoned from the streaming rules for these sessions:
+#   windows: a sliding session emits one a tick from tick 7 on (9), the
+#     tumbling one at ticks 7 and 15 (2);
+#   builds: one per (micro-batch, input, stream), 16 x 2 x 2 = 64, since A
+#     and C share fingerprints, num_blocks and filter seed, and a retire
+#     never drops words a later window needs;
+#   cache hits: every window asks for 8 sub-windows x 2 inputs, 20 x 16 =
+#     320 asks, of which 64 build: 256;
+#   retired entries: B retires its expired sub-window at each of its 9
+#     windows (18); A's at ticks 8-14 (14), but not at tick 7 or 15, when
+#     C still holds that sub-window live; C's tumbles at ticks 7 and 15 each
+#     retire the one sub-window A no longer holds (4): 36.
+STREAM_WINDOWS = {"A": 9, "B": 9, "C": 2}
+STREAM_BUILDS = 64
+STREAM_CACHE_HITS = 256
+STREAM_RETIRED = 36
 # line of pl.pallas_call in each TPU kernel, src/repro/kernels/<name>.py
 REPLACES = {"bloom_build": 53, "bloom_probe": 67, "edge_sample": 94}
 
@@ -1052,6 +1100,498 @@ def serve_phase(rels, truth, torch, rates, wrappers):
     return launches, small_shape_kernels(small, torch, rates)
 
 
+def stream_window_truth(pair, torch):
+    """Per input of a stream: (its distinct valid keys, and per tick their
+    row counts and value sums, float64 [STREAM_TICKS, K]) as host numpy
+    arrays.  The rows are grouped on the card (``torch.unique`` and
+    ``bincount``, none of the port's code); ``window_truth`` sums a
+    window's ticks and joins the two inputs in numpy."""
+    out = []
+    for r in pair:
+        keys, inv = torch.unique(r.keys, return_inverse=True)
+        K = keys.shape[0]
+        tick = torch.arange(r.capacity, device=r.keys.device) \
+            // STREAM_SUB_ROWS
+        cell = tick * K + inv
+        w = r.valid.to(torch.float64)
+        counts = torch.bincount(cell, weights=w,
+                                minlength=STREAM_TICKS * K)
+        sums = torch.bincount(cell, weights=w * r.values.to(torch.float64),
+                              minlength=STREAM_TICKS * K)
+        out.append((keys.cpu().numpy(),
+                    counts.view(STREAM_TICKS, K).cpu().numpy(),
+                    sums.view(STREAM_TICKS, K).cpu().numpy()))
+    return out
+
+
+def window_truth(tables, start, end):
+    """The exact join aggregates (count, SUM(v1 + v2)) of the rows of ticks
+    ``[start, end)`` of both inputs, in float64."""
+    (u1, c1, s1), (u2, c2, s2) = tables
+    _, i1, i2 = np.intersect1d(u1, u2, assume_unique=True,
+                               return_indices=True)
+    c1, s1 = c1[start:end, i1].sum(0), s1[start:end, i1].sum(0)
+    c2, s2 = c2[start:end, i2].sum(0), s2[start:end, i2].sum(0)
+    return dict(count=float(np.sum(c1 * c2)),
+                sum=float(np.sum(s1 * c2 + s2 * c1)))
+
+
+def stream_kernels(torch, rates, mbs, served, tick, sampled):
+    """bloom_build at the sub-window shape (one micro-batch's 2^20 keys into
+    the window's 2^19 blocks) and bloom_probe at a 4-slot step's (4 windows'
+    2^23 keys against their 2^19-block join filters), each against its plain
+    version and timed beside its bound; edge_sample on the operands that
+    the step of tick ``tick`` gave it (``sampled``: 3 real windows in 4
+    slots, the strata of 2^23-row windows, sigma-fed b_i, a seed a window),
+    equal to its plain version bit for bit."""
+    from repro_torch.core import bloom
+    from repro_torch.kernels import bloom_build as kb
+    from repro_torch.kernels import bloom_probe as kp
+    from repro_torch.kernels import edge_sample as ke
+
+    nb = bloom.num_blocks_for(STREAM_SIZE * STREAM_SUB_ROWS, 0.01)
+    sub = mbs["A"][0][0]
+    keys, valid = sub.keys[None], sub.valid[None]
+    seed1 = torch.tensor([SEED], device=keys.device)
+    got = kb.bloom_build_batched(keys, valid, nb, seed1)
+    check(torch.equal(got, kb.bloom_build_ref(keys, valid, nb, seed1)),
+          "stream: bloom_build at the sub-window shape != plain")
+    ms, call_ms = kernel_ms(lambda: kb.bloom_build_batched(keys, valid, nb,
+                                                           seed1))
+    plain_ms = time_ms(lambda: kb.bloom_build_ref(keys, valid, nb, seed1),
+                       PLAIN_REPS)
+    n = STREAM_SUB_ROWS
+    b_ms, b_by = bound(rates, n * (8 + 1) + 8 + nb * 32,
+                       **{p: float(valid.sum()) * v
+                          for p, v in INT_OPS["bloom_build"].items()})
+    build = dict(keys=n, num_blocks=nb, ms=ms, call_ms=call_ms,
+                 plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                 share_of_bound=b_ms / ms)
+
+    reqs = [served[k][w] for k, w in (("A", 0), ("B", 0), ("C", 0),
+                                      ("A", 1))]
+    pkeys = torch.stack([r.rels[0].keys for r in reqs])
+    jwords = torch.stack([r._words[0] & r._words[1] for r in reqs])
+    seeds = torch.tensor([r.filter_seed for r in reqs], device=pkeys.device)
+    mask = kp.bloom_probe_batched(jwords, pkeys, seeds)
+    check(torch.equal(mask, kp.bloom_probe_ref(jwords, pkeys, seeds)),
+          "stream: bloom_probe at the step's shape != plain")
+    ms, call_ms = kernel_ms(lambda: kp.bloom_probe_batched(jwords, pkeys,
+                                                           seeds))
+    plain_ms = time_ms(lambda: kp.bloom_probe_ref(jwords, pkeys, seeds),
+                       PLAIN_REPS)
+    B, n = pkeys.shape
+    b_ms, b_by = bound(rates, B * n * (8 + 1) + B * nb * 32 + B * 8,
+                       **{p: B * n * v
+                          for p, v in INT_OPS["bloom_probe"].items()})
+    probe = dict(slots=B, keys=n, num_blocks=nb, ms=ms, call_ms=call_ms,
+                 plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                 share_of_bound=b_ms / ms)
+    # the sampler: (values1, values2, keys, start1, count1, start2, count2,
+    # joinable, b_i, seeds, b_max[, expr]) as the step passed them
+    a, k = sampled
+    *arrays, seeds, b_max = a[:11]
+    expr = a[11] if len(a) > 11 else k.get("expr", "sum")
+    got = ke.edge_sample_batched(*arrays, seeds, b_max, expr)
+    want = ke.edge_sample_ref(*arrays, b_max, seeds, expr)
+    for g, w, what in zip(got, want, ("n_sampled", "sum_f", "sum_f2")):
+        check(torch.equal(g, w), f"stream: edge_sample on the step of tick "
+                                 f"{tick}: {what} != plain")
+    err = max(float((g - w).abs().max()) for g, w in zip(got, want))
+    B, S = arrays[2].shape
+    sampler = dict(tick=tick, slots=B, strata=S, rows=arrays[0].shape[1],
+                   seeds=seeds.tolist(), draws=float(got[0].sum()),
+                   max_abs_err=err)
+    check(sampler["draws"] > 0, "stream: the traced step drew nothing")
+    print(f"kernel edge_sample on the step of tick {tick} ({B} slots, seeds "
+          f"{sampler['seeds']}, {S} strata over {sampler['rows']} rows a "
+          f"side, {sampler['draws']:.0f} draws): n_sampled, sum_f and sum_f2 "
+          f"equal its plain version bit for bit")
+    for name, t, shape in (
+            ("bloom_build", build, f"{build['keys']} keys into "
+             f"{nb} blocks"),
+            ("bloom_probe", probe, f"{B} slots x {n} keys against {nb}-block "
+             f"filters")):
+        print(f"kernel {name} at the stream's shape ({shape}): "
+              f"{t['ms']:.4f} ms on the device, {t['call_ms']:.4f} ms a call "
+              f"from the host (bound {t['bound_ms']:.4f} ms by "
+              f"{t['bound_by']}, {100 * t['share_of_bound']:.1f}% of it), "
+              f"plain {t['plain_ms']:.4f} ms; matches its plain version")
+    return build, probe, sampler
+
+
+def sync_sites(torch, fn):
+    """Where ``fn`` makes the host wait for the card: the file:line of each
+    synchronizing call torch's sync debug mode reports (a prototype, which
+    may miss some)."""
+    import warnings
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            fn()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    return [f"{os.path.relpath(w.filename, ROOT)}:{w.lineno}" for w in caught
+            if "synchronizing" in str(w.message)]
+
+
+def stream_phase(rels, truth, torch, rates, wrappers):
+    """Phase 7: one StreamJoinServer(batch_slots=4, window_slots=8) on the
+    card serving three streaming sessions over micro-batches of 2^20 rows a
+    side through the three kernels, 16 ticks: A and B slide windows of 8
+    sub-windows by one over the phase-4 pair and a second pair, C tumbles
+    over the phase-4 pair.  Returns (each kernel's launches in the
+    streaming pass, bloom_build's and bloom_probe's timings at the stream's
+    shapes)."""
+    from repro_torch.core import bloom
+    from repro_torch.core.budget import QueryBudget
+    from repro_torch.core.relation import Relation, bucket_capacity
+    from repro_torch.core.sampling import reservoir_empty, reservoir_extend
+    from repro_torch.core.window import WindowSpec
+    from repro_torch.data.synthetic import overlapping_relations
+    from repro_torch.kernels import bloom_build as kb
+    from repro_torch.kernels import ops
+    from repro_torch.runtime import stream_join
+    from repro_torch.runtime.join_serve import (JoinRequest, JoinServer,
+                                                slot_bytes)
+
+    dev = rels[0].keys.device
+    t0 = time.perf_counter()
+    streams = {"A": rels, "B": overlapping_relations(
+        [ROWS, ROWS], 0.1, keys_per_dataset=KEYS_PER_DATASET, lam=10,
+        seed=SEED + 1, device=dev)}
+    print(f"stream: pair B of 2 x {ROWS} rows made in "
+          f"{time.perf_counter() - t0:.1f} s")
+    mbs = {name: [[Relation(*(f[m * STREAM_SUB_ROWS:(m + 1) * STREAM_SUB_ROWS]
+                              for f in r)) for r in pair]
+                  for m in range(STREAM_TICKS)]
+           for name, pair in streams.items()}
+    budget = QueryBudget(error=0.01)
+    srv = stream_join.StreamJoinServer(batch_slots=STREAM_SLOTS,
+                                       window_slots=STREAM_WINDOW_SLOTS)
+    sess = {name: srv.open_stream(
+        name, WindowSpec(STREAM_SIZE, slide, STREAM_SUB_ROWS), budget=budget,
+        max_strata=MAX_STRATA, b_max=B_MAX, seed=SEED, fp_rate=0.01,
+        use_kernels=True) for name, (_, slide) in STREAM_SESSIONS.items()}
+
+    # host time of the pushes by part (host clock around each part, no
+    # synchronize added: a part that copies to the host waits there)
+    split = {}
+
+    def clocked(obj, attr, label):
+        fn = getattr(obj, attr)
+
+        def run(*a, **k):
+            t = time.perf_counter()
+            try:
+                return fn(*a, **k)
+            finally:
+                split[label] = split.get(label, 0.0) + time.perf_counter() - t
+        setattr(obj, attr, run)
+
+    for s in sess.values():
+        for attr, label in (("_admit", "admission with fingerprint"),
+                            ("_fold_sketch", "sketch"),
+                            ("_window_words", "words (new builds, OR)")):
+            clocked(s, attr, label)
+    clocked(srv, "_submit_window", "submit")
+    patched = {name: getattr(stream_join, name)
+               for name in ("fingerprint", "window_relations")}
+    clocked(stream_join, "fingerprint", "of which fingerprint")
+    clocked(stream_join, "window_relations", "window assembly")
+
+    # the sampler's operands of the last step that serves 3 windows, as
+    # the step hands them to the kernel's wrapper (checked after the pass)
+    sampled = {}
+    sample = ops.edge_sample_batched
+
+    def keep_operands(*a, **k):
+        sampled["last"] = (a, k)
+        return sample(*a, **k)
+    ops.edge_sample_batched = keep_operands
+
+    def prepares():
+        return sum(1 for key in srv._exec_cache if key[0] == "prepare")
+
+    def counts():
+        return {name: w.launches for name, w in wrappers.items()}
+
+    # -- the path: every count from 0 -----------------------------------
+    for w in wrappers.values():
+        w.launches = 0
+    served = {name: [] for name in sess}
+    ticks = []
+    for t in range(STREAM_TICKS):
+        before, steps0, fresh0 = counts(), srv.diagnostics.steps, prepares()
+        builds0 = srv.diagnostics.filter_builds
+        torch.cuda.synchronize()
+        tp = time.perf_counter()
+        for name, (stream, _) in STREAM_SESSIONS.items():
+            sess[name].push(mbs[stream][t])
+        torch.cuda.synchronize()
+        tr = time.perf_counter()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        srv.run()
+        torch.cuda.synchronize()
+        te = time.perf_counter()
+        d = {k: v - before[k] for k, v in counts().items()}
+        steps, fresh = srv.diagnostics.steps - steps0, prepares() - fresh0
+        done = {name: s.drain() for name, s in sess.items()}
+        for name, reqs in done.items():
+            served[name] += reqs
+        real = sum(map(len, done.values()))
+        last = sampled.pop("last", None)
+        if real == 3 and last is not None:
+            sampled["step"] = (t, last)
+        check(steps == (1 if real else 0) and real <= STREAM_SLOTS,
+              f"stream tick {t}: {real} windows in {steps} steps")
+        check(d["bloom_probe"] == 2 * (steps + fresh),
+              f"stream tick {t}: {d['bloom_probe']} probe launches in "
+              f"{steps} steps ({fresh} fresh prepare)")
+        check(d["edge_sample"] <= steps,
+              f"stream tick {t}: {d['edge_sample']} sampler launches")
+        check(d["bloom_build"] == srv.diagnostics.filter_builds - builds0,
+              f"stream tick {t}: build launches {d['bloom_build']} != "
+              f"filter builds")
+        ticks.append(dict(tick=t, real=real, slots=bucket_capacity(real),
+                          push_ms=(tr - tp) * 1e3, run_ms=(te - tr) * 1e3,
+                          fresh=fresh,
+                          peak=torch.cuda.max_memory_allocated() - base))
+    launches = counts()
+    # -- end of the path ------------------------------------------------
+    for name, fn in patched.items():
+        setattr(stream_join, name, fn)
+    ops.edge_sample_batched = sample
+    pass_s = sum(x["push_ms"] + x["run_ms"] for x in ticks) / 1e3
+    dg, ds = srv.diagnostics, srv.stream_diagnostics
+    for name, n in STREAM_WINDOWS.items():
+        got = [r.window_id for r in served[name]]
+        check(got == list(range(n)), f"stream {name}: served windows {got}")
+    for name, n in launches.items():
+        check(n > 0, f"{name} never launched while streaming")
+    check(launches["bloom_build"] == dg.filter_builds == STREAM_BUILDS,
+          f"stream: {launches['bloom_build']} build launches, "
+          f"{dg.filter_builds} filter builds, reckoned {STREAM_BUILDS}")
+    check(dg.filter_cache_hits == STREAM_CACHE_HITS,
+          f"stream: {dg.filter_cache_hits} filter cache hits, reckoned "
+          f"{STREAM_CACHE_HITS}")
+    check(ds.retired_filter_words == STREAM_RETIRED,
+          f"stream: {ds.retired_filter_words} retired word entries, "
+          f"reckoned {STREAM_RETIRED}")
+    n_windows = sum(STREAM_WINDOWS.values())
+    check(ds.windows_served == n_windows and ds.windows_shed == 0,
+          f"stream: {ds.windows_served} served, {ds.windows_shed} shed")
+    check(launches["edge_sample"] == dg.steps,
+          f"stream: {launches['edge_sample']} sampler launches in "
+          f"{dg.steps} steps")
+
+    # gate 1: each window equal bit for bit to its rows registered as a
+    # dataset on a fresh server, queried in window order
+    t0 = time.perf_counter()
+    fields = ("estimate", "error_bound", "count", "dof")
+    base_srv = JoinServer(batch_slots=1)
+
+    def window_rows(name, w):
+        stream, slide = STREAM_SESSIONS[name]
+        lo = w * slide * STREAM_SUB_ROWS
+        return [Relation(*(f[lo:lo + STREAM_SIZE * STREAM_SUB_ROWS]
+                           for f in r)) for r in streams[stream]]
+
+    for name, reqs in served.items():
+        for r in reqs:
+            w = r.window_id
+            base_srv.register_dataset(f"{name}{w}", window_rows(name, w))
+            q = base_srv.submit(JoinRequest(
+                dataset=f"{name}{w}", budget=budget,
+                query_id=sess[name].query_id, seed=SEED + 1 + w,
+                filter_seed=sess[name].filter_seed, max_strata=MAX_STRATA,
+                b_max=B_MAX, use_kernels=True))
+            base_srv.run()
+            got = [float(getattr(r.result, f)) for f in fields]
+            want = [float(getattr(q.result, f)) for f in fields]
+            check(got == want, f"stream {name} window {w}: served {got} != "
+                               f"re-registered {want}")
+    print(f"stream: {n_windows} windows equal their rows re-registered as "
+          f"datasets bit for bit ({time.perf_counter() - t0:.1f} s)")
+
+    # gate 2: each window's ORed words equal a fresh build over its rows
+    nb = bloom.num_blocks_for(STREAM_SIZE * STREAM_SUB_ROWS, 0.01)
+    for name, reqs in served.items():
+        seed_t = torch.tensor([sess[name].filter_seed], device=dev)
+        for r in reqs:
+            for side, rel in enumerate(window_rows(name, r.window_id)):
+                fresh = kb.bloom_build_batched(rel.keys[None],
+                                               rel.valid[None], nb, seed_t)[0]
+                check(torch.equal(r._words[side], fresh),
+                      f"stream {name} window {r.window_id} input {side}: "
+                      f"ORed words != a fresh build")
+    a0, c0 = served["A"][0].result, served["C"][0].result
+    check([float(getattr(a0, f)) for f in fields]
+          == [float(getattr(c0, f)) for f in fields],
+          "stream: A's and C's window 0 (same rows, same seeds) differ")
+    print(f"stream: every window's ORed words equal a fresh build over its "
+          f"rows; A's and C's window 0 are equal")
+
+    # gate 5: each window against the float64 oracle of its rows
+    t0 = time.perf_counter()
+    tables = {name: stream_window_truth(pair, torch)
+              for name, pair in streams.items()}
+    want0 = window_truth(tables["A"], 0, STREAM_SIZE)
+    full0 = oracle(window_rows("A", 0))
+    check(want0["count"] == full0["count"] and want0["sum"] == full0["sum"],
+          f"stream: the per-tick oracle of window A0 {want0} != the oracle "
+          f"of its rows {full0}")
+    readings, zero = [], []
+    for name, reqs in served.items():
+        stream, slide = STREAM_SESSIONS[name]
+        for r in reqs:
+            want = window_truth(tables[stream], r.window_id * slide,
+                                r.window_id * slide + STREAM_SIZE)
+            cnt = float(r.result.count)
+            check(abs(cnt - want["count"]) <= 1e-6 * want["count"],
+                  f"stream {name} window {r.window_id}: count {cnt} vs "
+                  f"oracle {want['count']}")
+            z = served_ok(f"stream {name} window {r.window_id}", r.result,
+                          want["sum"])
+            zero += [z] if z else []
+            bnd = float(r.result.error_bound)
+            if bnd > 0:
+                readings.append(abs(float(r.result.estimate) - want["sum"])
+                                / bnd)
+    c_want = sum(window_truth(tables["A"], w * STREAM_SIZE,
+                              (w + 1) * STREAM_SIZE)["sum"]
+                 for w in range(STREAM_WINDOWS["C"]))
+    run_c = sess["C"].running_estimate()
+    est, bnd = float(run_c.estimate), float(run_c.error_bound)
+    check(sess["C"].accumulated_windows == STREAM_WINDOWS["C"],
+          f"stream C: {sess['C'].accumulated_windows} windows accumulated")
+    check(bnd > 0 and abs(est - c_want) <= 3 * bnd,
+          f"stream C: running estimate |{est} - {c_want}| > 3 x {bnd}")
+    print(f"stream: every window within 3 x its bound of the float64 oracle "
+          f"of its rows ({len(zero)} of bound 0, held to 3 x the bound "
+          f"without the finite-population term); |est - want| / bound: "
+          f"median {statistics.median(readings):.4f}, largest "
+          f"{max(readings):.4f} over {len(readings)}; oracle "
+          f"{time.perf_counter() - t0:.1f} s")
+    print(f"stream C: running estimate over its {STREAM_WINDOWS['C']} "
+          f"tumbling windows {est!r} +- {bnd!r}, the windows' summed oracle "
+          f"{c_want!r} ({abs(est - c_want) / bnd:.4f} x the bound); the "
+          f"whole pair's join (phase 4's oracle, {truth['sum']!r}) also "
+          f"counts the pairs across the two windows, "
+          f"{truth['sum'] / c_want:.4f} x as much")
+
+    # gate 6: the sketches on the card equal the same folds on the CPU
+    t0 = time.perf_counter()
+    for stream, pair in streams.items():
+        cpu = [Relation(*(f.cpu() for f in r)) for r in pair]
+        res = [reservoir_empty(sess["A"].sketch_strata, sess["A"].sketch_cap,
+                               device="cpu") for _ in cpu]
+        for t in range(STREAM_TICKS):
+            lo, hi = t * STREAM_SUB_ROWS, (t + 1) * STREAM_SUB_ROWS
+            res = [reservoir_extend(x, r.keys[lo:hi], r.values[lo:hi],
+                                    r.valid[lo:hi], SEED, t)
+                   for x, r in zip(res, cpu)]
+        for name, (st, _) in STREAM_SESSIONS.items():
+            if st != stream:
+                continue
+            for side in range(2):
+                for f, got, want in zip(("priority", "values", "n_seen"),
+                                        sess[name].sketch[side], res[side]):
+                    check(torch.equal(got.cpu(), want),
+                          f"stream {name} input {side}: sketch {f} on the "
+                          f"card != the same folds on the CPU")
+    print(f"stream: every session's sketch equals the same folds of CPU "
+          f"copies bit for bit ({time.perf_counter() - t0:.1f} s)")
+
+    # gate 7: each step's peak device memory against slot_bytes x slots
+    cls = served["A"][0]._class
+    per_slot = slot_bytes(cls)
+    for x in ticks:
+        if not x["real"]:
+            continue
+        x["ratio"] = x["peak"] / (x["slots"] * per_slot)
+        check(x["ratio"] <= PEAK_MARGIN,
+              f"stream tick {x['tick']}: peak {x['ratio']:.3f} x slot_bytes "
+              f"x {x['slots']}, beyond {PEAK_MARGIN}")
+
+    # a fold must not wait for the card; a push that emits no window
+    # waits only for its fingerprints' host copies
+    r = mbs["A"][0][0]
+    fold_at = sync_sites(torch, lambda: reservoir_extend(
+        sess["A"].sketch[0], r.keys, r.values, r.valid, SEED, STREAM_TICKS))
+    check(not fold_at, f"stream: a sketch fold synchronizes at {fold_at}")
+    probe = srv.open_stream("sync-probe", WindowSpec(
+        STREAM_SIZE, 1, STREAM_SUB_ROWS), use_kernels=True, seed=SEED)
+    push_at = sync_sites(torch, lambda: probe.push(mbs["A"][0]))
+    check(all(x.startswith("src/repro_torch/core/relation.py")
+              for x in push_at),
+          f"stream: a push synchronizes outside its fingerprints: {push_at}")
+    print(f"stream: a fold synchronizes nowhere; a push without a window at "
+          f"{push_at} (the fingerprints' host copies)")
+
+    steps = dg.steps
+    # a steady-state step of two windows again, under the profiler
+    for name in ("A", "B"):
+        r = served[name][-1]
+        q = JoinRequest(rels=r.rels, budget=budget,
+                        query_id=sess[name].query_id, seed=r.seed,
+                        filter_seed=r.filter_seed, max_strata=MAX_STRATA,
+                        b_max=B_MAX, use_kernels=True)
+        q._words = r._words
+        srv.submit(q)
+
+    def one_step():
+        srv.step()
+        torch.cuda.synchronize()
+
+    wall_us, by_name = device_profile(torch, one_step)
+
+    snap = ds.snapshot()
+    print(f"stream: {n_windows} windows from {len(sess)} sessions in "
+          f"{pass_s:.3f} s = {n_windows / pass_s:.2f} windows/s ("
+          + ", ".join(f"{name} {len(r) / pass_s:.2f}"
+                      for name, r in served.items())
+          + f"); window e2e p50 {snap['window_latency_p50_s'] * 1e3:.3f} p95 "
+          f"{snap['window_latency_p95_s'] * 1e3:.3f} ms; launches "
+          f"{launches}, steps {steps}, filter_builds {dg.filter_builds}, "
+          f"filter_cache_hits {dg.filter_cache_hits}, retired "
+          f"{ds.retired_filter_words}, compiles {dg.compiles}")
+    pushes = STREAM_TICKS * len(sess)
+    push_s = sum(x["push_ms"] for x in ticks) / 1e3
+    print(f"stream: {pushes} pushes took {push_s * 1e3:.3f} ms on the host "
+          f"({push_s / pushes * 1e3:.3f} ms a push), by part: "
+          + ", ".join(f"{k} {split[k] * 1e3:.3f} ms" for k in (
+              "admission with fingerprint", "of which fingerprint", "sketch",
+              "words (new builds, OR)", "window assembly", "submit")))
+    print(f"stream: slot_bytes {per_slot / 2**30:.4f} GiB; steps:")
+    for x in ticks:
+        if x["real"]:
+            print(f"  tick {x['tick']}: {x['real']} windows in {x['slots']} "
+                  f"slots, push {x['push_ms']:.3f} ms, step "
+                  f"{x['run_ms']:.3f} ms"
+                  f"{' (warms its stage)' * bool(x['fresh'])}, peak "
+                  f"{x['peak'] / 2**30:.3f} GiB = {x['ratio']:.3f} x "
+                  f"slot_bytes x {x['slots']}")
+    if by_name:
+        busy = sum(us for us, _ in by_name.values())
+        print(f"stream profile: a step of 2 windows, wall {wall_us / 1e3:.3f}"
+              f" ms, device busy {busy / 1e3:.3f} ms "
+              f"({100 * busy / wall_us:.1f}%); longest device ops:")
+        for name, (us, k) in sorted(by_name.items(),
+                                    key=lambda kv: -kv[1][0])[:5]:
+            print(f"  {us / 1e3:9.4f} ms {k:4d}x  {name[:90]}")
+    else:
+        print("stream profile: no device time recorded (not measured)")
+    check("step" in sampled, "stream: no step of 3 windows sampled")
+    build, probe, sampler = stream_kernels(torch, rates, mbs, served,
+                                           *sampled.pop("step"))
+    return launches, {"bloom_build": build, "bloom_probe": probe,
+                      "edge_sample": sampler}
+
+
 def main() -> int:
     import torch
 
@@ -1128,6 +1668,15 @@ def main() -> int:
         ln["serve_launches"] = served[ln["name"]]
         if ln["name"] == "bloom_probe":
             ln["small_served"] = small_probe
+
+    # --- phase 7: streaming -----------------------------------------------
+    t0 = time.perf_counter()
+    streamed, shapes = stream_phase(rels, truth, torch, rates, wrappers)
+    print(f"stream: phase 7 took {time.perf_counter() - t0:.1f} s")
+    for ln in lines:
+        ln["stream_launches"] = streamed[ln["name"]]
+        if ln["name"] in shapes:
+            ln["stream_shape"] = shapes[ln["name"]]
 
     print(json.dumps({"kernels": lines}))
     print(json.dumps({"ok": True, "device": {

@@ -24,7 +24,8 @@ from typing import Callable, NamedTuple, Sequence
 import torch
 
 from repro_torch.core.estimators import StratumStats
-from repro_torch.core.hashing import GOLDEN, MASK, bounded, counter_hash, fmix32
+from repro_torch.core.hashing import (GOLDEN, MASK, bounded, counter_hash,
+                                      fmix32, hash2)
 from repro_torch.core.relation import Relation
 
 SENTINEL = 0xFFFFFFFF  # invalid-row key fill; real keys must be < 2^32 - 1
@@ -247,3 +248,122 @@ def exact_sum_of_products(sorted_rels, strata) -> torch.Tensor:
 
 def exact_count(strata: Strata) -> torch.Tensor:
     return strata.population.sum()
+
+
+# ---------------------------------------------------------------------------
+# Merge-able per-stratum reservoirs (streaming, StreamApprox-style).
+#
+# A bounded uniform sample per stratum over an unbounded stream of values:
+# every item gets a priority from the stateless counter hash keyed on its
+# arrival identity (tick, row), never on which reservoir folded it, and a
+# stratum from its key hash; the reservoir is the bottom-``cap`` priorities
+# per stratum.  Bottom-k by a uniform priority is a uniform sample without
+# replacement, and it makes the sketch exactly mergeable: bottom-k of a
+# union needs only the bottom-k of each part, so ``extend(extend(E, A), B)``
+# equals ``merge(extend(E, A), extend(E, B))`` bit for bit (up to u32
+# priority ties, ~n^2/2^33).  Every sort is stable, so ties keep the same
+# values the JAX implementation keeps, and a fold on the card equals the
+# same fold on the CPU.
+# ---------------------------------------------------------------------------
+
+class Reservoir(NamedTuple):
+    """Per-stratum bottom-k value reservoir (priority SENTINEL = empty slot).
+
+    ``n_seen`` counts every valid item ever offered per stratum: the
+    denominator that turns the reservoir into rate/moment estimates.
+    """
+
+    priority: torch.Tensor  # int64 [S, cap], uint32 values, ascending per row
+    values: torch.Tensor    # float32 [S, cap]
+    n_seen: torch.Tensor    # float32 [S]
+
+
+def reservoir_empty(num_strata: int, cap: int, device="cuda") -> Reservoir:
+    return Reservoir(
+        torch.full((num_strata, cap), SENTINEL, dtype=torch.int64,
+                   device=device),
+        torch.zeros((num_strata, cap), dtype=torch.float32, device=device),
+        torch.zeros((num_strata,), dtype=torch.float32, device=device))
+
+
+def _keep_bottom(priority: torch.Tensor, values: torch.Tensor, cap: int):
+    order = torch.argsort(priority, dim=1, stable=True)
+    return (torch.gather(priority, 1, order)[:, :cap],
+            torch.gather(values, 1, order)[:, :cap])
+
+
+def reservoir_extend(res: Reservoir, keys: torch.Tensor, values: torch.Tensor,
+                     valid: torch.Tensor, seed, tick) -> Reservoir:
+    """Fold one micro-batch into the reservoir.
+
+    ``tick`` is the arrival index of the batch (unique per fold of the same
+    stream: priorities are ``counter_hash(seed, tick, row, 3)``, so reusing
+    a tick would replay the same priorities).  Stratum assignment is
+    ``hash2(key, seed) % S``.  Invalid rows are ignored everywhere.
+    """
+    S, cap = res.priority.shape
+    n = keys.shape[0]
+    dev = keys.device
+    # nothing here waits for the card (a fold runs on every push): the
+    # modulus is a Python int, where ``bounded`` would upload a tensor, and
+    # the counts an index_add_, where a bincount would read its maximum
+    sid = hash2(keys, seed) % max(S, 1)                          # [n]
+    rows = torch.arange(n, device=dev)
+    pri = counter_hash(seed, tick, rows, 3)
+    pri = torch.where(pri == SENTINEL, SENTINEL - 1, pri)
+    # stage only the batch's bottom-cap per stratum (bottom-k of a union
+    # needs only the bottom-k of each part): order by (stratum, priority,
+    # row) — one stable sort of stratum * 2^32 + priority, the order of the
+    # JAX implementation's lexsort — rank within the stratum's run, keep
+    # ranks < cap; the final per-row sort runs over [S, 2 * cap]
+    d = torch.where(valid, sid, S)
+    order = torch.argsort((d << 32) | pri, stable=True)
+    ds = d[order]
+    pos = torch.arange(n, device=dev)
+    is_start = torch.cat([torch.ones(min(n, 1), dtype=torch.bool, device=dev),
+                          ds[1:] != ds[:-1]])
+    slot = pos - torch.cummax(torch.where(is_start, pos, 0), 0).values
+    ok = (ds < S) & (slot < cap)
+    # rows that stay out land in the extra last cell, which is cut off
+    flat = torch.where(ok, ds * cap + slot, S * cap)
+    grid_p = torch.full((S * cap + 1,), SENTINEL, dtype=torch.int64,
+                        device=dev)
+    grid_p[flat] = pri[order]
+    grid_v = torch.zeros((S * cap + 1,), dtype=torch.float32, device=dev)
+    grid_v[flat] = values[order]
+    p, v = _keep_bottom(
+        torch.cat([res.priority, grid_p[:-1].view(S, cap)], dim=1),
+        torch.cat([res.values, grid_v[:-1].view(S, cap)], dim=1), cap)
+    seen = torch.zeros(S + 1, dtype=torch.int64, device=dev).index_add_(
+        0, d, torch.ones_like(d))[:S]
+    return Reservoir(p, v, res.n_seen + seen.to(torch.float32))
+
+
+def reservoir_merge(a: Reservoir, b: Reservoir) -> Reservoir:
+    """Union of two reservoirs over disjoint (tick-distinct) sub-streams."""
+    assert a.priority.shape == b.priority.shape, (a.priority.shape,
+                                                 b.priority.shape)
+    cap = a.priority.shape[1]
+    p, v = _keep_bottom(torch.cat([a.priority, b.priority], dim=1),
+                        torch.cat([a.values, b.values], dim=1), cap)
+    return Reservoir(p, v, a.n_seen + b.n_seen)
+
+
+def reservoir_fill(res: Reservoir) -> torch.Tensor:
+    """Occupied slots per stratum ([S] float32): min(n_seen, cap)."""
+    return (res.priority != SENTINEL).sum(1, dtype=torch.float32)
+
+
+def reservoir_moments(res: Reservoir):
+    """(n [S], mean [S], var [S]) of the reservoir sample per stratum.
+
+    Unbiased sample mean/variance of the stream per stratum (the reservoir
+    is a uniform sample); feeds streaming sigma diagnostics.
+    """
+    m = res.priority != SENTINEL
+    n = m.sum(1, dtype=torch.float32)
+    nz = torch.clamp(n, min=1.0)
+    mean = torch.where(m, res.values, 0.0).sum(1) / nz
+    var = torch.where(m, (res.values - mean[:, None]) ** 2, 0.0).sum(1) \
+        / torch.clamp(n - 1.0, min=1.0)
+    return n, mean, var

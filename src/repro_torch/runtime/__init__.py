@@ -1,6 +1,7 @@
 """Serving runtime: the batched multi-tenant ``JoinServer``
-(``join_serve.py``) and the telemetry it reports through
+(``join_serve.py``), the windowed ``StreamJoinServer`` built on it
+(``stream_join.py``) and the telemetry they report through
 (``telemetry.py``).
 
-Importing this package imports neither module, so it stays light.
+Importing this package imports none of them, so it stays light.
 """

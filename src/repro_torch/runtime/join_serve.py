@@ -59,7 +59,9 @@ and :func:`slot_budget`); the CUDA kernels have no size limit of their own.
 
 ``JoinRequest.filter_seed`` decouples the filter hash from the sampling
 seed, and ``_words`` carries prebuilt filter words past the per-dataset
-cache (what a streaming window's OR-merged sub-window words will use).
+cache: a streaming window's OR-merged sub-window words
+(``runtime/stream_join.py``, whose admission control marks a request it
+drops ``shed``).
 """
 
 from __future__ import annotations
@@ -168,6 +170,7 @@ class JoinRequest:
     # filled by the server
     result: Optional[JoinResult] = None
     done: bool = False
+    shed: bool = False                 # dropped by admission control, unserved
     queue_latency_s: float = 0.0       # ingest -> dispatch (batch former wait)
     e2e_latency_s: float = 0.0         # ingest -> complete
     _class: Optional[ShapeClass] = field(default=None, repr=False)
@@ -488,7 +491,7 @@ class JoinServer:
         self._stage_trace: Optional[dict] = None
         self._recon_batch: Optional[dict] = None
         # completion callback (request -> None), fired by _notify_done for
-        # every finished request
+        # every finished or shed request
         self.on_done = None
 
     # -- admission ----------------------------------------------------------
@@ -755,8 +758,8 @@ class JoinServer:
                        ts=req._complete_t, **base)
 
     def _notify_done(self, req: JoinRequest) -> None:
-        """Completion hook — fires once per finished request, after its
-        result is fully populated."""
+        """Completion hook — fires once per finished OR shed request, after
+        its result (or the shed flag) is fully populated."""
         if self.on_done is not None:
             self.on_done(req)
 

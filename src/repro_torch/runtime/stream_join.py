@@ -1,0 +1,420 @@
+"""Windowed streaming ApproxJoin: unbounded micro-batches, bounded state.
+
+StreamApprox extended the ApproxJoin dataflow to unbounded streams: online
+sampling over micro-batches preserves the paper's error bounds without ever
+seeing the whole input.  This module is that subsystem for the serving
+engine: a :class:`StreamJoinSession` accepts per-tenant micro-batches of
+every join input and serves tumbling- or sliding-window ApproxJoin estimates
+— each window carrying the paper's CLT error bound — through a
+:class:`StreamJoinServer` (a
+:class:`~repro_torch.runtime.join_serve.JoinServer` with per-tenant
+admission control).  It is the single-device port of the JAX package's
+streaming server.
+
+What is incremental, and what licenses it:
+
+* **Filters.**  A window's per-input Bloom filter is the OR of its
+  sub-windows' filters (scatter-OR is a set union).  Each arriving
+  micro-batch is fingerprinted and its filter words built ONCE through the
+  server's filter-word cache; emission ORs the cached words and expiry
+  drops them from the OR — and retires them from the cache.  Sliding a window by one sub-window therefore costs exactly one
+  new build per input; every surviving sub-window is a cache hit.  Because
+  the OR equals a from-scratch build over the window's concatenated rows,
+  the served window is **bit-identical** to re-registering the window as a
+  static dataset.
+* **Stage callables.**  Every window of a session lands in one serving
+  shape class (sub-windows are fixed-capacity slots, windows pad to one pow2
+  bucket), so steady-state streaming builds no new stage: the
+  ``prepare``/``sample``/``exact`` stages all live in the server's stage
+  cache.  The words' OR, the window assembly and the reservoir folds are
+  plain calls: PyTorch compiles nothing, so caching them would save
+  nothing.
+* **Seeds.**  ``JoinRequest.filter_seed`` decouples the filter hash (fixed
+  per session, so cached words stay valid across windows) from the sampling
+  seed (``seed + 1 + w`` for window ``w``, so per-window draws are
+  independent — the accuracy gate depends on this).
+* **Estimator parts.**  Disjoint windows sample independently, so their
+  :class:`~repro_torch.core.estimators.SumParts` ADD:
+  :meth:`StreamJoinSession.running_estimate` folds each emitted
+  non-overlapping window's parts into a running whole-stream estimate with
+  a CLT bound, at O(1) state.
+* **Kernels.**  ``use_kernels=True`` sessions serve their windows through
+  the engine's batched kernel route: sub-window filter words build once
+  through the CUDA build kernel (bit-identical to the plain build, so the
+  word cache is shared), the window's OR-merge feeds the stacked
+  ``[B, num_blocks, 8]`` filter probe directly (``JoinRequest._words``), and
+  the decoupled filter/sampling seeds are runtime kernel operands.  The OR,
+  the window assembly and the reservoir folds are plain PyTorch, as the JAX
+  package computes them outside its kernels.
+* **Sketch.**  A merge-able per-stratum reservoir
+  (:class:`~repro_torch.core.sampling.Reservoir`) folds every micro-batch's
+  values in bounded memory — stream-level per-stratum value moments for
+  monitoring and sizing, independent of any window.  It lives on the device
+  of the session's micro-batches.
+
+Admission lives in :class:`StreamJoinServer`: each session may have at most
+``window_slots`` windows queued — beyond that the OLDEST queued window is
+shed (marked, never served, counted in ``StreamDiagnostics.windows_shed``)
+so a backed-up tenant degrades to fresh windows instead of unbounded queue
+growth.  Scheduling is the base server's deadline-aware policy.
+
+The push path copies to the host once per micro-batch and input (its
+fingerprint) and once per admitted micro-batch longer than the sub-window
+slot (the count of the rows it drops); draining copies each finished
+window's estimator parts once.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Sequence
+
+import torch
+
+from repro_torch.core import bloom
+from repro_torch.core.budget import QueryBudget
+from repro_torch.core.estimators import (Estimate, SumParts, clt_finish,
+                                         clt_sum_parts)
+from repro_torch.core.relation import (Relation, bucket_capacity, fingerprint,
+                                       pad_to)
+from repro_torch.core.sampling import (reservoir_empty, reservoir_extend,
+                                       reservoir_moments)
+from repro_torch.core.window import (SubWindow, WindowBuffer, WindowSpec,
+                                     window_relations)
+from repro_torch.runtime.join_serve import (DEFAULT_B_MAX, JoinRequest,
+                                            JoinServer)
+from repro_torch.runtime.telemetry import MetricsRegistry, latency_pcts
+
+
+def _or_words(words):
+    """OR of sub-window filter words: n_subs x [num_blocks, W] -> one."""
+    out = words[0] | words[1]
+    for w in words[2:]:
+        out |= w
+    return out
+
+
+# StreamDiagnostics scalar counters:
+#   admission_dropped_rows — micro-batch rows beyond the sub-window slot cap
+#   windows_shed — dropped by per-tenant admission, never served
+#   windows_served — served windows (the window-latency ring's population)
+#   retired_filter_words — expired sub-window words evicted from the cache
+_STREAM_SCALAR_FIELDS = ("sessions", "sub_windows", "admission_dropped_rows",
+                         "windows_emitted", "windows_served", "windows_shed",
+                         "retired_filter_words")
+
+
+class StreamDiagnostics:
+    """Streaming-side counters (the join counters stay in the base
+    ``ServerDiagnostics`` — one serving engine, one set of cache meters).
+
+    Backed by the same :class:`~repro_torch.runtime.telemetry.MetricsRegistry`
+    as the owning server's ``ServerDiagnostics`` (metric names carry a
+    ``stream_`` prefix), and ``snapshot()`` uses the same percentile
+    helper/schema (``window_latency_p50_s``/``_p95_s``/``_max_s``), so one
+    scrape covers stream and batch metrics alike.
+    """
+
+    _SCALARS = frozenset(_STREAM_SCALAR_FIELDS)
+
+    def __init__(self, registry: Optional[MetricsRegistry] = None):
+        self.registry = MetricsRegistry() if registry is None else registry
+        for f in _STREAM_SCALAR_FIELDS:
+            self.registry.counter("stream_" + f)
+        # bounded ring of per-window ingest->complete latencies
+        self._lat = self.registry.histogram("stream_window_latencies")
+
+    def __getattr__(self, name):
+        d = object.__getattribute__(self, "__dict__")
+        reg = d.get("registry")
+        if reg is not None and name in self._SCALARS:
+            return reg.counter("stream_" + name).value
+        raise AttributeError(name)
+
+    def __setattr__(self, name, value):
+        if name in self._SCALARS:
+            self.registry.counter("stream_" + name).value = value
+        else:
+            object.__setattr__(self, name, value)
+
+    def note_window_latency(self, e2e_s: float, cap: int) -> None:
+        """Record one served window's ingest->complete latency."""
+        self.windows_served += 1
+        self._lat.cap = cap
+        self._lat.observe(e2e_s)
+
+    def scalars(self) -> dict:
+        """The scalar counters as a plain dict."""
+        return {f: getattr(self, f) for f in _STREAM_SCALAR_FIELDS}
+
+    def snapshot(self) -> dict:
+        """Read-only, idempotent view (same contract and percentile schema
+        as ``ServerDiagnostics.snapshot``)."""
+        d = self.scalars()
+        d.update(latency_pcts(self._lat.samples, "window_latency"))
+        return d
+
+
+class StreamJoinSession:
+    """One tenant's windowed streaming join (construct via
+    :meth:`StreamJoinServer.open_stream`).
+
+    ``push`` admits one micro-batch per join input, emits any windows that
+    became due as queries on the server's queue, and returns them; call
+    ``server.run()`` (or ``step()``) to serve, then :meth:`drain` for the
+    finished windows in completion order.  The windows run on the device
+    the micro-batches lie on.
+    """
+
+    def __init__(self, server: "StreamJoinServer", name: str,
+                 spec: WindowSpec, *, n_sides: int = 2,
+                 budget: QueryBudget = QueryBudget(),
+                 agg: str = "sum", expr: str = "sum", dedup: bool = False,
+                 seed: int = 0, fp_rate: float = 0.01,
+                 max_strata: Optional[int] = None,
+                 b_max: Optional[int] = DEFAULT_B_MAX,
+                 use_kernels: bool = False,
+                 sketch_strata: int = 64, sketch_cap: int = 64):
+        self.server = server
+        self.name = name
+        self.spec = spec.validate()
+        self.n_sides = n_sides
+        self.budget = budget
+        self.agg, self.expr, self.dedup = agg, expr, dedup
+        self.use_kernels = use_kernels
+        self.seed = seed
+        self.filter_seed = seed
+        self.fp_rate = fp_rate
+        self.b_max = b_max
+        # every window of the session shares one shape class: fixed
+        # sub-window slots, window capacity = one pow2 bucket
+        self.sub_cap = bucket_capacity(spec.sub_rows)
+        self.window_cap = bucket_capacity(spec.size * self.sub_cap)
+        self.max_strata = self.window_cap if max_strata is None else max_strata
+        self.num_blocks = bloom.num_blocks_for(self.window_cap, fp_rate)
+        self.buffer = WindowBuffer(spec)
+        self.query_id = f"{name}/stream"
+        self.pending: list[JoinRequest] = []
+        self.results: list[JoinRequest] = []
+        # running whole-stream accumulation of disjoint windows' parts
+        self._running = (0.0, 0.0, 0.0, 0.0, 0.0)
+        self._acc_end = 0
+        self.accumulated_windows = 0
+        # bounded per-stratum value reservoirs, one per input, made on the
+        # first micro-batch's device (None: built with sketch_cap=0)
+        self.sketch_strata, self.sketch_cap = sketch_strata, sketch_cap
+        self.sketch = [None] * n_sides if sketch_cap else None
+
+    # -- ingestion ----------------------------------------------------------
+
+    def _admit_micro_batch(self, r: Relation) -> Relation:
+        """Bound one micro-batch to its sub-window slot (rows beyond the cap
+        are dropped and counted — bounded-memory admission)."""
+        cap = self.sub_cap
+        if r.capacity > cap:
+            dropped = int(r.valid[cap:].sum().item())
+            self.server.stream_diagnostics.admission_dropped_rows += dropped
+            r = Relation(r.keys[:cap], r.values[:cap], r.valid[:cap])
+        elif r.capacity < cap:
+            r = pad_to(r, cap)
+        return r
+
+    def _admit(self, tick: int, rels: Sequence[Relation]) -> SubWindow:
+        """Admitted micro-batches of one tick and their fingerprints."""
+        admitted = tuple(self._admit_micro_batch(r) for r in rels)
+        return SubWindow(tick, admitted,
+                         tuple(fingerprint(r) for r in admitted))
+
+    def _fold_sketch(self, sub: SubWindow) -> None:
+        for side, r in enumerate(sub.rels):
+            res = self.sketch[side]
+            if res is None:
+                res = reservoir_empty(self.sketch_strata, self.sketch_cap,
+                                      device=r.keys.device)
+            self.sketch[side] = reservoir_extend(
+                res, r.keys, r.values, r.valid, self.filter_seed, sub.index)
+
+    def push(self, rels: Sequence[Relation]) -> list[JoinRequest]:
+        """Admit one micro-batch per side; returns the windows that became
+        due (already submitted to the server, not yet served)."""
+        if len(rels) != self.n_sides:
+            raise ValueError(f"expected {self.n_sides} inputs, got "
+                             f"{len(rels)}")
+        sub = self._admit(self.buffer.arrived, rels)
+        if self.sketch is not None:
+            self._fold_sketch(sub)
+        due, expired = self.buffer.push(sub)
+        self.server.stream_diagnostics.sub_windows += 1
+        out = [self._emit(w, subs) for w, subs in due]
+        # retire AFTER emission: a sub-window can expire in the same push
+        # that emits its last window, and that window still needs its words
+        self._retire(expired)
+        return out
+
+    def _retire(self, expired: Sequence[SubWindow]) -> None:
+        """Evict expired sub-window filter words.
+
+        The filter-word cache is server-global, so the keep-set must span
+        EVERY session's live sub-windows: two sessions consuming the same
+        upstream micro-batches under the same seed share cache entries, and
+        one session expiring must not evict words the other still needs
+        (that would silently re-pay the full-window rebuild the subsystem
+        exists to avoid).
+        """
+        keep = {fp for sess in self.server.sessions.values()
+                for s in sess.buffer.live for fp in s.fps}
+        for sub in expired:
+            for fp in sub.fps:
+                if fp in keep:
+                    continue
+                key = (fp, self.num_blocks, self.filter_seed)
+                if self.server._filter_words.pop(key, None) is not None:
+                    self.server.stream_diagnostics.retired_filter_words += 1
+
+    # -- emission -----------------------------------------------------------
+
+    def _window_words(self, subs: Sequence[SubWindow]) -> list:
+        """Per-side window filter words: OR of the cached sub-window builds
+        (new sub-windows build, survivors hit the cache)."""
+        srv = self.server
+        words = []
+        for side in range(self.n_sides):
+            sub_words = [srv._words_for(s.rels[side], s.fps[side],
+                                        self.num_blocks, self.filter_seed,
+                                        use_kernels=self.use_kernels)
+                         for s in subs]
+            words.append(sub_words[0] if len(sub_words) == 1
+                         else _or_words(sub_words))
+        return words
+
+    def _emit(self, w: int, subs: Sequence[SubWindow]) -> JoinRequest:
+        self._drain_finished()
+        req = JoinRequest(
+            rels=window_relations(subs),
+            budget=self.budget, agg=self.agg, expr=self.expr,
+            query_id=self.query_id, seed=self.seed + 1 + w,
+            filter_seed=self.filter_seed, fp_rate=self.fp_rate,
+            max_strata=self.max_strata, b_max=self.b_max, dedup=self.dedup,
+            use_kernels=self.use_kernels, stream=self.name, window_id=w)
+        req._words = self._window_words(subs)
+        self.server._submit_window(self, req)
+        self.pending.append(req)
+        self.server.stream_diagnostics.windows_emitted += 1
+        return req
+
+    # -- results ------------------------------------------------------------
+
+    def _drain_finished(self) -> None:
+        still = []
+        for req in self.pending:
+            if req.shed:
+                continue                       # counted at shed time
+            if not req.done:
+                still.append(req)
+                continue
+            self.results.append(req)
+            self._accumulate(req)
+        self.pending = still
+
+    def drain(self) -> list[JoinRequest]:
+        """Finished (served) window requests since the last drain."""
+        self._drain_finished()
+        out, self.results = self.results, []
+        return out
+
+    def _accumulate(self, req: JoinRequest) -> None:
+        """Fold a non-overlapping window's estimator parts into the running
+        whole-stream estimate (disjoint windows sample independently, so
+        their SumParts ADD).  SUM only; shed windows leave a counted gap."""
+        if self.agg != "sum" or self.dedup:
+            return
+        start, end = self.spec.start(req.window_id), self.spec.end(
+            req.window_id)
+        if start < self._acc_end:
+            return                              # overlaps accumulated span
+        res = req.result
+        f64 = torch.float64
+        if res.stats is not None:
+            p = clt_sum_parts(res.stats)
+            parts = tuple(torch.stack([x.to(f64) for x in p]).tolist())
+        else:                                   # exact window: zero variance
+            est, cnt = torch.stack([res.estimate.to(f64),
+                                    res.count.to(f64)]).tolist()
+            parts = (est, 0.0, 0.0, 0.0, cnt)
+        self._running = tuple(a + b for a, b in zip(self._running, parts))
+        self._acc_end = end
+        self.accumulated_windows += 1
+
+    def running_estimate(self,
+                         confidence: Optional[float] = None
+                         ) -> Optional[Estimate]:
+        """CLT estimate of the stream-total SUM over every accumulated
+        (disjoint) window, O(1) state, as float64 0-d CPU tensors.  None
+        before the first window."""
+        if not self.accumulated_windows:
+            return None
+        parts = SumParts(*(torch.tensor(x, dtype=torch.float64)
+                           for x in self._running))
+        return clt_finish(parts, self.budget.confidence if confidence is None
+                          else confidence)
+
+    def sketch_moments(self, side: int):
+        """(n, mean, var) per sketch stratum of input ``side`` — the
+        bounded-memory stream-level value moments from the reservoir."""
+        assert self.sketch is not None, "session built with sketch_cap=0"
+        assert self.sketch[side] is not None, "no micro-batch pushed yet"
+        return reservoir_moments(self.sketch[side])
+
+
+class StreamJoinServer(JoinServer):
+    """A JoinServer that owns streaming sessions and their admission.
+
+    ``window_slots`` bounds each session's queued-but-unserved windows;
+    emitting past the bound sheds the session's OLDEST queued window
+    (freshness over completeness — the shed window is marked and counted,
+    never silently lost).  Everything else — stage cache, filter-word
+    cache, sigma registry, deadline-aware scheduling, sigma pipelining — is
+    the base engine, shared with static queries on the same server.
+    """
+
+    def __init__(self, *, window_slots: int = 8, **kw):
+        super().__init__(**kw)
+        self.window_slots = window_slots
+        self.sessions: dict[str, StreamJoinSession] = {}
+        # one registry across server + stream diagnostics: a single
+        # snapshot/Prometheus scrape covers the whole serving surface
+        self.stream_diagnostics = StreamDiagnostics(
+            registry=self.diagnostics.registry)
+
+    def open_stream(self, name: str, spec: WindowSpec,
+                    **kw) -> StreamJoinSession:
+        if name in self.sessions:
+            raise ValueError(f"stream {name!r} already open")
+        session = StreamJoinSession(self, name, spec, **kw)
+        self.sessions[name] = session
+        self.stream_diagnostics.sessions += 1
+        return session
+
+    def _submit_window(self, session: StreamJoinSession,
+                       req: JoinRequest) -> None:
+        queued = [r for r in self.queue if r.stream == session.name]
+        while len(queued) >= self.window_slots:
+            victim = queued.pop(0)
+            # drop by identity: the victim is rarely at the queue head in a
+            # multi-tenant queue, and requests are identities, not values
+            self.queue = [r for r in self.queue if r is not victim]
+            victim.shed = True
+            self.stream_diagnostics.windows_shed += 1
+            self.tracer.instant(
+                "shed", cat="admission", tid=self.trace_name,
+                query_id=victim.query_id, stream=victim.stream,
+                window=victim.window_id, qspan=victim._span_id)
+            # a shed window is terminal: fire the completion hook so a
+            # caller waiting on it learns it will never be served
+            self._notify_done(victim)
+        self.submit(req)
+
+    def _notify_done(self, req: JoinRequest) -> None:
+        if req.stream is not None and req.done and not req.shed:
+            self.stream_diagnostics.note_window_latency(
+                req.e2e_latency_s, self.latency_samples)
+        super()._notify_done(req)

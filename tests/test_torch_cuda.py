@@ -17,12 +17,16 @@ import torch
 from repro_torch.core.bloom import num_blocks_for
 from repro_torch.core.budget import QueryBudget
 from repro_torch.core.join import approx_join
-from repro_torch.core.relation import relation, sort_by_key
-from repro_torch.core.sampling import build_strata, per_stratum_value_sums
+from repro_torch.core.relation import Relation, relation, sort_by_key
+from repro_torch.core.sampling import (build_strata, per_stratum_value_sums,
+                                       reservoir_empty, reservoir_extend,
+                                       reservoir_merge)
+from repro_torch.core.window import WindowSpec
 from repro_torch.kernels import _build, bloom_build, bloom_probe, edge_sample
 from repro_torch.runtime import join_serve
 from repro_torch.runtime.join_serve import (JoinRequest, JoinServer,
                                             ShapeClass, slot_bytes)
+from repro_torch.runtime.stream_join import StreamJoinServer
 
 pytestmark = pytest.mark.cuda
 
@@ -350,3 +354,124 @@ def test_join_server_slot_cap_binds_on_card(card, monkeypatch):
     assert srv.diagnostics.max_batch == 2 and srv.diagnostics.steps == 2
     for q in qs:
         _served_equals_direct(q, rels)
+
+
+STREAM_ROWS = 1 << 14
+STREAM = dict(budget=QueryBudget(error=0.5), max_strata=4096, b_max=256,
+              seed=5, use_kernels=True)
+STREAM_SPEC = WindowSpec(size=4, slide=1, sub_rows=STREAM_ROWS)
+
+
+def _stream(card, seed, ticks=6):
+    """Two inputs of ``ticks`` micro-batches each, normal float values (whose
+    float32 sums depend on the order they are added in), as views of one
+    relation a side."""
+    rng = np.random.default_rng(seed)
+    n = ticks * STREAM_ROWS
+    rels = [relation(rng.integers(lo, hi, n).astype(np.uint32),
+                     rng.normal(10, 3, n).astype(np.float32), device=card)
+            for lo, hi in ((0, 3000), (2000, 5000))]
+    cut = [[Relation(*(f[m * STREAM_ROWS:(m + 1) * STREAM_ROWS] for f in r))
+            for r in rels] for m in range(ticks)]
+    return rels, cut
+
+
+def _stream_windows(card):
+    """Two sliding sessions on one StreamJoinServer(batch_slots=2), their
+    windows served two a step; returns ({name: (whole inputs, served
+    windows)}, the server)."""
+    srv = StreamJoinServer(batch_slots=2)
+    streams = {name: _stream(card, seed) for name, seed in (("a", 1),
+                                                            ("b", 2))}
+    sess = {name: srv.open_stream(name, STREAM_SPEC, **STREAM)
+            for name in streams}
+    done = {name: [] for name in streams}
+    for m in range(6):
+        for name, (_, cut) in streams.items():
+            sess[name].push(cut[m])
+        srv.run()
+        for name in streams:
+            done[name] += sess[name].drain()
+    assert srv.diagnostics.max_batch == 2
+    return {name: (streams[name][0], done[name]) for name in streams}, srv
+
+
+def _window_view(rels, w):
+    lo = w * STREAM_SPEC.slide * STREAM_ROWS
+    return [Relation(*(f[lo:lo + STREAM_SPEC.size * STREAM_ROWS] for f in r))
+            for r in rels]
+
+
+def test_stream_windows_equal_reregistered_baseline_on_card(card):
+    """Every window of two sliding sessions served two a step on the card
+    equals, bit for bit (estimate, bound, count, dof and the per-stratum
+    sums), the same window's rows registered as a dataset on a fresh
+    JoinServer(batch_slots=1) and queried with the session's query id,
+    seeds and budget in window order."""
+    served, _ = _stream_windows(card)
+    base = JoinServer(batch_slots=1)
+    for name, (rels, done) in served.items():
+        assert [r.window_id for r in done] == [0, 1, 2]
+        for r in done:
+            w = r.window_id
+            base.register_dataset(f"{name}{w}", _window_view(rels, w))
+            q = base.submit(JoinRequest(
+                dataset=f"{name}{w}", budget=STREAM["budget"],
+                query_id=f"{name}/stream", seed=STREAM["seed"] + 1 + w,
+                filter_seed=STREAM["seed"], max_strata=STREAM["max_strata"],
+                b_max=STREAM["b_max"], use_kernels=True))
+            base.run()
+            assert _fields(r.result) == _fields(q.result), (name, w)
+            for f in ("n_sampled", "sum_f", "sum_f2"):
+                assert torch.equal(getattr(r.result.stats, f),
+                                   getattr(q.result.stats, f)), (name, w, f)
+
+
+def test_stream_window_words_equal_fresh_build_on_card(card):
+    """A window's words, the OR of its sub-windows' cached builds, equal a
+    fresh bloom_build over the window's rows bit for bit; each sub-window
+    was built once a side, and the builds launched the build kernel."""
+    before = bloom_build.bloom_build_batched.launches
+    served, srv = _stream_windows(card)
+    assert bloom_build.bloom_build_batched.launches - before \
+        == srv.diagnostics.filter_builds == 2 * 2 * 6
+    nb = num_blocks_for(STREAM_SPEC.size * STREAM_ROWS, 0.01)
+    seeds = torch.tensor([STREAM["seed"]], device=card)
+    for rels, done in served.values():
+        for r in done:
+            for side, rel in enumerate(_window_view(rels, r.window_id)):
+                fresh = bloom_build.bloom_build_batched(
+                    rel.keys[None].contiguous(), rel.valid[None].contiguous(),
+                    nb, seeds)[0]
+                assert torch.equal(r._words[side], fresh), (r.window_id, side)
+
+
+def test_stream_reservoir_on_card_equals_cpu(card):
+    """A session's reservoirs folded on the card equal the same folds of CPU
+    copies bit for bit (priorities, values, n_seen), as does a fold of a
+    batch with invalid rows and a merge whose priorities all tie."""
+    served, srv = _stream_windows(card)
+    sess = srv.sessions["a"]
+    rels, _ = served["a"]
+    cpu = [reservoir_empty(sess.sketch_strata, sess.sketch_cap, device="cpu")
+           for _ in range(2)]
+    for m in range(6):
+        for side, r in enumerate(rels):
+            part = [f[m * STREAM_ROWS:(m + 1) * STREAM_ROWS].cpu() for f in r]
+            cpu[side] = reservoir_extend(cpu[side], *part, sess.filter_seed, m)
+    for side in range(2):
+        for got, want in zip(sess.sketch[side], cpu[side]):
+            assert torch.equal(got.cpu(), want), side
+    rng = np.random.default_rng(3)
+    keys = rng.integers(0, 2**32, 1 << 18)
+    vals = rng.normal(0, 1, 1 << 18).astype(np.float32)
+    valid = rng.random(1 << 18) > 0.3
+    outs = []
+    for dev in (card, "cpu"):
+        res = reservoir_extend(
+            reservoir_empty(128, 64, device=dev),
+            torch.as_tensor(keys, device=dev), torch.as_tensor(vals, device=dev),
+            torch.as_tensor(valid, device=dev), 0xFFFFFFFF, 7)
+        outs.append(reservoir_merge(res, res))
+    for got, want in zip(*outs):
+        assert torch.equal(got.cpu(), want)

@@ -19,6 +19,7 @@ from repro_torch.core import bloom as tbloom
 from repro_torch.core import hashing as th
 from repro_torch.core import relation as trel
 from repro_torch.data import synthetic as tsyn
+from torch_accuracy import one_torch_thread  # noqa: F401  (autouse)
 
 jrel = sys.modules["repro.core.relation"]
 

@@ -23,6 +23,7 @@ from repro_torch.core import join as tjoin
 from repro_torch.core import relation as trel
 from repro_torch.core import sampling as tsamp
 from repro_torch.core.budget import QueryBudget as TBudget
+from torch_accuracy import one_torch_thread  # noqa: F401  (autouse)
 
 jrel = sys.modules["repro.core.relation"]
 

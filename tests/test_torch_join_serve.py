@@ -27,6 +27,7 @@ from repro_torch.runtime import join_serve
 from repro_torch.runtime.join_serve import (JoinRequest, JoinServer,
                                             ServerDiagnostics, ShapeClass,
                                             shape_class_of, slot_bytes)
+from torch_accuracy import one_torch_thread  # noqa: F401  (autouse)
 
 jrel = sys.modules["repro.core.relation"]
 

@@ -20,6 +20,7 @@ from repro_torch.core.relation import relation, sort_by_key
 from repro_torch.core.sampling import build_strata
 from repro_torch.kernels import bloom_build, bloom_probe, edge_sample
 from repro_torch.kernels import ops as tops
+from torch_accuracy import one_torch_thread  # noqa: F401  (autouse)
 
 SEEDS = (0, 2**32 - 1, 0x9E3779B1)
 

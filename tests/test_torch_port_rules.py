@@ -2,8 +2,8 @@
 
 * ``repro_torch`` and ``chip_smoke.py`` import neither JAX nor ``repro``;
 * the card is the default device: without CUDA, building a relation with the
-  default device raises instead of landing on the CPU, and so does the
-  serving launcher unless ``--device cpu`` asks for the CPU;
+  default device raises instead of landing on the CPU, and so do the
+  serving and streaming launchers unless ``--device cpu`` asks for the CPU;
 * a CPU tensor takes a kernel's plain version and launches nothing;
 * ``chip_smoke.py`` fails, printing no result, without a card or without the
   rest of the repository.
@@ -24,6 +24,7 @@ import torch
 
 import repro_torch
 from repro_torch.core.relation import relation
+from torch_accuracy import one_torch_thread  # noqa: F401  (autouse)
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
@@ -40,7 +41,12 @@ def test_port_modules_import_no_jax_and_no_reference():
     mods = _port_modules()
     for m in ("repro_torch.core.join", "repro_torch.kernels.ops",
               "repro_torch.runtime.join_serve", "repro_torch.runtime.telemetry",
-              "repro_torch.launch.join_serve", "repro_torch.launch.trace_dump"):
+              "repro_torch.launch.join_serve", "repro_torch.launch.trace_dump",
+              "repro_torch.core.window", "repro_torch.core.baselines",
+              "repro_torch.core.sampling", "repro_torch.data.tpch",
+              "repro_torch.data.flows", "repro_torch.data.netflix",
+              "repro_torch.runtime.stream_join",
+              "repro_torch.launch.join_stream"):
         assert m in mods, m
     code = ("import importlib, json, sys\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
@@ -69,19 +75,34 @@ def test_default_device_is_the_card():
             relation([1, 2, 3])
 
 
-def test_launcher_without_a_card_fails_and_serves_nothing():
-    """Run without ``--device cpu`` and hidden from every card, the serving
-    launcher raises instead of falling back to the CPU."""
+def _launch_without_a_card(module, *args):
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
-    out = subprocess.run(
-        [sys.executable, "-m", "repro_torch.launch.join_serve", "--tenants",
-         "1", "--queries-per-tenant", "1", "--base-n", "256"],
+    return subprocess.run(
+        [sys.executable, "-m", module, *args],
         capture_output=True, text=True, timeout=300, cwd=ROOT,
         env={**env, "PYTHONPATH": str(ROOT / "src"),
              "CUDA_VISIBLE_DEVICES": ""})
+
+
+def test_launcher_without_a_card_fails_and_serves_nothing():
+    """Run without ``--device cpu`` and hidden from every card, the serving
+    launcher raises instead of falling back to the CPU."""
+    out = _launch_without_a_card(
+        "repro_torch.launch.join_serve", "--tenants", "1",
+        "--queries-per-tenant", "1", "--base-n", "256")
     assert out.returncode != 0
     assert "no CUDA card" in out.stderr
     assert "[join-serve]" not in out.stdout
+
+
+def test_stream_launcher_without_a_card_fails_and_streams_nothing():
+    """The same for the streaming launcher."""
+    out = _launch_without_a_card(
+        "repro_torch.launch.join_stream", "--tenants", "1", "--pushes", "2",
+        "--sub-rows", "256")
+    assert out.returncode != 0
+    assert "no CUDA card" in out.stderr
+    assert "[join-stream]" not in out.stdout
 
 
 def test_cpu_tensors_take_the_plain_versions():

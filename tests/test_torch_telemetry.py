@@ -23,6 +23,7 @@ from repro_torch.runtime.telemetry import (NULL_SPAN, MetricsRegistry, Tracer,
                                            chrome_trace, dump_chrome_trace,
                                            latency_pcts, span_tree,
                                            validate_chrome_trace)
+from torch_accuracy import one_torch_thread  # noqa: F401  (autouse)
 
 MS, BM = 512, 256   # max_strata / b_max used throughout
 ERR = QueryBudget(error=0.5)
