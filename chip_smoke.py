@@ -69,7 +69,41 @@ Phases, each of which fails the run (non-zero exit, no result line):
    to its plain version bit for bit.  Prints windows a second, window e2e
    p50/p95, the pushes' host time by part, each step, the device busy share
    of a steady-state step, and ``bloom_build`` and ``bloom_probe`` timed at
-   the stream's shapes.
+   the stream's shapes;
+8. plans: three relations of 2^24 rows (``overlapping_relations([2^24] *
+   3, 0.1, keys_per_dataset=2^16, lam=10, seed=0)``) registered as datasets
+   A, B and C on a ``JoinServer``; a two-node plan, ``ab`` = (A, B) and
+   ``abc`` = (ab, C), which fuses to a 3-way join, both SUMs under
+   ``QueryBudget(error=0.01)`` on the kernel route, submitted twice, then
+   once with exact budgets.  Every node must equal the port's composed
+   direct ``approx_join(use_kernels=True)`` bit for bit; the second
+   submission must compile nothing; the compiled byte model must put the
+   fused stage's bytes below the binary tree's; exact nodes within rtol
+   1e-4 of a float64 oracle (for the 3-way SUM of sums, sum over keys of
+   s1 c2 c3 + c1 s2 c3 + c1 c2 s3), sampled ones within 3 x their bound (as
+   phase 6 holds them); every step must launch the probe once per input
+   (twice when it warms its stage), the sampler once for a sampled 2-way
+   node and never for a 3-way one, and the build once per filter-cache miss
+   (3 for the 3-way node on a cold cache); each step's peak within 1.5 x
+   its ``slot_bytes``.  Prints the plan's compile time, each node's wall
+   time and peak memory against ``slot_bytes``, the device
+   busy share of a 3-way step, and the device time of the plain n-way
+   sample stage beside the 2-way kernel sampler's;
+9. the fleet: (a) an ``AsyncJoinFrontDoor(replicas=2)`` on the card serves
+   phase 6's small class (16 tenants x 4 requests, interleaved) and phase
+   8's plan once; every result must equal the port's sync path bit for bit
+   (each query id through a sequential driver with its own SigmaRegistry),
+   and it prints q/s, the steals, queue and e2e p50/p95 and the fleet's
+   peak device memory.  (b) The fault drill: two ``StreamJoinServer``
+   replicas checkpointing into a temporary directory, one session of
+   tumbling windows of 4 micro-batches over the phase-4 pair cut into 16
+   micro-batches of 2^20 rows a side; replica0 is killed once 2 windows
+   have resolved and 2 more micro-batches are in (its newest checkpoint,
+   which holds every push, then carries 2 live sub-windows), and the
+   successor restores it.  Windows 2-3 must equal an uninterrupted run
+   bit for bit, with no window shed, one failover and equal sigma tables.
+   Prints the checkpoints written, their bytes, the capture time under the
+   engine lock and the restore time.
 
 It then prints one line ``{"kernels": [...]}`` and, last,
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -84,8 +118,10 @@ import json
 import os
 import re
 import statistics
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -151,6 +187,16 @@ STREAM_WINDOWS = {"A": 9, "B": 9, "C": 2}
 STREAM_BUILDS = 64
 STREAM_CACHE_HITS = 256
 STREAM_RETIRED = 36
+# phase 8: the plan's node budgets (both nodes the operator's SUM)
+PLAN_NODES = (("ab", ("A", "B")), ("abc", ("ab", "C")))
+PLAN_LEAVES = {"ab": "AB", "abc": "ABC"}
+# phase 9 (b): tumbling windows of 4 micro-batches, a checkpoint at most
+# every half second (each holds the live sub-windows, the queued windows
+# and the cached words, up to a few hundred MB at this width)
+DRILL_SIZE = 4
+DRILL_KILL_WINDOWS = 2
+DRILL_MID_PUSHES = 2      # pushed into window 2 before the kill
+DRILL_CHECKPOINT_EVERY_S = 0.5
 # line of pl.pallas_call in each TPU kernel, src/repro/kernels/<name>.py
 REPLACES = {"bloom_build": 53, "bloom_probe": 67, "edge_sample": 94}
 
@@ -1592,6 +1638,457 @@ def stream_phase(rels, truth, torch, rates, wrappers):
                       "edge_sample": sampler}
 
 
+def nway_truth(rels, torch):
+    """The exact n-way join's count and SUM of sums in float64: each input's
+    rows grouped by key on the card (``torch.unique`` and ``bincount``,
+    none of the port's code), the keys joined on the host; SUM = sum over
+    keys of sum_i s_i prod_{j != i} c_j."""
+    parts = []
+    for r in rels:
+        keys, inv = torch.unique(r.keys[r.valid], return_inverse=True)
+        c = torch.bincount(inv, minlength=keys.shape[0]).to(torch.float64)
+        v = torch.bincount(inv, weights=r.values[r.valid].to(torch.float64),
+                           minlength=keys.shape[0])
+        parts.append((keys.cpu().numpy(), c.cpu().numpy(), v.cpu().numpy()))
+    common = parts[0][0]
+    for k, _, _ in parts[1:]:
+        common = np.intersect1d(common, k, assume_unique=True)
+    cs, ss = [], []
+    for k, c, v in parts:
+        i = np.searchsorted(k, common)
+        cs.append(c[i])
+        ss.append(v[i])
+    count = np.prod(cs, axis=0)
+    total = sum(s * np.prod([c for j, c in enumerate(cs) if j != i], axis=0)
+                for i, s in enumerate(ss))
+    return dict(count=float(np.sum(count)), sum=float(np.sum(total)),
+                keys=int(common.shape[0]))
+
+
+def make_plan(budget):
+    from repro_torch.core.plan import Plan, PlanNode
+    return Plan(tuple(PlanNode(name, inputs, budget=budget, use_kernels=True,
+                               max_strata=MAX_STRATA, b_max=B_MAX,
+                               fp_rate=0.01)
+                      for name, inputs in PLAN_NODES))
+
+
+def check_plan(label, results, datasets, budget, seed, plan_id, truth):
+    """Each node of a served plan against the port's composed direct
+    approx_join(use_kernels=True) over its leaf relations, bit for bit;
+    exact nodes within rtol 1e-4 of the oracle, sampled ones as
+    ``served_ok`` holds them.  Returns the bound-0 readings."""
+    from repro_torch.core.join import approx_join
+    fields = ("estimate", "error_bound", "count", "dof")
+    zero = []
+    for name, leaves in PLAN_LEAVES.items():
+        rels = [r for d in leaves for r in datasets[d]]
+        d = approx_join(rels, budget, seed=seed, max_strata=MAX_STRATA,
+                        b_max=B_MAX, use_kernels=True,
+                        query_id=f"{plan_id}/{name}")
+        got = [float(getattr(results[name], f)) for f in fields]
+        want = [float(getattr(d, f)) for f in fields]
+        check(got == want, f"plan {label} {name}: served {got} != composed "
+                           f"direct {want}")
+        cnt, t = got[2], truth[name]
+        check(abs(cnt - t["count"]) <= 1e-6 * t["count"],
+              f"plan {label} {name}: count {cnt} vs oracle {t['count']}")
+        if budget.is_exact:
+            check(abs(got[0] - t["sum"]) <= 1e-4 * abs(t["sum"]),
+                  f"plan {label} {name}: exact SUM {got[0]} vs oracle "
+                  f"{t['sum']}")
+        else:
+            z = served_ok(f"plan {label} {name}", results[name], t["sum"])
+            zero += [z] if z else []
+    return zero
+
+
+def plan_phase(torch, wrappers, dev):
+    """Phase 8: a two-node plan (``ab`` = A x B, ``abc`` = ab x C, fused to
+    a 3-way join) over three relations of 2^24 rows, served by a JoinServer
+    on the kernel route.  Returns (each kernel's launches while it served,
+    the relations by dataset name, the oracle by node)."""
+    from repro_torch.core.budget import QueryBudget
+    from repro_torch.data.synthetic import overlapping_relations
+    from repro_torch.runtime.join_serve import JoinServer, slot_bytes
+
+    t0 = time.perf_counter()
+    rels = overlapping_relations([ROWS] * 3, 0.1,
+                                 keys_per_dataset=KEYS_PER_DATASET, lam=10,
+                                 seed=SEED, device=dev)
+    datasets = {name: [r] for name, r in zip("ABC", rels)}
+    truth = {name: nway_truth([r for d in leaves for r in datasets[d]],
+                              torch) for name, leaves in PLAN_LEAVES.items()}
+    print(f"plan: 3 x {ROWS} rows made and grouped in "
+          f"{time.perf_counter() - t0:.1f} s; oracle {truth}")
+    srv = JoinServer(batch_slots=SERVE_SLOTS)
+    for name, r in datasets.items():
+        srv.register_dataset(name, r)
+    sampled, exact = QueryBudget(error=0.01), QueryBudget()
+    plan = make_plan(sampled)
+    steps = []
+
+    def counts():
+        return {name: w.launches for name, w in wrappers.items()}
+
+    def prepares():
+        return sum(1 for key in srv._exec_cache if key[0] == "prepare")
+
+    def step(label):
+        req = srv.queue[0]
+        n_in = req._class.n_inputs
+        before, fresh0 = counts(), prepares()
+        builds0 = srv.diagnostics.filter_builds
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t = time.perf_counter()
+        check(srv.step() == 1, f"plan {label}: a step of more than one node")
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t) * 1e3
+        d = {k: v - before[k] for k, v in counts().items()}
+        fresh = prepares() - fresh0
+        builds = srv.diagnostics.filter_builds - builds0
+        check(d["bloom_probe"] == n_in * (1 + fresh),
+              f"plan {label}: {d['bloom_probe']} probe launches, {n_in} "
+              f"inputs ({fresh} fresh prepare)")
+        want_sampler = int(n_in == 2 and not req.budget.is_exact)
+        check(d["edge_sample"] == want_sampler,
+              f"plan {label}: {d['edge_sample']} sampler launches, want "
+              f"{want_sampler}")
+        check(d["bloom_build"] == builds,
+              f"plan {label}: {d['bloom_build']} build launches != {builds} "
+              f"filter builds")
+        peak, per_slot = torch.cuda.max_memory_allocated() - base, \
+            slot_bytes(req._class)
+        check(peak <= PEAK_MARGIN * per_slot,
+              f"plan {label}: peak {peak / per_slot:.3f} x slot_bytes, "
+              f"beyond {PEAK_MARGIN}")
+        steps.append(dict(label=label, node=req.plan_node, inputs=n_in,
+                          ms=ms, fresh=fresh, launches=d, peak=peak,
+                          slot_bytes=per_slot, cls=req._class))
+        return steps[-1]
+
+    def submit(p, plan_id, seed):
+        t = time.perf_counter()
+        h = srv.submit_plan(p, query_id=plan_id, seed=seed)
+        return h, time.perf_counter() - t
+
+    # -- the path: every count from 0 -----------------------------------
+    for w in wrappers.values():
+        w.launches = 0
+    h1, compile1 = submit(plan, "P1", 1)
+    step("P1/ab")
+    step("P1/abc")
+    check(srv.diagnostics.plan_compiles == 1, "plan: first submission "
+          f"compiled {srv.diagnostics.plan_compiles} plans")
+    h2, compile2 = submit(plan, "P2", 2)
+    check(srv.diagnostics.plan_compiles == 1
+          and srv.diagnostics.plan_cache_hits == 1,
+          f"plan: the second submission compiled "
+          f"({srv.diagnostics.plan_compiles} compiles, "
+          f"{srv.diagnostics.plan_cache_hits} cache hits)")
+    step("P2/ab")
+    srv._filter_words.clear()       # the 3-way node on a cold filter cache
+    cold = step("P2/abc")
+    check(cold["launches"]["bloom_build"] == 3
+          and cold["launches"]["bloom_probe"] == 3,
+          f"plan: the 3-way node on a cold cache launched "
+          f"{cold['launches']}, want 3 builds and 3 probes")
+    hx, _ = submit(make_plan(exact), "X", 3)
+    step("X/ab")
+    step("X/abc")
+    launches = counts()
+    # -- end of the path ------------------------------------------------
+    for name, n in launches.items():
+        check(n > 0, f"{name} never launched while serving the plan")
+    for h in (h1, h2, hx):
+        check(h.done and not srv.plans, f"plan {h.plan_id}: not done")
+    zero = []
+    for label, h, budget, seed in (("P1", h1, sampled, 1),
+                                   ("P2", h2, sampled, 2),
+                                   ("X", hx, exact, 3)):
+        zero += check_plan(label, h.results(), datasets, budget, seed,
+                           h.plan_id, truth)
+    model = h1.requests["abc"]._bytes_model
+    check(model["bytes_pushdown"] < model["bytes_binary"],
+          f"plan: pushdown {model['bytes_pushdown']} bytes not below the "
+          f"binary tree's {model['bytes_binary']}")
+    print(f"plan: every node of 3 submissions equals the composed direct "
+          f"approx_join(use_kernels=True) bit for bit; exact nodes within "
+          f"rtol 1e-4 of the oracle, sampled within 3 x their bound "
+          f"({len(zero)} of bound 0); launches {launches}")
+    print(f"plan: compile {compile1 * 1e3:.3f} ms (flatten, validate and "
+          f"the byte model over 3 x {ROWS} rows), again "
+          f"{compile2 * 1e3:.3f} ms (cache hit); abc bytes pushdown "
+          f"{model['bytes_pushdown']} vs binary {model['bytes_binary']} "
+          f"({model['reduction_x']:.4f}x), overlap {model['overlap']:.6f}")
+    cls3 = steps[1]["cls"]
+    print(f"plan: a 3-way kernel class of this shape takes "
+          f"{srv._slot_cap(cls3, dev)} of {SERVE_SLOTS} slots a step "
+          f"(slot_bytes {slot_bytes(cls3) / 2**30:.4f} GiB, the plain "
+          f"sampler's grids included)")
+    for s in steps:
+        print(f"  step {s['label']}: {s['inputs']}-way, {s['ms']:.3f} ms"
+              f"{' (warms its stage)' * bool(s['fresh'])}, launches "
+              f"{s['launches']}, peak {s['peak'] / 2**30:.3f} GiB = "
+              f"{s['peak'] / s['slot_bytes']:.3f} x slot_bytes "
+              f"({s['slot_bytes'] / 2**30:.4f} GiB) x 1")
+
+    # a warm submission more: its sample stages captured, its 3-way step
+    # under the profiler
+    captured = {}
+    executable = srv._executable
+
+    def capturing(stage, cls, variant, builder):
+        fn, fresh = executable(stage, cls, variant, builder)
+        if stage != "sample":
+            return fn, fresh
+
+        def run(*a):
+            captured[cls.n_inputs] = (fn, a)
+            return fn(*a)
+        return run, fresh
+
+    srv._executable = capturing
+    submit(plan, "P3", 4)
+    step("P3/ab")
+    wall_us, by_name = device_profile(torch, lambda: step("P3/abc"))
+    del srv._executable
+    if by_name:
+        busy = sum(us for us, _ in by_name.values())
+        print(f"plan profile: a 3-way step, wall {wall_us / 1e3:.3f} ms, "
+              f"device busy {busy / 1e3:.3f} ms "
+              f"({100 * busy / wall_us:.1f}%); longest device ops:")
+        for name, (us, k) in sorted(by_name.items(),
+                                    key=lambda kv: -kv[1][0])[:5]:
+            print(f"  {us / 1e3:9.4f} ms {k:4d}x  {name[:90]}")
+    else:
+        print("plan profile: no device time recorded (not measured)")
+    check(sorted(captured) == [2, 3], f"plan: sample stages {captured}")
+    for n_in, (fn, a) in sorted(captured.items()):
+        fn(*a)
+        torch.cuda.synchronize()
+        wall_us, by_name = device_profile(
+            torch, lambda: (fn(*a), torch.cuda.synchronize()))
+        busy = sum(us for us, _ in by_name.values())
+        what = ("the CUDA sampler and the estimator" if n_in == 2 else
+                "plain torch: draw, gather, dedup sort, estimator")
+        dev_ms = f"{busy / 1e3:.4f} ms" if by_name else "not measured"
+        print(f"plan sample stage, {n_in}-way ({what}): device {dev_ms} in "
+              f"{sum(k for _, k in by_name.values())} device ops, wall "
+              f"{wall_us / 1e3:.3f} ms")
+    return launches, datasets, truth
+
+
+def fleet_phase(torch, wrappers, datasets, truth, dev):
+    """Phase 9 (a): an AsyncJoinFrontDoor(replicas=2) on the card serving
+    phase 6's small class and phase 8's plan once; every result against
+    the port's sync path.  Returns each kernel's launches meanwhile."""
+    from repro_torch.core.budget import QueryBudget
+    from repro_torch.data.synthetic import overlapping_relations
+    from repro_torch.runtime.async_serve import AsyncJoinFrontDoor
+    from repro_torch.runtime.join_serve import JoinRequest
+
+    small = {f"s{t}": overlapping_relations(
+        [SMALL_ROWS, SMALL_ROWS], 0.1, keys_per_dataset=SMALL_KEYS, lam=10,
+        seed=t, device=dev) for t in range(SMALL_TENANTS)}
+    small_truth = {name: oracle(r) for name, r in small.items()}
+    plan = make_plan(QueryBudget(error=0.01))
+    fd = AsyncJoinFrontDoor(replicas=2, batch_slots=SERVE_SLOTS, device=dev)
+    try:
+        for name, r in {**small, **datasets}.items():
+            fd.register_dataset(name, r)
+        # -- the path: every count from 0 -------------------------------
+        for w in wrappers.values():
+            w.launches = 0
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        futs = [fd.submit(JoinRequest(
+            dataset=ds, budget=budget, query_id=qid, seed=seed,
+            max_strata=SMALL_STRATA, b_max=B_MAX, use_kernels=True))
+            for ds, (qid, budget, seed) in small_spec()]
+        plan_futs = fd.submit_plan(plan, query_id="F", seed=5)
+        reqs = [f.result(timeout=600) for f in futs]
+        nodes = {name: f.result(timeout=600) for name, f in plan_futs.items()}
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() - base
+        launches = {name: w.launches for name, w in wrappers.items()}
+        # -- end of the path --------------------------------------------
+        snap = fd.snapshot()
+    finally:
+        fd.close(timeout=120)
+    for name, n in launches.items():
+        check(n > 0, f"{name} never launched while the fleet served")
+    n_checked, zero = 0, []
+    for name, r in small.items():
+        n, z = check_served("fleet", [q for q in reqs if q.dataset == name],
+                            r, small_truth[name])
+        n_checked, zero = n_checked + n, zero + z
+    zero += check_plan("fleet", {k: v.result for k, v in nodes.items()},
+                       datasets, plan.nodes[0].budget, 5, "F", truth)
+    served = {name: d["queries"] for name, d in snap["replicas"].items()}
+    check(sum(served.values()) == len(reqs) + len(nodes),
+          f"fleet: replicas served {served}")
+    every = reqs + list(nodes.values())
+    q = [r.queue_latency_s * 1e3 for r in every]
+    e = [r.e2e_latency_s * 1e3 for r in every]
+    print(f"fleet: {n_checked} small-class results and the plan's 2 nodes "
+          f"equal the port's sync path bit for bit ({len(zero)} of bound "
+          f"0); launches {launches}")
+    print(f"fleet: {len(every)} queries in {dt * 1e3:.3f} ms = "
+          f"{len(every) / dt:.2f} q/s over 2 replicas {served}, steals "
+          f"{snap['steals']}; queue latency p50 {np.percentile(q, 50):.3f} "
+          f"p95 {np.percentile(q, 95):.3f} ms, e2e p50 "
+          f"{np.percentile(e, 50):.3f} p95 {np.percentile(e, 95):.3f} ms; "
+          f"peak device memory {peak / 2**30:.3f} GiB above the fleet's "
+          f"start")
+    return launches
+
+
+def drill_phase(torch, rels, wrappers):
+    """Phase 9 (b): the fault drill at phase 7's width.  Returns each
+    kernel's launches during the faulted run."""
+    from repro_torch.core.budget import QueryBudget
+    from repro_torch.core.relation import Relation
+    from repro_torch.core.window import WindowSpec
+    from repro_torch.runtime import async_serve
+    from repro_torch.runtime.fault import InjectedFault
+    from repro_torch.runtime.stream_join import StreamJoinServer
+
+    spec = WindowSpec(DRILL_SIZE, DRILL_SIZE, STREAM_SUB_ROWS)
+    mbs = [[Relation(*(f[m * STREAM_SUB_ROWS:(m + 1) * STREAM_SUB_ROWS]
+                       for f in r)) for r in rels]
+           for m in range(STREAM_TICKS)]
+    kw = dict(budget=QueryBudget(error=0.01), max_strata=MAX_STRATA,
+              b_max=B_MAX, seed=SEED, use_kernels=True)
+    fields = ("estimate", "error_bound", "count", "dof")
+
+    def key(r):
+        return [float(getattr(r.result, f)) for f in fields]
+
+    base = StreamJoinServer(batch_slots=STREAM_SLOTS)
+    bsess = base.open_stream("D", spec, **kw)
+    for mb in mbs:
+        bsess.push(mb)
+        base.run()
+    baseline = {r.window_id: key(r) for r in bsess.drain()}
+    n_windows = STREAM_TICKS // DRILL_SIZE
+    check(sorted(baseline) == list(range(n_windows)),
+          f"drill: baseline windows {sorted(baseline)}")
+
+    # the successor's restore, timed where the front door calls it
+    restores = []
+    restore = async_serve.elastic_restore_engine
+
+    restored_live = []
+
+    def timed_restore(ckpt_dir, engine, **k):
+        t = time.perf_counter()
+        try:
+            return restore(ckpt_dir, engine, **k)
+        finally:
+            restores.append(time.perf_counter() - t)
+            restored_live.append(len(engine.sessions["D"].buffer.live))
+    async_serve.elastic_restore_engine = timed_restore
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    out = {}
+    try:
+        fd = async_serve.AsyncJoinFrontDoor(
+            replicas=2, checkpoint_dir=tmp, device=rels[0].keys.device,
+            checkpoint_every_s=DRILL_CHECKPOINT_EVERY_S,
+            engine_factory=lambda i: StreamJoinServer(
+                batch_slots=STREAM_SLOTS))
+        try:
+            # -- the path: every count from 0 ---------------------------
+            for w in wrappers.values():
+                w.launches = 0
+            rep, _ = fd.open_stream("D", spec, **kw)
+            pre = DRILL_KILL_WINDOWS * DRILL_SIZE + DRILL_MID_PUSHES
+            futs = [f for t in range(pre) for f in fd.push("D", mbs[t])]
+            for f in futs:
+                r = f.result(timeout=600)
+                out[r.window_id] = key(r)
+            # the newest checkpoint must hold every push before the kill:
+            # a no-op call lands after the last step's bookkeeping, then
+            # the idle loop checkpoints once its cadence allows
+            rep.call(lambda: None).result(timeout=60)
+            deadline = time.monotonic() + 60
+            while rep._dirty and time.monotonic() < deadline:
+                time.sleep(0.01)
+            check(not rep._dirty, "drill: replica0 never checkpointed")
+            t_kill = time.perf_counter()
+            rep.kill_after(0)
+            rep._thread.join(60)
+            check(not rep._thread.is_alive()
+                  and isinstance(rep.error, InjectedFault),
+                  f"drill: replica0 did not die ({rep.error!r})")
+            # the idle successor's loop may have failed it over already;
+            # this waits on the routing lock until the failover is done
+            fd.maybe_failover()
+            failover_s = time.perf_counter() - t_kill
+            for t in range(pre, STREAM_TICKS):
+                for f in fd.push("D", mbs[t]):
+                    r = f.result(timeout=600)
+                    out[r.window_id] = key(r)
+            torch.cuda.synchronize()
+            launches = {name: w.launches for name, w in wrappers.items()}
+            # -- end of the path ----------------------------------------
+            snap = fd.snapshot()
+            succ = next(r for r in fd.replicas if r.error is None)
+            shed = succ.call(
+                lambda: succ.engine.stream_diagnostics.windows_shed).result(
+                    timeout=60)
+            ckpts, capture_s = rep.stats["checkpoints"], \
+                rep.stats["checkpoint_s"]
+            adopted = restored_live[0] if restored_live else None
+        finally:
+            fd.close(timeout=120)
+        dead_dir = os.path.join(tmp, "replica0")
+        sizes = {d: sum(os.path.getsize(os.path.join(dead_dir, d, f))
+                        for f in os.listdir(os.path.join(dead_dir, d)))
+                 for d in os.listdir(dead_dir)}
+        nbytes, on_disk = sum(sizes.values()), len(sizes)
+        newest = sizes[max(sizes)]
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+        async_serve.elastic_restore_engine = restore
+    for name, n in launches.items():
+        check(n > 0, f"{name} never launched during the drill")
+    check(len(restores) == 1 and snap["failovers"] == 1
+          and snap["failed"] == ["replica0"],
+          f"drill: failovers {snap['failovers']}, failed {snap['failed']}")
+    check(shed == 0, f"drill: {shed} windows shed")
+    check(adopted == DRILL_MID_PUSHES, f"drill: the successor adopted "
+          f"{adopted} live sub-windows, want {DRILL_MID_PUSHES}")
+    check(sorted(out) == list(range(n_windows)),
+          f"drill: windows served {sorted(out)}")
+    for w in range(n_windows):
+        check(out[w] == baseline[w], f"drill: window {w} {out[w]} != the "
+              f"uninterrupted run's {baseline[w]}")
+    check(fd.sigma.table == base.sigma.table,
+          "drill: the fleet's sigma table != the uninterrupted run's")
+    print(f"drill: replica0 killed after {DRILL_KILL_WINDOWS} of "
+          f"{n_windows} windows and {DRILL_MID_PUSHES} pushes into the next; "
+          f"the successor adopted {adopted} live sub-windows; 1 failover, 0 "
+          f"shed; windows "
+          f"{DRILL_KILL_WINDOWS}-{n_windows - 1} (and the ones before) equal "
+          f"the uninterrupted run bit for bit; sigma tables equal; launches "
+          f"{launches}")
+    print(f"drill: replica0 wrote {ckpts} checkpoints (every "
+          f"{DRILL_CHECKPOINT_EVERY_S} s at most; {on_disk} on disk, "
+          f"{nbytes / 2**20:.1f} MiB, the newest {newest / 2**20:.1f} MiB), "
+          f"capture under the engine lock {capture_s * 1e3:.3f} "
+          f"ms in all ({capture_s / max(ckpts, 1) * 1e3:.3f} ms each); "
+          f"restore (load and adopt) {restores[0] * 1e3:.3f} ms, kill to "
+          f"failover done {failover_s * 1e3:.3f} ms")
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -1677,6 +2174,24 @@ def main() -> int:
         ln["stream_launches"] = streamed[ln["name"]]
         if ln["name"] in shapes:
             ln["stream_shape"] = shapes[ln["name"]]
+
+    # --- phase 8: plans ---------------------------------------------------
+    t0 = time.perf_counter()
+    planned, datasets, plan_truth = plan_phase(torch, wrappers,
+                                               rels[0].keys.device)
+    print(f"plan: phase 8 took {time.perf_counter() - t0:.1f} s")
+
+    # --- phase 9: the fleet and its fault drill -----------------------------
+    t0 = time.perf_counter()
+    fleet = fleet_phase(torch, wrappers, datasets, plan_truth,
+                        rels[0].keys.device)
+    del datasets
+    drilled = drill_phase(torch, rels, wrappers)
+    print(f"fleet: phase 9 took {time.perf_counter() - t0:.1f} s")
+    for ln in lines:
+        ln["plan_launches"] = planned[ln["name"]]
+        ln["fleet_launches"] = fleet[ln["name"]]
+        ln["drill_launches"] = drilled[ln["name"]]
 
     print(json.dumps({"kernels": lines}))
     print(json.dumps({"ok": True, "device": {

@@ -192,3 +192,183 @@ def _pack(bits: torch.Tensor) -> torch.Tensor:
 def fill_fraction(f: BloomFilter) -> torch.Tensor:
     """Fraction of set bits (sanity metric; ~0.5 at design load)."""
     return _unpack(f.words).to(torch.float32).mean()
+
+
+# ---------------------------------------------------------------------------
+# Appendix-B variants: size models + a functional counting filter.
+# ---------------------------------------------------------------------------
+
+def flat_filter_bits(n_keys: int, fp_rate: float) -> int:
+    """Regular Bloom filter size (paper Eq. 27), in bits."""
+    n_keys = max(int(n_keys), 1)
+    return math.ceil(-n_keys * math.log(fp_rate) / (math.log(2) ** 2))
+
+
+def counting_filter_bits(n_keys: int, fp_rate: float, counter_bits: int = 4) -> int:
+    """Counting BF: a ``counter_bits`` counter per cell instead of one bit."""
+    return flat_filter_bits(n_keys, fp_rate) * counter_bits
+
+
+def invertible_filter_bits(n_keys: int, fp_rate: float,
+                           key_bits: int = 32, count_bits: int = 32) -> int:
+    """IBF: each cell stores (count, keySum, hashSum), modeled per [26]."""
+    cells = flat_filter_bits(n_keys, fp_rate) // 8
+    cells = max(cells, int(1.3 * n_keys))
+    return cells * (count_bits + key_bits + key_bits)
+
+
+def scalable_filter_bits(n_keys: int, fp_rate: float, initial: int = 4096,
+                         growth: int = 2, tightening: float = 0.9) -> int:
+    """SBF [41]: series of filters of growing size / tightening error."""
+    total, cap, err, added = 0, initial, fp_rate * (1 - tightening), 0
+    while added < n_keys:
+        total += flat_filter_bits(cap, err)
+        added += cap
+        cap *= growth
+        err *= tightening
+    return total
+
+
+class CountingFilter(NamedTuple):
+    """Functional counting Bloom filter (supports remove), Appendix B-II."""
+
+    counts: torch.Tensor  # int32 [num_blocks, 8, 32] (unpacked cells)
+    seed: int = 0
+
+    @property
+    def num_blocks(self) -> int:
+        return self.counts.shape[0]
+
+
+def counting_empty(num_blocks: int, seed: int = 0,
+                   device="cuda") -> CountingFilter:
+    return CountingFilter(torch.zeros((num_blocks, WORDS_PER_BLOCK, 32),
+                                      dtype=torch.int32, device=device), seed)
+
+
+def counting_add(f: CountingFilter, keys: torch.Tensor, valid: torch.Tensor,
+                 sign: int = 1) -> CountingFilter:
+    """Add (``sign=1``) or remove (``sign=-1``) the valid keys: an integer
+    scatter-add of their unpacked lane bits (exact in any order)."""
+    blk = torch.where(valid, block_index(keys, f.num_blocks, f.seed),
+                      f.num_blocks)               # overflow row is dropped
+    bits = _unpack(lane_masks(keys, f.seed)).to(torch.int32) * sign
+    grid = torch.zeros((f.num_blocks + 1,) + tuple(f.counts.shape[1:]),
+                       dtype=torch.int32, device=f.counts.device)
+    grid.index_add_(0, blk, bits)
+    return CountingFilter(f.counts + grid[:f.num_blocks], f.seed)
+
+
+def counting_contains(f: CountingFilter, keys: torch.Tensor) -> torch.Tensor:
+    packed = BloomFilter(_pack((f.counts > 0).to(torch.uint8)), f.seed)
+    return contains(packed, keys)
+
+
+def false_positive_rate(num_blocks: int, n_keys: int) -> float:
+    """Predicted FPR of the split-block filter at load n_keys.
+
+    Per-lane analysis: each lane of a block holding ``c`` keys has FPR
+    1-(1-1/32)^c; block FPR = prod over 8 lanes; averaged over the Poisson
+    block-occupancy distribution (numpy, used for sizing sanity checks).
+    """
+    lam = n_keys / num_blocks
+    cs = np.arange(0, max(int(lam * 8), 16) + 1)
+    # log-space Poisson pmf (factorials overflow past ~170)
+    logpmf = -lam + cs * np.log(max(lam, 1e-12)) \
+        - np.array([math.lgamma(int(c) + 1) for c in cs])
+    pois = np.exp(logpmf)
+    per_lane = 1.0 - (1.0 - 1.0 / 32.0) ** cs
+    return float(np.sum(pois * per_lane ** WORDS_PER_BLOCK))
+
+
+# ---------------------------------------------------------------------------
+# Appendix B-III: functional Scalable Bloom Filter with the UNION operation
+# (the merge the paper contributed upstream: "SBFs contain a set of regular
+# Bloom filters, so union two SBFs by unioning the stages pairwise").
+# ---------------------------------------------------------------------------
+
+class ScalableFilter:
+    """Host-managed SBF: a list of split-block stages of doubling capacity
+    and tightening error; ``add`` spills to a fresh stage when the current
+    one reaches its design load.  Tensors on ``device`` inside, Python
+    growth control (the structure is data-dependent, which is why the
+    serving path uses fixed-size filters: this variant serves ad-hoc
+    driver-side use)."""
+
+    def __init__(self, initial_capacity: int = 4096, fp_rate: float = 0.01,
+                 growth: int = 2, tightening: float = 0.5, seed: int = 0,
+                 device="cuda"):
+        self.growth = growth
+        self.tightening = tightening
+        self.seed = seed
+        self.device = torch.device(device)
+        self.stages: list[BloomFilter] = []
+        self.caps: list[int] = []
+        self.errs: list[float] = []
+        self.counts: list[int] = []
+        self._next_cap = initial_capacity
+        self._next_err = fp_rate * (1 - tightening)
+
+    def _keys(self, keys) -> torch.Tensor:
+        """Array-like uint32 keys -> int64 tensor on the filter's device."""
+        if isinstance(keys, torch.Tensor):
+            return (keys.to(self.device, torch.int64) & MASK).reshape(-1)
+        arr = np.asarray(keys).reshape(-1).astype(np.uint32).astype(np.int64)
+        return torch.as_tensor(arr, device=self.device)
+
+    def _push_stage(self) -> None:
+        nb = num_blocks_for(self._next_cap, self._next_err)
+        self.stages.append(empty(nb, self.seed, self.device))
+        self.caps.append(self._next_cap)
+        self.errs.append(self._next_err)
+        self.counts.append(0)
+        self._next_cap *= self.growth
+        self._next_err *= self.tightening
+
+    def add(self, keys) -> None:
+        keys = self._keys(keys)
+        while keys.shape[0]:
+            if not self.stages or self.counts[-1] >= self.caps[-1]:
+                self._push_stage()
+            room = self.caps[-1] - self.counts[-1]
+            batch, keys = keys[:room], keys[room:]
+            add = build(batch, torch.ones(batch.shape[0], dtype=torch.bool,
+                                          device=self.device),
+                        self.stages[-1].num_blocks, self.seed)
+            self.stages[-1] = union(self.stages[-1], add)
+            self.counts[-1] += int(batch.shape[0])
+
+    def contains(self, keys) -> torch.Tensor:
+        keys = self._keys(keys)
+        out = torch.zeros(keys.shape, dtype=torch.bool, device=self.device)
+        for st in self.stages:
+            out = out | contains(st, keys)
+        return out
+
+    def merge(self, other: "ScalableFilter") -> "ScalableFilter":
+        """Union of two SBFs: pairwise-union stages of equal geometry,
+        carry extra stages verbatim (the upstream-PR semantics)."""
+        if self.seed != other.seed:
+            raise ValueError(f"merge: seeds {self.seed} != {other.seed}")
+        a, b = self, other
+        out = ScalableFilter(seed=self.seed, device=self.device)
+        n = max(len(a.stages), len(b.stages))
+        for i in range(n):
+            if i < len(a.stages) and i < len(b.stages):
+                if a.stages[i].num_blocks != b.stages[i].num_blocks:
+                    raise ValueError("stage geometry mismatch: merge requires "
+                                     "the same schedule")
+                out.stages.append(union(a.stages[i], b.stages[i]))
+                out.caps.append(a.caps[i])
+                out.errs.append(a.errs[i])
+                out.counts.append(a.counts[i] + b.counts[i])
+            else:
+                src = a if i < len(a.stages) else b
+                out.stages.append(src.stages[i])
+                out.caps.append(src.caps[i])
+                out.errs.append(src.errs[i])
+                out.counts.append(src.counts[i])
+        if out.caps:
+            out._next_cap = out.caps[-1] * out.growth
+            out._next_err = out.errs[-1] * out.tightening
+        return out

@@ -10,7 +10,8 @@ and exposes plain C entry points (no PyTorch headers, so a build takes
 seconds).  ``digest`` hashes the source, the shared headers and the flags: a
 changed source gets a new library, an unchanged one is reused.  Libraries
 build at first use, or all at once, one ``nvcc`` each in parallel, through
-:func:`build`.
+:func:`build`; a lock makes threads that reach a missing library together
+(the async tier's replica loops) build it once.
 
 Each entry point takes device pointers and the stream as ``c_void_p``,
 launches on that stream without synchronising, and returns
@@ -25,6 +26,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 
@@ -35,6 +37,9 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+# one build at a time in a process: two threads would write one temporary
+# file (its name holds the process id)
+_BUILD_LOCK = threading.Lock()
 
 
 def _nvcc() -> str:
@@ -60,6 +65,11 @@ def build(names=KERNELS) -> dict:
     source, all started together.  Returns ``{name: (seconds, nvcc's
     report)}`` for the ones it compiled (ptxas prints registers and spills).
     """
+    with _BUILD_LOCK:
+        return _build(names)
+
+
+def _build(names) -> dict:
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     nvcc, procs = None, {}
     t0 = time.perf_counter()

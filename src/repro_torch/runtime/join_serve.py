@@ -1,11 +1,10 @@
 """Batched multi-tenant ApproxJoin serving engine (single device).
 
-The port of the JAX package's ``runtime/join_serve.py`` without its mesh,
-plan, snapshot and async parts.  The ``JoinServer`` batches ApproxJoin
-queries the way LLM serving engines batch token decodes across slots.  A
-:class:`JoinRequest` carries relations (or a named dataset handle), a
-:class:`QueryBudget`, the aggregate/expression, and a tenant ``query_id``.
-The engine:
+The port of the JAX package's ``runtime/join_serve.py`` without its mesh
+parts.  The ``JoinServer`` batches ApproxJoin queries the way LLM serving
+engines batch token decodes across slots.  A :class:`JoinRequest` carries
+relations (or named dataset handles), a :class:`QueryBudget`, the
+aggregate/expression, and a tenant ``query_id``.  The engine:
 
 * **buckets** every relation to a power-of-two capacity
   (:func:`repro_torch.core.relation.bucket_to_pow2`) so queries fall into a
@@ -62,6 +61,13 @@ seed, and ``_words`` carries prebuilt filter words past the per-dataset
 cache: a streaming window's OR-merged sub-window words
 (``runtime/stream_join.py``, whose admission control marks a request it
 drops ``shed``).
+
+Query plans (:mod:`repro_torch.core.plan`) compile once per signature and
+submit one request per node (:meth:`JoinServer.submit_plan`), each over the
+concatenation of its leaf datasets.  :meth:`JoinServer.snapshot_state` /
+:meth:`JoinServer.restore_state` capture and adopt the serving state
+(datasets, cached filter words, sigmas, the queue with its plans), which
+``runtime/checkpoint.py`` writes and the async tier's failover reads.
 """
 
 from __future__ import annotations
@@ -86,8 +92,9 @@ from repro_torch.core.join import (EXPRS, TUPLE_BYTES, JoinDiagnostics,
                                    prepare_stage_kernels_batched,
                                    prepare_stage_pre, sample_stage,
                                    sample_stage_kernels_batched)
+from repro_torch.core.plan import CompiledPlan, Plan, compile_plan
 from repro_torch.core.relation import (Relation, bucket_capacity,
-                                       bucket_to_pow2, fingerprint)
+                                       bucket_to_pow2, fingerprint, relation)
 from repro_torch.runtime.telemetry import (NULL_TRACER, Histogram,
                                            MetricsRegistry, Tracer,
                                            latency_pcts, recon_pair,
@@ -150,6 +157,11 @@ class JoinRequest:
 
     rels: Optional[Sequence[Relation]] = None
     dataset: Optional[str] = None
+    # multi-dataset handle (plan-node requests): the fused stage joins the
+    # concatenation of the named datasets' relation lists, each resolved
+    # through the same fingerprint path as a single-dataset handle, so a
+    # table shared by several plan nodes builds its filter words once
+    datasets: Optional[Sequence[str]] = None
     budget: QueryBudget = QueryBudget()
     agg: str = "sum"
     expr: str = "sum"
@@ -164,9 +176,19 @@ class JoinRequest:
     # session can vary draws per window while reusing cached filter words
     # (None -> ``seed``, the classic coupled behaviour)
     filter_seed: Optional[int] = None
+    # live-fraction estimate that a mesh engine plans its shuffle buckets
+    # from (the JAX package's psum mode); a single-device server carries it
+    # through plans and snapshots and reads it nowhere
+    overlap_hint: Optional[float] = None
     # streaming metadata (carried into the trace)
     stream: Optional[str] = None
     window_id: Optional[int] = None
+    # plan metadata (set by submit_plan): the owning plan's id and this
+    # request's node name within it; restore_state regroups requests
+    # carrying these into live PlanHandles, so a failover never drops an
+    # in-flight plan
+    plan: Optional[str] = None
+    plan_node: Optional[str] = None
     # filled by the server
     result: Optional[JoinResult] = None
     done: bool = False
@@ -180,16 +202,49 @@ class JoinRequest:
     _ingest_t: float = field(default=0.0, repr=False)
     _dispatch_t: float = field(default=0.0, repr=False)
     _complete_t: float = field(default=0.0, repr=False)
+    # per-query completion future (async tier); resolved by the engine's
+    # on_done hook for served AND shed requests
+    _future: Optional[object] = field(default=None, repr=False)
     _fps: Optional[list[str]] = field(default=None, repr=False)
     # prebuilt per-side filter words; when set, the batch path uses them
     # verbatim instead of fetching through the per-dataset cache
     _words: Optional[list] = field(default=None, repr=False)
+    # compile-time byte model of the owning plan node (submit_plan copies
+    # the node's node_bytes_model dict here): the reconciliation report
+    # pairs its bytes_pushdown against the serve-time restatement
+    _bytes_model: Optional[dict] = field(default=None, repr=False)
     # tracer span id grouping every span of this request's execution
+    # (unique per request instance, survives failover via Tracer.adopt)
     _span_id: Optional[int] = field(default=None, repr=False)
 
 
+@dataclass
+class PlanHandle:
+    """An in-flight plan: one engine request per plan node.
+
+    Node requests ride the normal queue (their query ids are
+    ``'<plan_id>/<node>'``, so the whole plan is one tenant to the front
+    door) and the handle is just the grouping: the engine tracks live
+    handles in ``JoinServer.plans`` and drops a handle once every node
+    finished, and ``restore_state`` rebuilds handles from the requests'
+    plan metadata after a failover.
+    """
+
+    plan_id: str
+    requests: dict = field(default_factory=dict)   # node name -> JoinRequest
+
+    @property
+    def done(self) -> bool:
+        return all(r.done or r.shed for r in self.requests.values())
+
+    def results(self) -> dict:
+        """node name -> JoinResult (finished nodes only)."""
+        return {name: r.result for name, r in self.requests.items()
+                if r.done and r.result is not None}
+
+
 # ServerDiagnostics scalar counters in snapshot order (the JAX package's
-# schema; the mesh and plan meters stay 0 on a single-device server):
+# schema; the mesh meters stay 0 on a single-device server):
 #   queries..kernel_queries — served-query counts by decision/backend
 #   queue_latency_s/e2e_latency_s — summed ingest->dispatch / ->complete
 #   plan_compiles/plan_cache_hits — compiled-plan cache misses/reuses
@@ -340,6 +395,13 @@ def shape_class_of(req: JoinRequest) -> ShapeClass:
                       req.fp_rate, req.budget.confidence)
 
 
+def kernel_sampler(cls: ShapeClass) -> bool:
+    """Whether ``cls`` samples through the fused sampler kernel, which is
+    two-way and non-dedup (the paper's hot case); every other class draws
+    with plain torch."""
+    return cls.use_kernels and cls.n_inputs == 2 and not cls.dedup
+
+
 def slot_bytes(cls: ShapeClass) -> int:
     """Bytes one slot of a step of ``cls`` holds on its device.
 
@@ -349,13 +411,19 @@ def slot_bytes(cls: ShapeClass) -> int:
     filter words and the join filter, ``num_blocks * 32`` bytes each; and
     the strata arrays over ``max_strata`` slots: keys (8 bytes), validity
     (1), per input starts and counts (16), population, ``b_i`` and the
-    sampler's three sums (20).
+    sampler's three sums (20).  A class that draws with plain torch also
+    holds ``[max_strata, b_max]`` grids: per input the drawn indices and
+    their in-stratum offsets (int64, 16 bytes a cell) and the gathered
+    values (float32, 4), and once the f values, the mask, the edge ids,
+    their sort order and the counter hash's temporaries (about 40).
     """
     nb = bloom.num_blocks_for(max(cls.caps), cls.fp_rate)
     rows = sum(cls.caps) * (13 + 13 + 8)
     filters = (cls.n_inputs + 1) * nb * bloom.WORDS_PER_BLOCK * 4
     strata = cls.max_strata * (8 + 1 + 16 * cls.n_inputs + 20)
-    return rows + filters + strata
+    grid = 0 if kernel_sampler(cls) else \
+        cls.max_strata * cls.b_max * (20 * cls.n_inputs + 40)
+    return rows + filters + strata + grid
 
 
 @functools.cache
@@ -475,6 +543,11 @@ class JoinServer:
         self.datasets: dict[str, list[Relation]] = {}
         self._dataset_fps: dict[str, list[str]] = {}
         self._exec_cache: dict = {}
+        # compiled plans, cached by plan signature the way shape classes key
+        # the stage cache: resubmitting a plan shape skips the
+        # flatten/validate/cost pass entirely
+        self._plan_cache: dict = {}
+        self.plans: dict[str, PlanHandle] = {}   # in-flight plan handles
         # LRU of (fingerprint, num_blocks, seed) -> words: bounded so a
         # long-running server with ever-fresh seeds cannot accumulate
         # device-resident filter words without limit
@@ -491,7 +564,8 @@ class JoinServer:
         self._stage_trace: Optional[dict] = None
         self._recon_batch: Optional[dict] = None
         # completion callback (request -> None), fired by _notify_done for
-        # every finished or shed request
+        # every finished or shed request; the async tier installs its
+        # future-resolver here
         self.on_done = None
 
     # -- admission ----------------------------------------------------------
@@ -509,12 +583,15 @@ class JoinServer:
 
     def submit(self, req: JoinRequest) -> JoinRequest:
         if req.rels is None:
-            if req.dataset is None:
+            names = req.datasets if req.datasets is not None else (
+                [] if req.dataset is None else [req.dataset])
+            if not names:
                 raise ValueError("JoinRequest needs rels or a dataset handle")
-            if req.dataset not in self.datasets:
-                raise ValueError(f"unknown dataset {req.dataset!r}")
-            req.rels = self.datasets[req.dataset]
-            req._fps = self._dataset_fps[req.dataset]
+            for name in names:
+                if name not in self.datasets:
+                    raise ValueError(f"unknown dataset {name!r}")
+            req.rels = [r for name in names for r in self.datasets[name]]
+            req._fps = [fp for name in names for fp in self._dataset_fps[name]]
         else:
             # inline relations are NOT fingerprinted: hashing every ad-hoc
             # submission would put a device-to-host copy + sha1 of the whole
@@ -553,6 +630,67 @@ class JoinServer:
                 tenant=tenant_of(req.query_id), qspan=req._span_id)
         self.queue.append(req)
         return req
+
+    # -- query plans --------------------------------------------------------
+
+    def compile_plan(self, plan: Plan) -> CompiledPlan:
+        """Compile (or fetch) a plan against this server's datasets.
+
+        Flattening, validation, and the pushdown-vs-binary byte model run
+        once per plan signature; repeats are cache hits.  Registering new
+        data under a name already baked into a cached plan is fine: the
+        compiled form only holds dataset *names*; relations resolve at
+        submit time through the normal handle path.
+        """
+        key = plan.signature()
+        compiled = self._plan_cache.get(key)
+        if compiled is None:
+            with self.tracer.span("plan-compile", cat="plan",
+                                  tid=self.trace_name,
+                                  nodes=len(plan.nodes)):
+                compiled = compile_plan(plan, self.datasets)
+            self._plan_cache[key] = compiled
+            self.diagnostics.plan_compiles += 1
+        else:
+            self.diagnostics.plan_cache_hits += 1
+        return compiled
+
+    def submit_plan(self, plan: Plan, *, query_id: str = "plan0",
+                    seed: int = 0,
+                    use_kernels: Optional[bool] = None) -> PlanHandle:
+        """Submit every node of a plan as one engine request each.
+
+        Node requests are ordinary queue entries (query id
+        ``'<query_id>/<node>'``), so each node's result is bit-identical to
+        a direct ``approx_join`` over its flattened leaf relations with the
+        node's own budget: the compiler changes *what* is submitted, never
+        how it executes.
+        """
+        compiled = self.compile_plan(plan)
+        handle = PlanHandle(query_id)
+        # plan -> node span hierarchy: node spans carry plan/plan_node args
+        # and this instant carries the node-reference edges, so trace
+        # consumers can nest each node's query span under the nodes that
+        # reference it
+        self.tracer.instant("plan", cat="plan", tid=self.trace_name,
+                            plan=query_id, hierarchy=plan.hierarchy())
+        for cn in compiled.nodes:
+            node = cn.node
+            model = compiled.bytes_model.get(node.name)
+            req = JoinRequest(
+                datasets=cn.datasets, budget=node.budget, agg=node.agg,
+                expr=node.expr, query_id=f"{query_id}/{node.name}",
+                seed=seed, fp_rate=node.fp_rate, max_strata=node.max_strata,
+                b_max=node.b_max, dedup=node.dedup,
+                use_kernels=node.use_kernels if use_kernels is None
+                else use_kernels,
+                overlap_hint=None if model is None else model["overlap"],
+                plan=query_id, plan_node=node.name)
+            req._bytes_model = None if model is None else dict(model)
+            self.submit(req)
+            handle.requests[node.name] = req
+        self.plans[query_id] = handle
+        return handle
 
     # -- stage + filter-word caches -----------------------------------------
 
@@ -723,6 +861,8 @@ class JoinServer:
             base = dict(query_id=req.query_id, qspan=req._span_id, path=path)
             if req.stream is not None:
                 base.update(stream=req.stream, window=req.window_id)
+            if req.plan is not None:
+                base.update(plan=req.plan, plan_node=req.plan_node)
             tr.event("query", req._ingest_t,
                      req._complete_t - req._ingest_t, cat="query", tid=tid,
                      seed=req.seed, tenant=tenant_of(req.query_id), **base)
@@ -758,15 +898,184 @@ class JoinServer:
                        ts=req._complete_t, **base)
 
     def _notify_done(self, req: JoinRequest) -> None:
-        """Completion hook — fires once per finished OR shed request, after
-        its result (or the shed flag) is fully populated."""
+        """Completion hook — fires once per finished OR shed request.  The
+        async tier resolves the request's per-query future here; the hook
+        runs after the result (or the shed flag) is fully populated."""
         if self.on_done is not None:
             self.on_done(req)
+        if req.plan is not None:
+            handle = self.plans.get(req.plan)
+            if handle is not None and handle.done:
+                del self.plans[req.plan]
 
     def run(self, max_steps: int = 10_000) -> None:
         for _ in range(max_steps):
             if self.step() == 0:
                 break
+
+    # -- crash safety: snapshot / restore -----------------------------------
+    #
+    # A snapshot is ``(flat tensors, meta)``: every device-resident piece of
+    # engine state as a flat {key: tensor} dict (what runtime/checkpoint.py
+    # serializes, one .npy + checksum per key) plus a JSON-able meta dict
+    # carrying the host-side structure (dataset names/fingerprints, the
+    # sigma table, queue descriptors, scalar counters), in the JAX
+    # package's layout.  Keys are index-based (``ds/0/1/keys``) so
+    # user-chosen names never have to round-trip through a file name.  NOT
+    # captured: the stage cache (rebuilt on the restoring server, a warmup
+    # cost, not state) and in-flight latency timestamps (latency across a
+    # crash is ill-defined; restored requests re-stamp at restore
+    # admission).
+
+    # scalar diagnostics that survive a crash (cumulative counters; the
+    # latency rings restart empty)
+    _DIAG_SCALARS = _DIAG_SCALAR_FIELDS
+
+    @staticmethod
+    def _req_meta(req: JoinRequest) -> dict:
+        # serve_mode: the JAX package's mesh merge choice, always the
+        # server default (None) on a single device
+        return {"dataset": req.dataset,
+                "datasets": None if req.datasets is None
+                else list(req.datasets),
+                "plan": req.plan, "plan_node": req.plan_node,
+                "budget": list(req.budget),
+                "agg": req.agg, "expr": req.expr, "query_id": req.query_id,
+                "seed": req.seed, "fp_rate": req.fp_rate,
+                "max_strata": req.max_strata, "b_max": req.b_max,
+                "dedup": req.dedup, "use_kernels": req.use_kernels,
+                "serve_mode": None, "filter_seed": req.filter_seed,
+                "overlap_hint": req.overlap_hint, "stream": req.stream,
+                "window_id": req.window_id,
+                "n_rels": len(req.rels) if req.rels is not None else 0,
+                "n_words": 0 if req._words is None else len(req._words)}
+
+    @staticmethod
+    def _rel_arrays(flat: dict, prefix: str, r: Relation) -> None:
+        flat[f"{prefix}/keys"] = r.keys
+        flat[f"{prefix}/values"] = r.values
+        flat[f"{prefix}/valid"] = r.valid
+
+    @staticmethod
+    def _rel_restore(flat: dict, prefix: str, device) -> Relation:
+        """A snapshot's relation (tensors, or the numpy arrays a checkpoint
+        loads) on ``device``."""
+        return relation(flat[f"{prefix}/keys"], flat[f"{prefix}/values"],
+                        flat[f"{prefix}/valid"], device=device)
+
+    def snapshot_state(self) -> tuple[dict, dict]:
+        """Capture the full serving state as ``(flat tensors, meta)``.
+
+        Feed the pair to :func:`repro_torch.runtime.checkpoint.save_checkpoint`
+        (``tree=flat``, ``extra=meta``); the inverse is ``load_checkpoint``
+        + :meth:`restore_state`.  The capture is synchronous with respect to
+        engine mutation: call between steps (the async tier snapshots on
+        its loop thread under the engine lock)."""
+        flat: dict = {}
+        meta: dict = {}
+        ds_meta = []
+        for di, (name, rels) in enumerate(self.datasets.items()):
+            for i, r in enumerate(rels):
+                self._rel_arrays(flat, f"ds/{di}/{i}", r)
+            # overlap: a mesh engine's registration-time estimate
+            ds_meta.append({"name": name, "n": len(rels),
+                            "fps": self._dataset_fps[name], "overlap": None})
+        meta["datasets"] = ds_meta
+        fw_keys = []
+        for j, (key, words) in enumerate(self._filter_words.items()):
+            fw_keys.append(list(key))            # [fp, num_blocks, seed]
+            flat[f"fw/{j}"] = words
+        meta["filter_cache"] = fw_keys           # in LRU order
+        meta["sigma"] = {q: {str(k): float(v) for k, v in t.items()}
+                         for q, t in self.sigma.table.items()}
+        q_meta = []
+        for j, req in enumerate(self.queue):
+            # handle requests (single- or multi-dataset) need no arrays: the
+            # datasets themselves are in the snapshot and resolve by name
+            if req.dataset is None and req.datasets is None:
+                for i, r in enumerate(req.rels):
+                    self._rel_arrays(flat, f"q/{j}/rels/{i}", r)
+            if req._words is not None:           # pre-merged window words
+                for i, w in enumerate(req._words):
+                    flat[f"q/{j}/words/{i}"] = w
+            q_meta.append(self._req_meta(req))
+        meta["queue"] = q_meta
+        meta["diag"] = {f: getattr(self.diagnostics, f)
+                        for f in self._DIAG_SCALARS}
+        # span-id sequence: the successor adopting this snapshot must never
+        # reuse this engine's span ids (Tracer.adopt max-merges)
+        meta["telemetry"] = self.tracer.state()
+        return flat, meta
+
+    def restore_state(self, flat: dict, meta: dict,
+                      device=None) -> list[JoinRequest]:
+        """Merge a snapshot into this engine; returns the re-queued requests.
+
+        Every restored tensor lands on ``device``: the card unless the
+        caller asks for the CPU (the engine has no device of its own; a
+        batch runs where its relations lie).  Merge semantics (not
+        replace): restoring into a fresh engine is a plain restore,
+        restoring into a live one ADOPTS the snapshot's tenants, the
+        failover path, where a successor absorbs a dead replica's datasets,
+        filter words, sigma entries (overwritten per query_id, continuing
+        each sigma sequence exactly) and queued requests (appended in saved
+        order, so same-``query_id`` FIFO, the only order sigma feedback
+        observes, is preserved).  Served-but-undrained results are NOT part
+        of a snapshot: their futures resolved at completion time, before
+        any crash this snapshot survives."""
+        device = torch.device("cuda" if device is None else device)
+        for di, d in enumerate(meta.get("datasets", [])):
+            self.datasets[d["name"]] = [
+                self._rel_restore(flat, f"ds/{di}/{i}", device)
+                for i in range(d["n"])]
+            self._dataset_fps[d["name"]] = list(d["fps"])
+        for j, key in enumerate(meta.get("filter_cache", [])):
+            fp, num_blocks, seed = key
+            self._filter_words[(fp, int(num_blocks), int(seed))] = \
+                torch.as_tensor(flat[f"fw/{j}"], device=device)
+        while len(self._filter_words) > self.filter_cache_entries:
+            self._filter_words.popitem(last=False)
+        for q, t in meta.get("sigma", {}).items():
+            self.sigma.table[q] = {int(k): float(v) for k, v in t.items()}
+        restored = []
+        for j, m in enumerate(meta.get("queue", [])):
+            rels = None
+            if m["dataset"] is None and not m.get("datasets"):
+                rels = [self._rel_restore(flat, f"q/{j}/rels/{i}", device)
+                        for i in range(m["n_rels"])]
+            req = JoinRequest(
+                rels=rels, dataset=m["dataset"], datasets=m.get("datasets"),
+                budget=QueryBudget(*m["budget"]), agg=m["agg"],
+                expr=m["expr"], query_id=m["query_id"], seed=m["seed"],
+                fp_rate=m["fp_rate"], max_strata=m["max_strata"],
+                b_max=m["b_max"], dedup=m["dedup"],
+                use_kernels=m["use_kernels"], filter_seed=m["filter_seed"],
+                overlap_hint=m["overlap_hint"], stream=m["stream"],
+                window_id=m["window_id"], plan=m.get("plan"),
+                plan_node=m.get("plan_node"))
+            if m["n_words"]:
+                req._words = [torch.as_tensor(flat[f"q/{j}/words/{i}"],
+                                              device=device)
+                              for i in range(m["n_words"])]
+            self.submit(req)
+            restored.append(req)
+            if req.plan is not None:
+                # regroup plan-node requests into a live handle so the
+                # successor tracks (and completes) the adopted plan whole
+                handle = self.plans.setdefault(req.plan,
+                                               PlanHandle(req.plan))
+                handle.requests[req.plan_node] = req
+        for f, v in meta.get("diag", {}).items():
+            if f == "max_batch":
+                self.diagnostics.max_batch = max(self.diagnostics.max_batch,
+                                                 v)
+            else:
+                setattr(self.diagnostics, f,
+                        getattr(self.diagnostics, f) + v)
+        tel = meta.get("telemetry")
+        if tel and self.tracer is not NULL_TRACER:
+            self.tracer.adopt(tel)
+        return restored
 
     # -- execution ----------------------------------------------------------
 
@@ -876,19 +1185,19 @@ class JoinServer:
         """Per-route stage builders.
 
         The plain and kernel routes share every other line of the step
-        (warmup, timing, host decisions, result assembly).  The fused
-        sampler kernel is two-way and non-dedup (the paper's hot case);
-        other kernel classes keep the kernel prepare and take the plain
-        sampler — exactly approx_join's own use_kernels composition.
+        (warmup, timing, host decisions, result assembly).  Kernel classes
+        the sampler kernel does not take (:func:`kernel_sampler`) keep the
+        kernel prepare and take the plain sampler — exactly approx_join's
+        own use_kernels composition.
         """
         prepare = partial(_make_prepare, cls.max_strata)
         sample = partial(_make_sample, cls.b_max, cls.agg, cls.dedup,
                          cls.confidence, cls.expr)
         if cls.use_kernels:
             prepare = partial(_make_prepare_kernels, cls.max_strata)
-            if cls.n_inputs == 2 and not cls.dedup:
-                sample = partial(_make_sample_kernels, cls.b_max, cls.agg,
-                                 cls.confidence, cls.expr)
+        if kernel_sampler(cls):
+            sample = partial(_make_sample_kernels, cls.b_max, cls.agg,
+                             cls.confidence, cls.expr)
         return dict(prepare=prepare, sample=sample,
                     exact=partial(_make_exact, cls.agg, cls.expr))
 
@@ -980,11 +1289,19 @@ class JoinServer:
         out = {}
         for i, req in enumerate(batch):
             # live-tuple bytes: §3.1's filtered-shuffle volume
-            pairs = [recon_pair("live_tuple_bytes",
-                                float(live[i].sum()) * TUPLE_BYTES, None),
+            live_model = float(live[i].sum()) * TUPLE_BYTES
+            pairs = [recon_pair("live_tuple_bytes", live_model, None),
                      recon_pair("filter_exchange_bytes", fe_model, None)]
+            if req._bytes_model is not None:
+                # compile-time plan-node model vs this execution's serve-
+                # time restatement of the same §3.1 cost
+                pairs.append(recon_pair(
+                    "node_bytes_model",
+                    float(req._bytes_model["bytes_pushdown"]),
+                    live_model + fe_model))
             out[id(req)] = {"query_id": req.query_id, "path": path,
                             "stream": req.stream, "window_id": req.window_id,
+                            "plan": req.plan, "plan_node": req.plan_node,
                             "pairs": pairs}
         return out
 

@@ -62,6 +62,11 @@ The push path copies to the host once per micro-batch and input (its
 fingerprint) and once per admitted micro-batch longer than the sub-window
 slot (the count of the rows it drops); draining copies each finished
 window's estimator parts once.
+
+:meth:`StreamJoinServer.snapshot_state` adds every session's live state to
+the engine's snapshot (sub-windows with their fingerprints, sketches, the
+running parts, the buffer bookkeeping), so a failover successor's
+restored session emits the same future windows as the uninterrupted one.
 """
 
 from __future__ import annotations
@@ -76,8 +81,8 @@ from repro_torch.core.estimators import (Estimate, SumParts, clt_finish,
                                          clt_sum_parts)
 from repro_torch.core.relation import (Relation, bucket_capacity, fingerprint,
                                        pad_to)
-from repro_torch.core.sampling import (reservoir_empty, reservoir_extend,
-                                       reservoir_moments)
+from repro_torch.core.sampling import (Reservoir, reservoir_empty,
+                                       reservoir_extend, reservoir_moments)
 from repro_torch.core.window import (SubWindow, WindowBuffer, WindowSpec,
                                      window_relations)
 from repro_torch.runtime.join_serve import (DEFAULT_B_MAX, JoinRequest,
@@ -203,6 +208,10 @@ class StreamJoinSession:
         # first micro-batch's device (None: built with sketch_cap=0)
         self.sketch_strata, self.sketch_cap = sketch_strata, sketch_cap
         self.sketch = [None] * n_sides if sketch_cap else None
+        # a mesh engine's rolling live-fraction estimate of its windows (the
+        # JAX package plans psum shuffle buckets from it); a single-device
+        # session only carries it through snapshots
+        self.overlap_ewma: Optional[float] = None
 
     # -- ingestion ----------------------------------------------------------
 
@@ -418,3 +427,108 @@ class StreamJoinServer(JoinServer):
             self.stream_diagnostics.note_window_latency(
                 req.e2e_latency_s, self.latency_samples)
         super()._notify_done(req)
+
+    # -- crash safety: snapshot / restore -----------------------------------
+
+    def snapshot_state(self) -> tuple[dict, dict]:
+        """Engine snapshot + every streaming session's live state.
+
+        Per session: window-buffer bookkeeping (``arrived``/``emitted``) and
+        live sub-windows (relations + fingerprints), per-side reservoir
+        sketches, the cross-window running ``SumParts`` accumulation, the
+        carried overlap estimate, and the full session configuration:
+        enough for :meth:`restore_state` to rebuild a session whose FUTURE
+        windows (ids, seeds, emission points) are bit-identical to the
+        uninterrupted session's.  Finished-but-undrained windows are folded
+        into the accumulation first (exactly what the next ``push`` would
+        do); their request objects are not checkpointed: completion futures
+        already resolved when they were served."""
+        for sess in self.sessions.values():
+            sess._drain_finished()
+        flat, meta = super().snapshot_state()
+        sess_meta = []
+        for si, (name, s) in enumerate(self.sessions.items()):
+            for j, sub in enumerate(s.buffer.live):
+                for side in range(s.n_sides):
+                    self._rel_arrays(flat, f"sess/{si}/live/{j}/{side}",
+                                     sub.rels[side])
+            # a sketch exists from the session's first push on
+            if s.sketch is not None and s.sketch[0] is not None:
+                for side, res in enumerate(s.sketch):
+                    flat[f"sess/{si}/sketch/{side}/priority"] = res.priority
+                    flat[f"sess/{si}/sketch/{side}/values"] = res.values
+                    flat[f"sess/{si}/sketch/{side}/n_seen"] = res.n_seen
+            sess_meta.append({
+                "name": name, "spec": list(s.spec), "n_sides": s.n_sides,
+                "budget": list(s.budget), "agg": s.agg, "expr": s.expr,
+                "dedup": s.dedup, "seed": s.seed,
+                "filter_seed": s.filter_seed, "fp_rate": s.fp_rate,
+                "max_strata": s.max_strata, "b_max": s.b_max,
+                "serve_mode": None, "use_kernels": s.use_kernels,
+                "sketch_strata": s.sketch_strata,
+                "sketch_cap": s.sketch_cap,
+                # the JAX package's default smoothing of overlap_ewma
+                "overlap_alpha": 0.5,
+                "overlap_ewma": s.overlap_ewma,
+                "running": list(s._running), "acc_end": s._acc_end,
+                "accumulated_windows": s.accumulated_windows,
+                "arrived": s.buffer.arrived, "emitted": s.buffer.emitted,
+                "live": [{"index": sub.index, "fps": list(sub.fps)}
+                         for sub in s.buffer.live]})
+        meta["sessions"] = sess_meta
+        meta["stream_diag"] = self.stream_diagnostics.scalars()
+        return flat, meta
+
+    def restore_state(self, flat: dict, meta: dict,
+                      device=None) -> list[JoinRequest]:
+        """Engine restore + session adoption, every tensor on ``device``
+        (the card unless the caller asks for the CPU).
+
+        Sessions are rebuilt through :meth:`open_stream` with their saved
+        configuration, then their buffers/sketches/accumulators are
+        overwritten from the snapshot (sub-window fingerprints come from the
+        snapshot, matching the restored filter-word cache keys, so surviving
+        sub-windows keep hitting the cache).  Queued window requests
+        restored by the base engine re-attach to their sessions' pending
+        lists in saved (window-id) order; they were admitted pre-crash, so
+        they bypass admission shedding: a failover sheds zero windows."""
+        restored = super().restore_state(flat, meta, device)
+        device = torch.device("cuda" if device is None else device)
+        for si, m in enumerate(meta.get("sessions", [])):
+            s = self.open_stream(
+                m["name"], WindowSpec(*m["spec"]), n_sides=m["n_sides"],
+                budget=QueryBudget(*m["budget"]), agg=m["agg"],
+                expr=m["expr"], dedup=m["dedup"], seed=m["seed"],
+                fp_rate=m["fp_rate"], max_strata=m["max_strata"],
+                b_max=m["b_max"], use_kernels=m["use_kernels"],
+                sketch_strata=m["sketch_strata"],
+                sketch_cap=m["sketch_cap"])
+            s.filter_seed = m["filter_seed"]
+            s.overlap_ewma = m["overlap_ewma"]
+            s._running = tuple(m["running"])
+            s._acc_end = m["acc_end"]
+            s.accumulated_windows = m["accumulated_windows"]
+            s.buffer.arrived = m["arrived"]
+            s.buffer.emitted = m["emitted"]
+            for j, sub_m in enumerate(m["live"]):
+                rels = tuple(
+                    self._rel_restore(flat, f"sess/{si}/live/{j}/{side}",
+                                      device)
+                    for side in range(s.n_sides))
+                s.buffer.live.append(
+                    SubWindow(sub_m["index"], rels, tuple(sub_m["fps"])))
+            if s.sketch is not None \
+                    and f"sess/{si}/sketch/0/priority" in flat:
+                s.sketch = [Reservoir(*(
+                    torch.as_tensor(flat[f"sess/{si}/sketch/{d}/{f}"],
+                                    device=device)
+                    for f in Reservoir._fields)) for d in range(s.n_sides)]
+        for req in restored:
+            if req.stream is not None and req.stream in self.sessions:
+                self.sessions[req.stream].pending.append(req)
+        for f, v in meta.get("stream_diag", {}).items():
+            if f == "sessions":
+                continue            # open_stream above already counted them
+            setattr(self.stream_diagnostics, f,
+                    getattr(self.stream_diagnostics, f) + v)
+        return restored

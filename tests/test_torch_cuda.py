@@ -17,6 +17,7 @@ import torch
 from repro_torch.core.bloom import num_blocks_for
 from repro_torch.core.budget import QueryBudget
 from repro_torch.core.join import approx_join
+from repro_torch.core.plan import Plan, PlanNode
 from repro_torch.core.relation import Relation, relation, sort_by_key
 from repro_torch.core.sampling import (build_strata, per_stratum_value_sums,
                                        reservoir_empty, reservoir_extend,
@@ -24,6 +25,7 @@ from repro_torch.core.sampling import (build_strata, per_stratum_value_sums,
 from repro_torch.core.window import WindowSpec
 from repro_torch.kernels import _build, bloom_build, bloom_probe, edge_sample
 from repro_torch.runtime import join_serve
+from repro_torch.runtime.checkpoint import load_checkpoint, save_checkpoint
 from repro_torch.runtime.join_serve import (JoinRequest, JoinServer,
                                             ShapeClass, slot_bytes)
 from repro_torch.runtime.stream_join import StreamJoinServer
@@ -475,3 +477,89 @@ def test_stream_reservoir_on_card_equals_cpu(card):
         outs.append(reservoir_merge(res, res))
     for got, want in zip(*outs):
         assert torch.equal(got.cpu(), want)
+
+
+# -- plans and crash safety on the card ----------------------------------------
+
+def _plan_server(card):
+    """A JoinServer(batch_slots=4) on the card with three registered
+    datasets of SERVE_N rows (normal float values)."""
+    rng = np.random.default_rng(21)
+    srv = JoinServer(batch_slots=4)
+    for name, (lo, hi) in zip("abc", ((0, 3000), (1000, 4000), (2000, 5000))):
+        srv.register_dataset(name, [relation(
+            rng.integers(lo, hi, SERVE_N).astype(np.uint32),
+            rng.normal(10, 3, SERVE_N).astype(np.float32), device=card)])
+    return srv
+
+
+def test_plan_two_and_three_way_nodes_equal_composed_calls(card):
+    """A plan with a 2-way node and a 3-way node on the kernel route equals
+    the composed direct approx_join(use_kernels=True) calls bit for bit;
+    the 2-way node samples through the kernel, the 3-way node with plain
+    torch after the kernel build and probe."""
+    srv = _plan_server(card)
+    err = QueryBudget(error=0.5)
+    plan = Plan((PlanNode("ab", ("a", "b"), budget=err, use_kernels=True,
+                          max_strata=SERVE["max_strata"],
+                          b_max=SERVE["b_max"]),
+                 PlanNode("abc", ("ab", "c"), budget=err, use_kernels=True,
+                          max_strata=SERVE["max_strata"],
+                          b_max=SERVE["b_max"])))
+    before = [c.launches for c in COUNTERS]
+    handle = srv.submit_plan(plan, query_id="p", seed=5)
+    srv.run()
+    build, probe, sample = (c.launches - b for c, b in zip(COUNTERS, before))
+    assert handle.done and srv.diagnostics.steps == 2
+    assert build == 3 and sample == 1
+    # each step probes once per input, and once more as it warms its stage
+    assert probe == 2 * (2 + 3)
+    for name, leaves in (("ab", "ab"), ("abc", "abc")):
+        rels = [r for d in leaves for r in srv.datasets[d]]
+        d = approx_join(rels, err, seed=5, query_id=f"p/{name}", **SERVE)
+        got = handle.results()[name]
+        assert _fields(got) == _fields(d), name
+        for f in ("n_sampled", "sum_f", "sum_f2"):
+            assert torch.equal(getattr(got.stats, f), getattr(d.stats, f)), f
+
+
+def test_snapshot_checkpoint_restore_on_card(card, tmp_path):
+    """A kernel-route JoinServer's snapshot, written and loaded through a
+    checkpoint and restored into a fresh server on the card: the filter
+    words equal the originals bit for bit, and the next sampled results
+    (sigma-fed) equal the uninterrupted server's."""
+    src = _plan_server(card)
+    err = QueryBudget(error=0.5)
+
+    src.register_dataset("ab", src.datasets["a"] + src.datasets["b"])
+    src.submit(JoinRequest(dataset="ab", budget=err, query_id="t/ab", seed=1,
+                           **SERVE))
+    src.run()
+    queued = src.submit(JoinRequest(dataset="ab", budget=err,
+                                    query_id="t/ab", seed=2, **SERVE))
+    flat, meta = src.snapshot_state()
+    save_checkpoint(str(tmp_path), 0, flat, extra=meta)
+    flat2, meta2 = load_checkpoint(str(tmp_path), 0)
+    dst = JoinServer(batch_slots=4)
+    restored = dst.restore_state(flat2, meta2)
+    on_card = torch.device(card).type
+    assert len(restored) == 1
+    assert restored[0].rels[0].keys.device.type == on_card
+    assert list(dst._filter_words) == list(src._filter_words)
+    for k, w in src._filter_words.items():
+        assert dst._filter_words[k].device.type == on_card
+        assert torch.equal(dst._filter_words[k], w)
+    assert dst.sigma.table == src.sigma.table
+    src.run()
+    dst.run()
+    assert _fields(restored[0].result) == _fields(queued.result)
+    # the next request of the same id on each: sigma-fed, cached words
+    nxt = [srv.submit(JoinRequest(dataset="ab", budget=err, query_id="t/ab",
+                                  seed=3, **SERVE)) for srv in (src, dst)]
+    src.run()
+    dst.run()
+    assert dst.diagnostics.filter_builds == src.diagnostics.filter_builds
+    assert _fields(nxt[0].result) == _fields(nxt[1].result)
+    for f in ("n_sampled", "sum_f", "sum_f2"):
+        assert torch.equal(getattr(nxt[0].result.stats, f),
+                           getattr(nxt[1].result.stats, f)), f

@@ -453,6 +453,28 @@ def test_slot_bytes_counts_a_slots_arrays():
     assert 1.15 * 2**30 < slot_bytes(cls) < 1.25 * 2**30
 
 
+@pytest.mark.parametrize("n_inputs,dedup", [(3, False), (2, True)])
+def test_slot_bytes_counts_the_plain_samplers_grid(n_inputs, dedup):
+    """A kernel class the sampler kernel does not take (n-way or dedup)
+    draws with plain torch, whose [max_strata, b_max] grids a slot also
+    holds: 20 n + 40 bytes a cell.  At phase 8's 3-way shape (3 x 2^24
+    rows, 2^16 strata, b_max 2048) that is about 14.2 GiB a slot."""
+    caps = (1 << 24,) * n_inputs
+    cls = ShapeClass(caps, n_inputs, 1 << 16, 2048, "sum", "sum", dedup,
+                     True, 0.01, 0.95)
+    kernel = cls._replace(caps=caps[:2], n_inputs=2, dedup=False)
+    assert join_serve.kernel_sampler(kernel)
+    assert not join_serve.kernel_sampler(cls)
+    assert not join_serve.kernel_sampler(kernel._replace(use_kernels=False))
+    rows = n_inputs * (1 << 24) * (13 + 13 + 8)
+    filters = (n_inputs + 1) * (1 << 20) * 32
+    strata = (1 << 16) * (8 + 1 + 16 * n_inputs + 20)
+    grid = (1 << 16) * 2048 * (20 * n_inputs + 40)
+    assert slot_bytes(cls) == rows + filters + strata + grid
+    if n_inputs == 3:
+        assert 14.0 * 2**30 < slot_bytes(cls) < 14.5 * 2**30
+
+
 def test_kernel_batch_width_capped_by_slot_memory(rng, monkeypatch):
     """A kernel class whose slots fit the memory budget only twice serves
     in batches of two (a pow2 floor), each slot still bit-identical to its

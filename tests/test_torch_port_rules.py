@@ -3,7 +3,8 @@
 * ``repro_torch`` and ``chip_smoke.py`` import neither JAX nor ``repro``;
 * the card is the default device: without CUDA, building a relation with the
   default device raises instead of landing on the CPU, and so do the
-  serving and streaming launchers unless ``--device cpu`` asks for the CPU;
+  serving launcher (sync and ``--async``) and the streaming launcher unless
+  ``--device cpu`` asks for the CPU;
 * a CPU tensor takes a kernel's plain version and launches nothing;
 * ``chip_smoke.py`` fails, printing no result, without a card or without the
   rest of the repository.
@@ -46,7 +47,9 @@ def test_port_modules_import_no_jax_and_no_reference():
               "repro_torch.core.sampling", "repro_torch.data.tpch",
               "repro_torch.data.flows", "repro_torch.data.netflix",
               "repro_torch.runtime.stream_join",
-              "repro_torch.launch.join_stream"):
+              "repro_torch.launch.join_stream", "repro_torch.core.plan",
+              "repro_torch.runtime.checkpoint", "repro_torch.runtime.fault",
+              "repro_torch.runtime.async_serve"):
         assert m in mods, m
     code = ("import importlib, json, sys\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
@@ -93,6 +96,19 @@ def test_launcher_without_a_card_fails_and_serves_nothing():
     assert out.returncode != 0
     assert "no CUDA card" in out.stderr
     assert "[join-serve]" not in out.stdout
+
+
+def test_async_launcher_without_a_card_fails_and_serves_nothing(tmp_path):
+    """The same for the serving launcher's async fleet and its drill: no
+    replica starts serving on the CPU."""
+    out = _launch_without_a_card(
+        "repro_torch.launch.join_serve", "--async", "--replicas", "2",
+        "--checkpoint-dir", str(tmp_path / "ckpt"), "--kill-after", "1",
+        "--tenants", "1", "--queries-per-tenant", "1", "--base-n", "256")
+    assert out.returncode != 0
+    assert "no CUDA card" in out.stderr
+    assert "[join-serve" not in out.stdout
+    assert not (tmp_path / "ckpt").exists()
 
 
 def test_stream_launcher_without_a_card_fails_and_streams_nothing():
