@@ -103,7 +103,30 @@ Phases, each of which fails the run (non-zero exit, no result line):
    successor restores it.  Windows 2-3 must equal an uninterrupted run
    bit for bit, with no window shed, one failover and equal sigma tables.
    Prints the checkpoints written, their bytes, the capture time under the
-   engine lock and the restore time.
+   engine lock and the restore time;
+10. the mesh (``core/distributed.py``, ``JoinServer(mesh=...)``): (a) mesh 1
+   over NCCL in this process, (b) 2 and 4 spawned ranks, over NCCL with a
+   card a rank where there are that many cards, else sharing the one card
+   over gloo, which carries their tensors through host memory (NCCL
+   refuses two ranks on one card; what it says is printed).  On each mesh,
+   ``distributed_approx_join`` on the phase-4 pair: exact and sampled SUM
+   (``QueryBudget(error=0.01)``) under the gather merge equal to
+   ``approx_join`` bit for bit, under psum within rtol 1e-5; each rank's
+   shuffled bytes equal what the data routes off it; the same exact SUM
+   without the filter stage must shuffle more tuple bytes (the ratio
+   printed) and with buckets of ``MESH_SMALL_CAP`` rows must count its
+   drops.  A ``JoinServer(mesh=k)`` serves phase 6's large class as mesh
+   classes (exact-parity, and at k > 1 psum) and as kernel classes:
+   exact-parity and kernel results equal a meshless server's bit for bit,
+   psum within rtol 1e-5 with nothing dropped; the kernel classes' gather
+   to rank 0 is metered (0 at mesh 1), their filters (the OR of the ranks'
+   partition builds through the build kernel) equal a plain build over the
+   whole relation, each pass's shuffled bytes by rank equal the data's and
+   stay within the wire model.  The build kernel at each mesh's partition
+   shape equals its plain version on every rank and is timed.  Prints
+   each join's and serving pass's time with each collective's calls,
+   bytes and time (the gloo times are host staging on one card, not an
+   interconnect's).
 
 It then prints one line ``{"kernels": [...]}`` and, last,
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -2089,7 +2112,458 @@ def drill_phase(torch, rels, wrappers):
     return launches
 
 
+# phase 10: the mesh.  Ranks of 2 and 4 share the one card over gloo; a
+# forced bucket of this many rows a (source, dest) pair must overflow.
+MESH_SIZES = (2, 4)
+MESH_SMALL_CAP = 1 << 10
+MESH_TIMEOUT_S = 240
+NCCL_PROBE_TIMEOUT_S = 60
+
+
+def surface(res):
+    """(estimate, bound, count, dof) of a result, as Python floats."""
+    return tuple(float(getattr(res, f))
+                 for f in ("estimate", "error_bound", "count", "dof"))
+
+
+def rtol_ok(got, want, rtol=1e-5):
+    return all(abs(g - w) <= rtol * max(abs(w), 1e-30)
+               for g, w in zip(got, want))
+
+
+def mesh_serve(torch, srv, rels, cfg, modes=("exact-parity", "psum",
+                                             "kernel")):
+    """Serve the mesh workload on ``srv``: phase 6's large class (8 SUM
+    requests, their filters all of seed 0) as mesh classes in exact-parity,
+    the same under psum (query ids L/P...), and the same as kernel classes
+    (L/K..., filter seed 11, which no mesh class uses, so the build kernel
+    builds their filters), as far as ``modes`` names them.  Returns {mode:
+    (surfaces, run seconds, steps, communication meter, drops, each rank's
+    shuffled bytes in the pass)} and the diagnostics.  The kernel class's
+    dataset filters (on a mesh the OR of the ranks' partition filters,
+    each built by the build kernel from the rank's block) must equal a
+    plain single build over the whole relation bit for bit."""
+    from repro_torch.core import bloom
+    from repro_torch.core import distributed as D
+    from repro_torch.core.cost import sync
+    from repro_torch.runtime.join_serve import JoinRequest
+
+    dev = rels[0].keys.device
+    srv.register_dataset("L", rels)
+    kw = dict(dataset="L", max_strata=cfg["max_strata"], b_max=cfg["b_max"])
+    plan = (("exact-parity", large_spec("M"), {"filter_seed": cfg["seed"]}),
+            ("psum", large_spec("P"), {"filter_seed": cfg["seed"],
+                                       "serve_mode": "psum"}),
+            ("kernel", large_spec("K"), {"filter_seed": 11,
+                                         "use_kernels": True}))
+    out = {}
+    for mode, spec, extra in plan:
+        if mode not in modes:
+            continue
+        reqs = [srv.submit(JoinRequest(budget=b, query_id=q, seed=sd, **kw,
+                                       **extra)) for q, b, sd in spec]
+        steps = srv.diagnostics.steps
+        per0 = np.array(srv.diagnostics.per_device_shuffled_bytes, float)
+        D.COMM.reset()
+        D.COMM.timed = True
+        sync(dev)
+        t0 = time.perf_counter()
+        srv.run()
+        sync(dev)
+        dt = time.perf_counter() - t0
+        D.COMM.timed = False
+        per = np.array(srv.diagnostics.per_device_shuffled_bytes, float)
+        out[mode] = ([surface(q.result) for q in reqs], dt,
+                     srv.diagnostics.steps - steps, D.COMM.snapshot(),
+                     [float(q.result.diagnostics.dist_dropped_tuples)
+                      for q in reqs], (per - per0).tolist())
+        if mode == "kernel":
+            cls = reqs[0]._class
+            nb = bloom.num_blocks_for(max(cls.caps), cls.fp_rate)
+            for s_, r in enumerate(rels):
+                got = srv._filter_words[(reqs[0]._fps[s_], nb, 11)]
+                check(torch.equal(got, bloom.build(r.keys, r.valid, nb,
+                                                   11).words),
+                      f"serve: the kernel class's filter of input {s_} "
+                      f"({nb} blocks, mesh {srv.mesh_k}) "
+                      f"!= a plain build over the whole relation")
+    return out, srv.diagnostics.snapshot()
+
+
+def mesh_joins(torch, mesh, rels, cfg):
+    """distributed_approx_join on every rank: exact and sampled SUM in
+    both merges, the exact SUM without the filter stage and with a forced
+    small bucket.  Returns {case: (surface, meters, seconds, comm)}."""
+    from repro_torch.core import distributed as D
+    from repro_torch.core.budget import QueryBudget
+    from repro_torch.core.cost import sync
+
+    dev = rels[0].keys.device
+    kw = dict(seed=cfg["seed"], max_strata=cfg["max_strata"],
+              b_max=cfg["b_max"])
+    cases = {
+        "gather/exact": dict(mode="exact"),
+        "gather/sampled": dict(mode="sample", budget=QueryBudget(error=0.01)),
+        "psum/exact": dict(mode="exact", merge="psum"),
+        "psum/sampled": dict(mode="sample", budget=QueryBudget(error=0.01),
+                             merge="psum"),
+        "unfiltered/exact": dict(mode="exact", filter_stage=False),
+        "small-bucket/exact": dict(mode="exact",
+                                   bucket_cap=cfg["small_cap"]),
+    }
+    out = {}
+    for name, case in cases.items():
+        D.COMM.reset()
+        D.COMM.timed = True
+        sync(dev)
+        t0 = time.perf_counter()
+        r = D.distributed_approx_join(mesh, rels, **kw, **case)
+        sync(dev)
+        dt = time.perf_counter() - t0
+        D.COMM.timed = False
+        meters = dict(shuffled=float(r.shuffled_tuple_bytes),
+                      per_rank=r.device_shuffled_bytes.tolist(),
+                      overflow=int(r.bucket_overflow),
+                      dropped=r.device_dropped.tolist(),
+                      live=float(r.live_total), total=float(r.input_total))
+        out[name] = (surface(r), meters, dt, D.COMM.snapshot())
+    return out
+
+
+def mesh_rank(mesh, dev, data_dir, cfg):
+    """One rank of phase 10 (b): the joins on every rank, then a JoinServer
+    on rank 0 with the others as its workers; then, off the path, the
+    build kernel at the partition shape (this rank's block into the
+    dataset's blocks) against its plain version.  Returns what it measured
+    and this rank's kernel launches."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.core import bloom
+    from repro_torch.core.relation import relation, shard_to_mesh
+    from repro_torch.kernels import bloom_build, bloom_probe, edge_sample
+    from repro_torch.runtime.join_serve import JoinServer, serve_mesh_worker
+
+    wrappers = {"bloom_build": bloom_build.bloom_build_batched,
+                "bloom_probe": bloom_probe.bloom_probe_batched,
+                "edge_sample": edge_sample.edge_sample_batched}
+    rels = [relation(*(np.load(os.path.join(data_dir, f"{i}_{f}.npy"))
+                       for f in ("keys", "values", "valid")), device=dev)
+            for i in range(2)]
+    block = shard_to_mesh(rels[0], mesh, mesh.mesh_dim_names)
+    keys, valid = block.keys[None].clone(), block.valid[None].clone()
+    nb = bloom.num_blocks_for(rels[0].capacity, 0.01)
+    for w in wrappers.values():
+        w.launches = 0
+    joins = mesh_joins(torch, mesh, rels, cfg)
+    if dist.get_rank() == 0:
+        srv = JoinServer(batch_slots=cfg["slots"], mesh=mesh)
+        served = mesh_serve(torch, srv, rels, cfg)
+        srv.shutdown()
+    else:
+        del rels
+        serve_mesh_worker(mesh, dev)
+        served = None
+    launches = {n: w.launches for n, w in wrappers.items()}
+    # -- end of the path: the partition build of the kernel class ----------
+    seed = torch.tensor([11], device=dev)
+    kb = bloom_build
+    equal = torch.equal(kb.bloom_build_batched(keys, valid, nb, seed),
+                        kb.bloom_build_ref(keys, valid, nb, seed))
+    build = dict(keys=keys.shape[1], num_blocks=nb, equal=equal)
+    if dev.type == "cuda":
+        dist.barrier()        # the other ranks are done: rank 0 times alone
+    if dev.type == "cuda" and dist.get_rank() == 0:
+        build["ms"], build["call_ms"] = kernel_ms(
+            lambda: kb.bloom_build_batched(keys, valid, nb, seed))
+        build["plain_ms"] = time_ms(
+            lambda: kb.bloom_build_ref(keys, valid, nb, seed), PLAIN_REPS)
+        build["bound_ms"], build["bound_by"] = bound(
+            cfg["rates"], keys.shape[1] * (8 + 1) + 8 + nb * 32,
+            **{p: float(valid.sum()) * v
+               for p, v in INT_OPS["bloom_build"].items()})
+    return dict(joins=joins, served=served, launches=launches, build=build,
+                peak=torch.cuda.max_memory_allocated()
+                if dev.type == "cuda" else 0)
+
+
+def routed_bytes(rels, k, seed, filter_stage=True):
+    """What the data says each rank of a mesh of ``k`` ranks over ``data``
+    puts into the key shuffle of a join of filter seed ``seed``: TUPLE_BYTES
+    for each live row of its block whose key routes to another rank (rows
+    past a small bucket included: the shuffle meters what it routes, as the
+    reference's does), a live row being one that the single-device joint
+    filter passes.  Returns (bytes by rank, live rows in all)."""
+    import torch
+    from repro_torch.core import bloom
+    from repro_torch.core.hashing import hash2
+    from repro_torch.core.join import TUPLE_BYTES
+
+    nb = bloom.num_blocks_for(max(r.capacity for r in rels), 0.01)
+    jf = bloom.intersect_all([bloom.build(r.keys, r.valid, nb, seed)
+                              for r in rels])
+    per, live = np.zeros(k), 0
+    for r in rels:
+        ok = r.valid & bloom.contains(jf, r.keys) if filter_stage \
+            else r.valid
+        block = torch.arange(r.capacity, device=r.keys.device) \
+            // (r.capacity // k)
+        off = ok & (hash2(r.keys, seed + 101) % k != block)
+        per += off.view(k, -1).sum(1).cpu().numpy()
+        live += int(ok.sum())
+    return (per * TUPLE_BYTES).tolist(), live
+
+
+def bytes_ok(got, want):
+    """Shuffled bytes against the data's: float32 sums hold these counts
+    to within a few units in 2^24."""
+    return len(got) == len(want) and all(
+        abs(g - w) <= 1e-6 * max(w, 1.0) for g, w in zip(got, want))
+
+
+def print_comm(label, comm):
+    parts = [f"{op} {c['calls']}x {c['bytes'] / 2**20:.3f} MiB "
+             f"{c['ms']:.3f} ms" for op, c in sorted(comm.items())]
+    print(f"  {label} collectives: " + ("; ".join(parts) or "none"))
+
+
+def check_mesh_joins(label, joins, want, routed, cfg, note=""):
+    """The joins of one mesh against the single-device results: gather
+    bit for bit, psum within rtol 1e-5; each rank's shuffled bytes equal
+    what the data routes off it (``routed``: filtered and unfiltered, from
+    :func:`routed_bytes`); the filter must cut the shuffle and the small
+    bucket must count its drops."""
+    for case, (got, meters, dt, comm) in joins.items():
+        merge, kind = case.split("/")
+        if merge == "gather":
+            check(got == want[kind], f"mesh {label} {case}: {got} != "
+                                     f"single-device {want[kind]}")
+        elif merge == "psum":
+            check(rtol_ok(got, want[kind]), f"mesh {label} {case}: {got} "
+                  f"not within rtol 1e-5 of {want[kind]}")
+        print(f"mesh {label} join {case}: {dt * 1e3:.3f} ms{note}; "
+              f"estimate {got[0]!r} bound {got[1]!r}; shuffled "
+              f"{meters['shuffled']:.0f} B {meters['per_rank']}, overflow "
+              f"{meters['overflow']}")
+        print_comm(f"{label} {case}", comm)
+        check(meters["overflow"] == sum(meters["dropped"]),
+              f"mesh {label} {case}: overflow {meters['overflow']} != the "
+              f"ranks' drops {meters['dropped']}")
+        data = routed["unfiltered" if merge == "unfiltered" else "filtered"]
+        check(bytes_ok(meters["per_rank"], data[0]),
+              f"mesh {label} {case}: shuffled bytes by rank "
+              f"{meters['per_rank']} != the data's {data[0]}")
+    small = joins["small-bucket/exact"][1]
+    check(small["overflow"] > 0, f"mesh {label}: a bucket of "
+          f"{cfg['small_cap']} rows dropped nothing")
+    for case in ("gather/exact", "gather/sampled", "psum/exact"):
+        check(joins[case][1]["overflow"] == 0,
+              f"mesh {label} {case}: lossless buckets dropped rows")
+    filt = joins["gather/exact"][1]["shuffled"]
+    unf = joins["unfiltered/exact"][1]["shuffled"]
+    if note:
+        check(0 < filt < unf, f"mesh {label}: filtered shuffle {filt} not "
+              f"below the unfiltered {unf}")
+        k = len(joins["gather/exact"][1]["per_rank"])
+        live = joins["gather/exact"][1]["live"]
+        print(f"mesh {label}: shuffled tuple bytes with the filter stage "
+              f"{filt:.0f}, without {unf:.0f}: {unf / filt:.4f}x less "
+              f"(live {live:.0f} of "
+              f"{joins['gather/exact'][1]['total']:.0f} rows); each rank's "
+              f"equal the rows the data routes off it; the filtered total "
+              f"is {filt / (live * 8 * (k - 1) / k):.6f} x live x 8 B x "
+              f"(k-1)/k")
+
+
+def check_mesh_serve(label, served, diag, want, k, routed, note=""):
+    """A mesh server's results against the meshless server's: exact-parity
+    and kernel classes bit for bit, psum within rtol 1e-5 with nothing
+    dropped; the kernel class's host gather metered (0 at mesh 1); each
+    pass's shuffled bytes by rank equal what the data routes off each rank
+    (``routed``, a filter of seed 0, once a request; the kernel class
+    shuffles nothing), and all of them lie within the wire model's
+    buffers."""
+    for mode, (got, dt, steps, comm, dropped, per) in served.items():
+        data = [0.0] * k if mode == "kernel" else \
+            [len(got) * b for b in routed["filtered"][0]]
+        check(bytes_ok(per, data), f"serve mesh {label} {mode}: shuffled "
+              f"bytes by rank {per} != the data's {data}")
+        # the meshless server's exact-parity results are those of the psum
+        # requests too: the same seeds and budgets, each id its own sigmas
+        ref = want["exact-parity" if mode == "psum" else mode][0]
+        if mode == "psum":
+            check(all(rtol_ok(g, w) for g, w in zip(got, ref)),
+                  f"serve mesh {label} psum: {got} not within rtol 1e-5 of "
+                  f"the meshless server's {ref}")
+            check(sum(dropped) == 0, f"serve mesh {label} psum dropped "
+                  f"{dropped}")
+        else:
+            check(got == ref, f"serve mesh {label} {mode}: {got} != the "
+                              f"meshless server's {ref}")
+        print(f"serve mesh {label} {mode}: {len(got)} requests in {steps} "
+              f"steps, {dt * 1e3:.3f} ms, {dt * 1e3 / max(steps, 1):.3f} ms "
+              f"a step{note}")
+        print_comm(f"serve {label} {mode}", comm)
+    gb = diag["kernel_gather_bytes"]
+    check((gb == 0) if k == 1 else (gb > 0),
+          f"serve mesh {label}: kernel_gather_bytes {gb}")
+    model = diag["dist_wire_bytes_model"]
+    moved = diag["dist_shuffled_tuple_bytes"]
+    per = diag["per_device_shuffled_bytes"]
+    check(abs(sum(per) - moved) <= 1e-6 * max(moved, 1),
+          f"serve mesh {label}: per-rank bytes {per} sum != {moved}")
+    check(moved <= model, f"serve mesh {label}: shuffled {moved} above the "
+                          f"wire model {model}")
+    print(f"serve mesh {label}: kernel_gather_bytes {gb:.0f}, shuffled "
+          f"tuple bytes {moved:.0f} (per rank {per}) within the wire model "
+          f"{model:.0f} ({moved / model if model else 0:.4f} of it), "
+          f"dropped {diag['dist_dropped_tuples']:.0f}, filter exchange "
+          f"measured {diag['filter_exchange_bytes_measured']:.0f} B")
+
+
+def nccl_two_ranks_probe():
+    """Two NCCL ranks on the one card: what NCCL says (recorded, not
+    required)."""
+    from repro_torch.launch.mesh import run_ranks
+    t0 = time.perf_counter()
+    try:
+        run_ranks(_nccl_probe_rank, 2, backend="nccl", device="cuda",
+                  timeout_s=NCCL_PROBE_TIMEOUT_S)
+        said = "both ranks started and all_reduced"
+    except (RuntimeError, TimeoutError) as e:
+        lines = [ln.strip() for ln in str(e).splitlines() if ln.strip()]
+        hits = [ln for ln in lines if "NCCL" in ln or "uplicate" in ln]
+        said = (hits or lines)[-1][:400] if lines else repr(e)
+    print(f"mesh 2/nccl on one card ({time.perf_counter() - t0:.1f} s): "
+          f"{said}")
+
+
+def _nccl_probe_rank(mesh, dev):
+    return True
+
+
+def mesh_phase(rels, torch, wrappers, rates):
+    """Phase 10: the distributed pipeline and the mesh JoinServer.  (a)
+    mesh 1 over NCCL in this process; (b) meshes of 2 and 4 ranks,
+    spawned: over NCCL, a card a rank, where there are that many cards,
+    else sharing the one card over gloo.  Returns each kernel's launches
+    in the phase (every rank's) and the build kernel at each mesh's
+    partition shape.  On CPU relations (a rehearsal) every mesh runs over
+    gloo."""
+    import torch.distributed as dist
+    from repro_torch.core.budget import QueryBudget
+    from repro_torch.core.join import approx_join
+    from repro_torch.launch.mesh import (init_ranks, make_host_mesh,
+                                         run_ranks, stop_rank_server)
+    from repro_torch.runtime.join_serve import JoinServer
+
+    t_phase = time.perf_counter()
+    dev = rels[0].keys.device
+    card = dev.type == "cuda"
+    cfg = dict(seed=SEED, max_strata=MAX_STRATA, b_max=B_MAX,
+               slots=SERVE_SLOTS, small_cap=MESH_SMALL_CAP, rates=rates)
+    kw = dict(seed=SEED, max_strata=MAX_STRATA, b_max=B_MAX)
+    want = {"exact": surface(approx_join(rels, QueryBudget(), **kw)),
+            "sampled": surface(approx_join(rels, QueryBudget(error=0.01),
+                                           **kw))}
+    print(f"mesh: single-device references {want}")
+    meshless, _ = mesh_serve(torch, JoinServer(batch_slots=SERVE_SLOTS),
+                             rels, cfg, ("exact-parity", "kernel"))
+    routed = {k: {"filtered": routed_bytes(rels, k, SEED),
+                  "unfiltered": routed_bytes(rels, k, SEED, False)}
+              for k in (1, *MESH_SIZES)}
+    for w in wrappers.values():
+        w.launches = 0
+
+    # -- (a) mesh 1 over NCCL, this process ---------------------------------
+    one = "1/nccl" if card else "1/gloo"
+    tmp = tempfile.mkdtemp(prefix="mesh1-")
+    init_ranks(0, 1, backend="nccl" if card else "gloo", device=dev,
+               store_path=os.path.join(tmp, "store"),
+               timeout_s=MESH_TIMEOUT_S)
+    try:
+        mesh = make_host_mesh(1, 1)
+        check_mesh_joins(one, mesh_joins(torch, mesh, rels, cfg), want,
+                         routed[1], cfg)
+        srv = JoinServer(batch_slots=SERVE_SLOTS, mesh=mesh)
+        served, diag = mesh_serve(torch, srv, rels, cfg,
+                                  ("exact-parity", "kernel"))
+        srv.shutdown()
+        check_mesh_serve(one, served, diag, meshless, 1, routed[1])
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(tmp, ignore_errors=True)
+    launches = {n: w.launches for n, w in wrappers.items()}
+
+    # -- (b) 2 and 4 ranks: a card each over NCCL, or one card over gloo ----
+    if card:
+        torch.cuda.empty_cache()
+    builds = {}
+    try:
+        with tempfile.TemporaryDirectory(prefix="mesh-data-") as data_dir:
+            for i, r in enumerate(rels):
+                np.save(os.path.join(data_dir, f"{i}_keys.npy"),
+                        r.keys.cpu().numpy().astype(np.uint32))
+                np.save(os.path.join(data_dir, f"{i}_values.npy"),
+                        r.values.cpu().numpy())
+                np.save(os.path.join(data_dir, f"{i}_valid.npy"),
+                        r.valid.cpu().numpy())
+            for k in MESH_SIZES:
+                nccl = card and torch.cuda.device_count() >= k
+                backend = "nccl" if nccl else "gloo"
+                note = " (nccl, a card a rank)" if nccl else \
+                    " (gloo through the host, one card)" if card else \
+                    " (gloo, CPU)"
+                t0 = time.perf_counter()
+                ranks = run_ranks(mesh_rank, k, (data_dir, cfg),
+                                  backend=backend, device=dev.type,
+                                  timeout_s=MESH_TIMEOUT_S)
+                print(f"mesh {k}/{backend}:{note} ran in "
+                      f"{time.perf_counter() - t0:.1f} s, peak device memory "
+                      f"by rank "
+                      f"{[round(r['peak'] / 2**30, 3) for r in ranks]} GiB")
+                for r in ranks:
+                    check(all(r["joins"][c][:2] == ranks[0]["joins"][c][:2]
+                              for c in r["joins"]),
+                          f"mesh {k}: the ranks' join results differ")
+                check_mesh_joins(f"{k}/{backend}", ranks[0]["joins"], want,
+                                 routed[k], cfg, note)
+                served, diag = ranks[0]["served"]
+                check_mesh_serve(f"{k}/{backend}", served, diag, meshless, k,
+                                 routed[k], note)
+                for r in ranks:
+                    for n, c in r["launches"].items():
+                        launches[n] += c
+                build = ranks[0]["build"]
+                check(all(r["build"]["equal"] for r in ranks),
+                      f"mesh {k}: bloom_build at the partition shape != plain "
+                      f"on ranks {[i for i, r in enumerate(ranks)
+                                   if not r['build']['equal']]}")
+                builds[k] = build
+                timed = f": {build['ms']:.4f} ms on the device, " \
+                    f"{build['call_ms']:.4f} ms a call, plain " \
+                    f"{build['plain_ms']:.4f} ms, bound " \
+                    f"{build['bound_ms']:.4f} ms by {build['bound_by']}" \
+                    if "ms" in build else ""
+                print(f"kernel bloom_build at mesh {k}'s partition shape "
+                      f"({build['keys']} keys into {build['num_blocks']} "
+                      f"blocks) equals its plain version on every "
+                      f"rank{timed}")
+        if card and torch.cuda.device_count() < 2:
+            nccl_two_ranks_probe()
+    finally:
+        # the fork server and resource tracker the spawns started leave now,
+        # not some time after this script has ended
+        stop_rank_server()
+    print(f"mesh: launches {launches}; phase 10 took "
+          f"{time.perf_counter() - t_phase:.1f} s")
+    for name, n in launches.items():
+        check(n > 0, f"mesh: {name} never launched in phase 10")
+    return launches, builds
+
+
 def main() -> int:
+    """Phases 1-10."""
+    t_start = time.perf_counter()
     import torch
 
     # --- phase 1: device ------------------------------------------------
@@ -2136,7 +2610,6 @@ def main() -> int:
     truth = oracle(rels)
     print(f"data: 2 x {ROWS} rows in {time.perf_counter() - t0:.1f} s; "
           f"oracle {truth}")
-
     # --- phase 3: kernels against their plain versions ---------------------
     lines = kernel_phase(rels, torch, rates)
 
@@ -2192,6 +2665,16 @@ def main() -> int:
         ln["plan_launches"] = planned[ln["name"]]
         ln["fleet_launches"] = fleet[ln["name"]]
         ln["drill_launches"] = drilled[ln["name"]]
+
+    # --- phase 10: the mesh --------------------------------------------------
+    meshed, builds = mesh_phase(rels, torch, wrappers, rates)
+    for ln in lines:
+        ln["mesh_launches"] = meshed[ln["name"]]
+        if ln["name"] == "bloom_build":
+            ln["mesh_shape"] = {str(k): {f: b[f] for f in (
+                "keys", "num_blocks", "ms", "plain_ms", "bound_ms",
+                "bound_by")} for k, b in builds.items()}
+    print(f"chip_smoke: phases 1-10 took {time.perf_counter() - t_start:.1f} s")
 
     print(json.dumps({"kernels": lines}))
     print(json.dumps({"ok": True, "device": {

@@ -116,6 +116,32 @@ def fingerprint(rel: Relation) -> str:
     return h.hexdigest()
 
 
+def shard_rows(rel: Relation, num_shards: int) -> Relation:
+    """Reshape ``[N]`` -> ``[num_shards, N / num_shards]``: shard ``d``'s
+    contiguous block of rows is row ``d``."""
+    if rel.capacity % num_shards:
+        raise ValueError(f"shard_rows: {rel.capacity} rows over "
+                         f"{num_shards} shards")
+    return Relation(*(x.reshape(num_shards, -1) for x in rel))
+
+
+def shard_to_mesh(rel: Relation, mesh, axes) -> Relation:
+    """This rank's block of a relation's rows on ``mesh``.
+
+    The rows split into contiguous blocks over the combined ``axes``,
+    major first (as the JAX package's ``PartitionSpec(tuple(axes))`` splits
+    them), and every rank along an axis outside ``axes`` (a ``"model"``
+    axis) holds the same block.  Every rank passes the whole relation and
+    keeps its block; nothing crosses ranks.
+    """
+    from repro_torch.core.distributed import axis_size, combined_axis_index
+    k = 1
+    for a in axes:
+        k *= axis_size(mesh, a)
+    return Relation(*(x[combined_axis_index(mesh, axes)].clone()
+                      for x in shard_rows(rel, k)))
+
+
 def sort_by_key(rel: Relation) -> Relation:
     """Sort valid rows by key; invalid rows go last (stable)."""
     order = torch.argsort(rel.masked_keys(), stable=True)

@@ -22,8 +22,18 @@ Usage:
   PYTHONPATH=src python -m repro_torch.launch.join_serve --device cpu \
       --async --replicas 2 --checkpoint-dir "$TMPDIR/ckpt" --kill-after 2
 
+  # the mesh: 2 ranks (processes) over gloo on the CPU, the psum merge
+  PYTHONPATH=src python -m repro_torch.launch.join_serve --mesh 2 \
+      --device cpu --dist-backend gloo --serve-mode psum
+  # on the card: one rank a card over NCCL (several ranks on one card
+  # need --dist-backend gloo, which carries their tensors through host
+  # memory)
+  PYTHONPATH=src python -m repro_torch.launch.join_serve --mesh 1
+
 It serves on the CUDA card unless ``--device cpu`` asks for the CPU, and
-fails without a card rather than fall back to the CPU.
+fails without a card rather than fall back to the CPU.  With ``--mesh N``
+it starts N ranks (``launch/mesh.run_ranks``): rank 0 serves the tenants'
+queries as mesh classes, the others run the server's worker loop.
 """
 
 from __future__ import annotations
@@ -32,12 +42,15 @@ import argparse
 import time
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.core.budget import QueryBudget
 from repro_torch.core.cost import CostModel, sync
 from repro_torch.data.synthetic import overlapping_relations
+from repro_torch.launch.mesh import backend_for, run_ranks
 from repro_torch.runtime.async_serve import AsyncJoinFrontDoor
-from repro_torch.runtime.join_serve import JoinRequest, JoinServer
+from repro_torch.runtime.join_serve import (JoinRequest, JoinServer,
+                                            serve_mesh_worker)
 from repro_torch.runtime.telemetry import (Tracer, dump_chrome_trace,
                                            format_reconciliation,
                                            reconciliation_report)
@@ -56,12 +69,15 @@ def _check_device(device: str) -> str:
 
 def run(*, tenants: int = 4, queries_per_tenant: int = 8, slots: int = 4,
         base_n: int = 1 << 12, seed: int = 0, device: str = "cuda",
-        trace_out: str | None = None) -> dict:
+        trace_out: str | None = None, mesh=None,
+        serve_mode: str = "exact-parity") -> dict:
+    """Serve the tenants' workload: on the kernel route, or with ``mesh``
+    (on its rank 0) as mesh classes merged by ``serve_mode``."""
     where = _check_device(device)
     tracer = Tracer(enabled=True) if trace_out else None
     server = JoinServer(batch_slots=slots,
                         cost_model=CostModel(beta_compute=1e-7, epsilon=1e-3),
-                        tracer=tracer)
+                        mesh=mesh, serve_mode=serve_mode, tracer=tracer)
     budgets = [QueryBudget(error=0.5), QueryBudget(latency_s=0.5),
                QueryBudget()]
     for t in range(tenants):
@@ -76,7 +92,7 @@ def run(*, tenants: int = 4, queries_per_tenant: int = 8, slots: int = 4,
             reqs.append(server.submit(JoinRequest(
                 dataset=f"tenant{t}", budget=budgets[t % len(budgets)],
                 query_id=f"tenant{t}/agg", seed=seed + q,
-                max_strata=2048, b_max=512, use_kernels=True)))
+                max_strata=2048, b_max=512, use_kernels=mesh is None)))
     t0 = time.perf_counter()
     server.run()
     sync(device)
@@ -84,6 +100,8 @@ def run(*, tenants: int = 4, queries_per_tenant: int = 8, slots: int = 4,
 
     d = server.diagnostics
     qps = d.queries / max(dt, 1e-9)
+    if mesh is not None:
+        where = f"mesh[{server.mesh_k}] {dist.get_backend()} on {where}"
     print(f"[join-serve] {d.queries} queries from {tenants} tenants in "
           f"{dt:.2f}s ({qps:.1f} q/s) on {where}")
     print(f"  steps={d.steps} max_batch={d.max_batch} "
@@ -93,6 +111,13 @@ def run(*, tenants: int = 4, queries_per_tenant: int = 8, slots: int = 4,
     print(f"  filter_builds={d.filter_builds} "
           f"filter_cache_hits={d.filter_cache_hits} "
           f"shuffled_bytes_saved={d.shuffled_bytes_saved:.0f}")
+    if mesh is not None:
+        per_dev = [f"{b:.0f}" for b in d.per_device_shuffled_bytes]
+        print(f"  dist_shuffled_tuple_bytes={d.dist_shuffled_tuple_bytes:.0f}"
+              f" per_device={per_dev}")
+        print(f"  serve_mode={serve_mode} "
+              f"wire_bytes_model={d.dist_wire_bytes_model:.0f} "
+              f"dropped_tuples={d.dist_dropped_tuples:.0f}")
     for r in reqs[:3]:
         print(f"  {r.query_id}: estimate={float(r.result.estimate):.1f} "
               f"+-{float(r.result.error_bound):.1f} "
@@ -103,8 +128,27 @@ def run(*, tenants: int = 4, queries_per_tenant: int = 8, slots: int = 4,
         print(f"  trace: {n_ev} events -> {trace_out} (open in "
               "ui.perfetto.dev or chrome://tracing)")
         print(format_reconciliation(recon))
+    server.shutdown()
     return {"queries": d.queries, "seconds": dt, "qps": qps, "device": where,
             **d.snapshot()}
+
+
+def _mesh_rank(mesh, device, kw: dict):
+    if dist.get_rank() != 0:
+        return serve_mesh_worker(mesh, device)
+    return run(mesh=mesh, device=str(device), **kw)
+
+
+def run_mesh(n: int, *, device: str = "cuda",
+             dist_backend: str | None = None, **kw) -> dict:
+    """:func:`run` on a mesh of ``n`` ranks over ``dist_backend`` (NCCL on
+    the card unless ``'gloo'`` is asked for, gloo on the CPU); returns rank
+    0's report.  Without a card it fails before it starts a rank, unless
+    ``device`` is the CPU."""
+    _check_device(device)
+    backend = backend_for(device, dist_backend)
+    return run_ranks(_mesh_rank, n, (kw,), backend=backend,
+                     device=device, timeout_s=600)[0]
 
 
 def run_async(*, tenants: int = 4, queries_per_tenant: int = 8,
@@ -223,6 +267,16 @@ def main() -> None:
                          "trace-event JSON (perfetto-viewable) plus a "
                          "modeled-vs-measured byte reconciliation report; "
                          "summarize with repro_torch.launch.trace_dump")
+    ap.add_argument("--mesh", type=int, default=0,
+                    help="serve over N ranks, one process each (0 = off)")
+    ap.add_argument("--serve-mode", default="exact-parity",
+                    choices=["exact-parity", "psum"],
+                    help="mesh merge: bit-parity gather or the psum of "
+                         "estimator parts over capacity-planned buckets")
+    ap.add_argument("--dist-backend", default=None, choices=["nccl", "gloo"],
+                    help="the mesh's backend (default: nccl on the card, "
+                         "gloo on the CPU; gloo on the card carries the "
+                         "tensors through host memory)")
     ap.add_argument("--async", dest="async_", action="store_true",
                     help="serve through the async tier (event-loop "
                          "replicas + front door) instead of the step loop")
@@ -242,9 +296,15 @@ def main() -> None:
                   queries_per_tenant=args.queries_per_tenant,
                   slots=args.slots, base_n=args.base_n, device=args.device,
                   trace_out=args.trace_out)
+    if args.mesh and args.async_:
+        ap.error("--mesh serves through the step loop, not --async")
     if args.async_:
         run_async(replicas=args.replicas, checkpoint_dir=args.checkpoint_dir,
                   kill_after=args.kill_after, **common)
+    elif args.mesh:
+        device = common.pop("device")
+        run_mesh(args.mesh, device=device, dist_backend=args.dist_backend,
+                 serve_mode=args.serve_mode, **common)
     else:
         run(**common)
 

@@ -73,6 +73,7 @@ from repro_torch.core.relation import Relation
 from repro_torch.runtime.checkpoint import latest_step, save_checkpoint
 from repro_torch.runtime.fault import (Heartbeat, InjectedFault,
                                        elastic_restore_engine, guarded_step)
+from repro_torch.runtime import join_serve
 from repro_torch.runtime.join_serve import JoinRequest, JoinServer, tenant_of
 from repro_torch.runtime.stream_join import (StreamJoinServer,
                                              StreamJoinSession)
@@ -595,6 +596,10 @@ class AsyncJoinFrontDoor:
                 eng.sigma = self.sigma        # shared: see class docstring
             else:
                 eng = JoinServer(sigma_registry=self.sigma, **engine_kw)
+            # the replicas share one card: together their steps may plan
+            # for one engine's share of it (slot_budget)
+            if eng.memory_share is None:
+                eng.memory_share = join_serve.SLOT_MEMORY_SHARE / replicas
             if tracer is not None:
                 eng.tracer = tracer
             ckdir = os.path.join(checkpoint_dir, f"replica{i}") \

@@ -1,7 +1,7 @@
-"""Batched multi-tenant ApproxJoin serving engine (single device).
+"""Batched multi-tenant ApproxJoin serving engine, on one device or a mesh.
 
-The port of the JAX package's ``runtime/join_serve.py`` without its mesh
-parts.  The ``JoinServer`` batches ApproxJoin queries the way LLM serving
+The port of the JAX package's ``runtime/join_serve.py``.  The
+``JoinServer`` batches ApproxJoin queries the way LLM serving
 engines batch token decodes across slots.  A :class:`JoinRequest` carries
 relations (or named dataset handles), a :class:`QueryBudget`, the
 aggregate/expression, and a tenant ``query_id``.  The engine:
@@ -68,22 +68,59 @@ concatenation of its leaf datasets.  :meth:`JoinServer.snapshot_state` /
 :meth:`JoinServer.restore_state` capture and adopt the serving state
 (datasets, cached filter words, sigmas, the queue with its plans), which
 ``runtime/checkpoint.py`` writes and the async tier's failover reads.
+
+**On a mesh** (``JoinServer(mesh=...)``, ``core/distributed.py``) one
+process a rank serves: the server on rank 0 is the engine the caller sees,
+and ranks 1..k-1 run :func:`serve_mesh_worker`.  Before each mesh operation
+(scatter a relation, build a dataset filter, prepare, sample, exact,
+gather rows, stop) rank 0 broadcasts a small header, and every rank then
+runs the same per-rank function on its own block of the rows, each
+collective once for all of the step's slots.  Batching,
+deadlines and sigma lookups read the clock and host state, so only rank 0
+decides them; ranks that decided on their own would issue collectives in
+different orders.  ``serve_mode`` picks the merge:
+
+* ``'exact-parity'`` (default): gather merge, lossless buckets; results
+  equal the single-device server's bit for bit at any mesh size.
+* ``'psum'``: one all_reduce of estimator parts, buckets planned from the
+  dataset's Bloom-intersection overlap estimate; accuracy is statistical
+  and dropped rows are counted.
+
+Kernel classes on a mesh are single-device classes: at mesh 1 they serve
+with no gather; at k > 1 rank 0 gathers their rows (metered in
+``kernel_gather_bytes``) and the CUDA kernels serve them there, with their
+dataset filters built by the build kernel on every rank and OR-merged.
+Snapshots, plans, prebuilt window words and the async tier run on a
+single device only.
 """
 
 from __future__ import annotations
 
 import functools
+import itertools
 import time
+import weakref
 from collections import OrderedDict
 from dataclasses import dataclass, field
 from functools import partial
 from typing import NamedTuple, Optional, Sequence
 
+import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.core import bloom
 from repro_torch.core.budget import QueryBudget
 from repro_torch.core.cost import CostModel, SigmaRegistry, sync
+from repro_torch.core.distributed import (broadcast_from0, gather_fields,
+                                          make_serve_exact,
+                                          make_serve_exact_psum,
+                                          make_serve_filter_build,
+                                          make_serve_prepare,
+                                          make_serve_sample,
+                                          make_serve_sample_psum, mesh_size,
+                                          planned_bucket_cap, scatter_rows)
+from repro_torch.core.estimators import SumParts
 from repro_torch.core.hashing import MASK
 from repro_torch.core.join import (EXPRS, TUPLE_BYTES, JoinDiagnostics,
                                    JoinResult, _slot, decide_sample_sizes,
@@ -104,8 +141,10 @@ from repro_torch.runtime.telemetry import \
 
 DEFAULT_B_MAX = 2048
 AGGS = ("sum", "count", "avg", "stdev")
+SERVE_MODES = ("exact-parity", "psum")
 
-# Share of the card's memory that one step's slots may hold (slot_budget).
+# Share of the card's memory that one step's slots may hold (slot_budget),
+# split evenly among the replicas of an async front door on one card.
 # chip_smoke.py holds a step's measured peak to 1.5 x slot_bytes x B, so a
 # step at the cap peaks at no more than 0.75 of the card.  The quarter left
 # holds the registered datasets and the filter-word cache: at most 256
@@ -123,12 +162,34 @@ def tenant_of(query_id: str) -> str:
     return query_id.split("/", 1)[0]
 
 
+def bloom_overlap_estimate(rels: Sequence[Relation], fp_rate: float = 0.01,
+                           seed: int = 0) -> float:
+    """Planning-time live-fraction estimate from the Bloom intersection.
+
+    Builds one filter per input, ANDs them, probes every input against the
+    join filter and returns surviving / total, the estimate a mesh server
+    sizes psum-mode shuffle buckets from.  Biased UP only (Bloom false
+    positives), so a bucket plan with slack on top errs on the lossless
+    side.  Taken once, at dataset registration.
+    """
+    num_blocks = bloom.num_blocks_for(max(r.capacity for r in rels), fp_rate)
+    jf = bloom.intersect_all([bloom.build(r.keys, r.valid, num_blocks, seed)
+                              for r in rels])
+    live = sum(int((r.valid & bloom.contains(jf, r.keys)).sum())
+               for r in rels)
+    total = sum(int(r.count()) for r in rels)
+    return live / max(total, 1)
+
+
 class ShapeClass(NamedTuple):
     """Static signature of a query (the stage-cache key).
 
-    ``mesh``, ``serve_mode`` and ``bucket_cap`` keep the JAX package's key
-    layout; a single-device server always has ``()``, ``'exact-parity'``
-    and 0 there.
+    ``mesh`` is ``()`` for a single-device server (and for kernel classes),
+    else the ordered ``(axis name, axis size)`` pairs of the join axes, so
+    the same query stream served on different meshes builds (and caches)
+    per mesh shape.  ``serve_mode`` and ``bucket_cap`` key too: the psum
+    and exact-parity pipelines are different programs with differently
+    sized shuffle buffers.
     """
 
     caps: tuple[int, ...]    # per-side bucketed capacities
@@ -172,13 +233,13 @@ class JoinRequest:
     b_max: Optional[int] = DEFAULT_B_MAX
     dedup: bool = False
     use_kernels: bool = False
+    serve_mode: Optional[str] = None   # None -> the server's default
     # filter-hash seed, decoupled from the sampling seed so a streaming
     # session can vary draws per window while reusing cached filter words
     # (None -> ``seed``, the classic coupled behaviour)
     filter_seed: Optional[int] = None
-    # live-fraction estimate that a mesh engine plans its shuffle buckets
-    # from (the JAX package's psum mode); a single-device server carries it
-    # through plans and snapshots and reads it nowhere
+    # psum bucket planning on a mesh: a live-fraction estimate overriding
+    # the dataset's registration-time one
     overlap_hint: Optional[float] = None
     # streaming metadata (carried into the trace)
     stream: Optional[str] = None
@@ -388,11 +449,14 @@ class ServerDiagnostics:
         return d
 
 
-def shape_class_of(req: JoinRequest) -> ShapeClass:
+def shape_class_of(req: JoinRequest, mesh_shape: tuple = (),
+                   serve_mode: str = "exact-parity",
+                   bucket_cap: int = 0) -> ShapeClass:
     caps = tuple(bucket_capacity(r.capacity) for r in req.rels)
     return ShapeClass(caps, len(caps), req.max_strata, req.b_max,
                       req.expr, req.agg, req.dedup, req.use_kernels,
-                      req.fp_rate, req.budget.confidence)
+                      req.fp_rate, req.budget.confidence, mesh_shape,
+                      serve_mode, bucket_cap)
 
 
 def kernel_sampler(cls: ShapeClass) -> bool:
@@ -431,16 +495,17 @@ def _card_memory(index: int) -> int:
     return torch.cuda.get_device_properties(index).total_memory
 
 
-def slot_budget(device) -> int:
-    """Bytes one step's slots may hold on ``device``: ``SLOT_MEMORY_SHARE``
-    of the card's memory (read once per card), or ``HOST_SLOT_MEMORY`` on
-    the CPU."""
+def slot_budget(device, share: Optional[float] = None) -> int:
+    """Bytes one step's slots may hold on ``device``: ``share`` (by default
+    ``SLOT_MEMORY_SHARE``) of the card's memory (read once per card); on
+    the CPU ``HOST_SLOT_MEMORY``, scaled by ``share / SLOT_MEMORY_SHARE``."""
+    share = SLOT_MEMORY_SHARE if share is None else share
     device = torch.device(device)
     if device.type != "cuda":
-        return HOST_SLOT_MEMORY
+        return int(share / SLOT_MEMORY_SHARE * HOST_SLOT_MEMORY)
     index = torch.cuda.current_device() if device.index is None \
         else device.index
-    return int(SLOT_MEMORY_SHARE * _card_memory(index))
+    return int(share * _card_memory(index))
 
 
 # -- stage builders.  Every stage callable takes the engine's slot-stacked
@@ -508,22 +573,191 @@ def _make_filter_build_kernels(num_blocks: int):
     return fn
 
 
+class ShardedRelation:
+    """A relation a mesh server holds across its ranks: ``local`` is rank
+    0's block of the rows, ``capacity`` the whole relation's, and ``rid``
+    names the blocks the other ranks hold, which they drop once this handle
+    is gone."""
+
+    def __init__(self, rid: int, local: Relation, capacity: int):
+        self.rid, self.local, self.capacity = rid, local, capacity
+
+
+def _mesh_stage(mesh, axes, spec: tuple):
+    """The per-rank serving stage a header's ``spec`` names."""
+    name, *a = spec
+    if name == "prepare":
+        n_rels, num_blocks, max_strata, cap, merge = a
+        return make_serve_prepare(mesh, axes, n_rels=n_rels,
+                                  num_blocks=num_blocks,
+                                  max_strata=max_strata, bucket_cap=cap,
+                                  merge=merge)
+    if name == "sample":
+        merge, b_max, agg, dedup, confidence, expr = a
+        make = make_serve_sample_psum if merge == "psum" else \
+            make_serve_sample
+        return make(mesh, axes, b_max=b_max, agg=agg, dedup=dedup,
+                    confidence=confidence, expr=expr)
+    if name == "exact":
+        merge, agg, expr = a
+        make = make_serve_exact_psum if merge == "psum" else make_serve_exact
+        return make(mesh, axes, agg=agg, expr=expr)
+    num_blocks, use_kernels = a                       # "fbuild"
+    return make_serve_filter_build(mesh, axes, num_blocks=num_blocks,
+                                   use_kernels=use_kernels)
+
+
+def _rows_of(rel) -> torch.Tensor:
+    """A relation's keys on this rank (rank 0's block of a mesh handle)."""
+    return (rel.local if isinstance(rel, ShardedRelation) else rel).keys
+
+
+class _MeshRank:
+    """What every rank of a mesh server holds and runs: its block of each
+    relation (by ``rid``), the dataset filters (by word id), the current
+    step's per-rank prepare output, and the per-rank stages.
+
+    Rank 0's server calls :meth:`call`, which broadcasts the operation's
+    header to the other ranks' :func:`serve_mesh_worker` loops and runs it
+    on rank 0 too.  A header also carries the relations and filters rank 0
+    let go of since the last one; every rank drops them after the
+    operation.
+    """
+
+    def __init__(self, mesh, axes, device=None):
+        self.mesh, self.axes = mesh, tuple(axes)
+        self.device = None if device is None else torch.device(device)
+        self.rels: dict = {}
+        self.words: dict = {}
+        self.prep = None
+        self._stages: dict = {}
+        self._free_rels: list = []
+        self._free_words: list = []
+
+    def release_rel(self, rid: int) -> None:
+        self._free_rels.append(rid)
+
+    def release_words(self, wkey: int) -> None:
+        self._free_words.append(wkey)
+
+    def call(self, op: str, payload=None, **header):
+        """Rank 0: broadcast ``op``'s header, then run it here."""
+        header.update(op=op)
+        header["free_rels"], self._free_rels = self._free_rels, []
+        header["free_words"], self._free_words = self._free_words, []
+        box = [header]
+        dist.broadcast_object_list(box, src=0)
+        return self.run(header, payload)
+
+    def run(self, h: dict, payload=None):
+        try:
+            return getattr(self, "_" + h["op"])(h, payload)
+        finally:
+            for rid in h["free_rels"]:
+                self.rels.pop(rid, None)
+            for wkey in h["free_words"]:
+                self.words.pop(wkey, None)
+
+    def _stage(self, spec: tuple):
+        fn = self._stages.get(spec)
+        if fn is None:
+            fn = self._stages[spec] = _mesh_stage(self.mesh, self.axes, spec)
+        return fn
+
+    def _rel(self, h, rel):
+        if rel is not None and self.device is None:
+            self.device = rel.keys.device
+        self.rels[h["rid"]] = local = scatter_rows(
+            rel, h["capacity"], self.mesh, self.axes, self.device)
+        return local
+
+    def _gather(self, h, _):
+        local = self.rels[h["rid"]]
+        return Relation(*gather_fields(list(local), self.mesh, self.axes))
+
+    def _fbuild(self, h, _):
+        local = self.rels[h["rid"]]
+        words = self._stage(("fbuild", h["num_blocks"], h["kernels"]))(
+            local.keys, local.valid, h["seed"])
+        self.words[h["wkey"]] = words
+        return words
+
+    def _prepare(self, h, _):
+        slots, n_sides = h["slots"], len(h["slots"][0])
+        rels_b = [Relation(*(torch.stack([self.rels[sl[s]][f] for sl in slots])
+                             for f in range(3))) for s in range(n_sides)]
+        words_b = torch.stack([torch.stack([self.words[w] for w in ws])
+                               for ws in h["wkeys"]])
+        fseeds = torch.tensor(h["fseeds"], device=self.device)
+        self.prep = self._stage(h["spec"])(rels_b, words_b, fseeds,
+                                           h["n_real"])
+        return self.prep
+
+    def _sample(self, h, b):
+        b = broadcast_from0(b, tuple(self.prep.population.shape),
+                            torch.float32, self.device)
+        seeds = torch.tensor(h["seeds"], device=self.device)
+        return self._stage(h["spec"])(self.prep, b, seeds, h["n_real"])
+
+    def _exact(self, h, _):
+        return self._stage(h["spec"])(self.prep, h["n_real"])
+
+    def _stop(self, h, _):
+        self.prep = None
+
+
+def serve_mesh_worker(mesh, device, join_axes: Optional[Sequence[str]] = None
+                      ) -> int:
+    """The loop of ranks 1..k-1 of a mesh server: run every operation rank
+    0's ``JoinServer(mesh=mesh, join_axes=join_axes)`` broadcasts, on this
+    rank's block of the rows on ``device``, until it shuts down.  Returns
+    the number of operations run.  ``join_axes`` must be the server's."""
+    if dist.get_rank() == 0:
+        raise ValueError("rank 0 runs the JoinServer; serve_mesh_worker is "
+                         "for ranks 1..k-1")
+    rank = _MeshRank(mesh, join_axes or mesh.mesh_dim_names, device)
+    n = 0
+    while True:
+        box = [None]
+        dist.broadcast_object_list(box, src=0)
+        rank.run(box[0])
+        if box[0]["op"] == "stop":
+            return n
+        n += 1
+
+
 class JoinServer:
     """Slot-based batched ApproxJoin engine (caller-driven ``step()`` loop).
 
     Every batch runs on the device its relations lie on: register or submit
     relations made on the card to serve there.
+
+    ``mesh`` (a ``DeviceMesh`` of ``launch/mesh.py``) serves over its ranks
+    from rank 0, joined over ``join_axes`` (all of the mesh's dims by
+    default); ranks 1..k-1 run :func:`serve_mesh_worker` with the same
+    axes until :meth:`shutdown`.  ``bucket_cap`` forces the per-(source,
+    dest) shuffle bucket size; ``serve_mode`` is the default merge
+    (``SERVE_MODES``), overridable per request.  ``memory_share`` is the
+    share of the card one step's slots may plan for (``slot_budget``).
     """
 
     def __init__(self, *, batch_slots: int = 4,
                  cost_model: Optional[CostModel] = None,
                  sigma_registry: Optional[SigmaRegistry] = None,
+                 mesh=None, join_axes: Optional[Sequence[str]] = None,
+                 bucket_cap: Optional[int] = None,
+                 serve_mode: str = "exact-parity",
+                 memory_share: Optional[float] = None,
                  filter_cache_entries: int = 256,
                  sigma_pipeline: bool = True,
                  backlog_slots: Optional[int] = None,
                  latency_samples: int = 4096,
                  tracer: Optional[Tracer] = None,
                  metrics: Optional[MetricsRegistry] = None):
+        if serve_mode not in SERVE_MODES:
+            raise ValueError(f"unknown serve_mode {serve_mode!r}")
+        self.serve_mode = serve_mode
+        self.memory_share = memory_share
         self.batch_slots = batch_slots
         # cross-step sigma pipelining: same-query_id error-budget repeats
         # are deferred to the NEXT step so each sees the previous
@@ -542,6 +776,7 @@ class JoinServer:
         self.queue: list[JoinRequest] = []
         self.datasets: dict[str, list[Relation]] = {}
         self._dataset_fps: dict[str, list[str]] = {}
+        self._dataset_overlap: dict[str, float] = {}
         self._exec_cache: dict = {}
         # compiled plans, cached by plan signature the way shape classes key
         # the stage cache: resubmitting a plan shape skips the
@@ -567,8 +802,64 @@ class JoinServer:
         # every finished or shed request; the async tier installs its
         # future-resolver here
         self.on_done = None
+        self.mesh = mesh
+        self.bucket_cap = bucket_cap
+        self.join_axes, self.mesh_k, self.mesh_shape = (), 1, ()
+        if mesh is not None:
+            if dist.get_rank() != 0:
+                raise ValueError("a mesh JoinServer runs on rank 0; ranks "
+                                 "1..k-1 run serve_mesh_worker")
+            axes = tuple(join_axes) if join_axes is not None \
+                else tuple(mesh.mesh_dim_names)
+            if not all(a in mesh.mesh_dim_names for a in axes):
+                raise ValueError(f"join axes {axes} not in the mesh's "
+                                 f"{mesh.mesh_dim_names}")
+            self.join_axes = axes
+            self.mesh_k = mesh_size(mesh, axes)
+            self.mesh_shape = tuple((a, mesh.size(mesh.mesh_dim_names.index(
+                a))) for a in axes)
+            self.diagnostics.per_device_shuffled_bytes = np.zeros(
+                self.mesh_k, np.float64)
+            self.diagnostics.per_device_dropped_tuples = np.zeros(
+                self.mesh_k, np.float64)
+            self._ranks = _MeshRank(mesh, axes)
+            self._rids = itertools.count()
+            self._wkeys = itertools.count()
+            # (fp, num_blocks, seed) -> word id of the filter cache's entry
+            self._word_ids: dict = {}
+            self._step_words: list = []  # inline relations' words, a step
+            if tracer is not None:
+                tracer.tags.setdefault(
+                    "mesh", "x".join(str(n) for _, n in self.mesh_shape))
+
+    def shutdown(self) -> None:
+        """Stop the mesh's worker loops (a no-op without a mesh, or when
+        already stopped)."""
+        if self.mesh is not None and self._ranks is not None:
+            self._ranks.call("stop")
+            self._ranks = None
+
+    def _check_meshless(self, what: str) -> None:
+        if self.mesh is not None:
+            raise NotImplementedError(f"{what} on a mesh server is not "
+                                      "ported yet (ROADMAP A5b)")
 
     # -- admission ----------------------------------------------------------
+
+    def _admit_rels(self, rels: Sequence[Relation]) -> list:
+        """Bucket relations to their pow2 capacity (at least the mesh size);
+        on a mesh, scatter each over the ranks and keep its handle."""
+        rels = [bucket_to_pow2(r, minimum=self.mesh_k) for r in rels]
+        if self.mesh is None:
+            return rels
+        out = []
+        for r in rels:
+            rid = next(self._rids)
+            local = self._ranks.call("rel", r, rid=rid, capacity=r.capacity)
+            handle = ShardedRelation(rid, local, r.capacity)
+            weakref.finalize(handle, self._ranks.release_rel, rid)
+            out.append(handle)
+        return out
 
     def register_dataset(self, name: str, rels: Sequence[Relation]) -> None:
         """Store a named (bucketed) dataset for handle queries.
@@ -578,8 +869,12 @@ class JoinServer:
         re-registering identical relations under a new name reuses the same
         cached words.
         """
-        self.datasets[name] = [bucket_to_pow2(r) for r in rels]
-        self._dataset_fps[name] = [fingerprint(r) for r in self.datasets[name]]
+        bucketed = [bucket_to_pow2(r, minimum=self.mesh_k) for r in rels]
+        self._dataset_fps[name] = [fingerprint(r) for r in bucketed]
+        if self.mesh is not None:
+            # sizes psum-mode buckets (_planned_cap)
+            self._dataset_overlap[name] = bloom_overlap_estimate(bucketed)
+        self.datasets[name] = self._admit_rels(bucketed)
 
     def submit(self, req: JoinRequest) -> JoinRequest:
         if req.rels is None:
@@ -599,7 +894,7 @@ class JoinServer:
             # pays off for repeated identical key sets — that contract
             # belongs to register_dataset.  Their filter words build per
             # step, uncached.
-            req.rels = [bucket_to_pow2(r) for r in req.rels]
+            req.rels = self._admit_rels(req.rels)
             req._fps = [None] * len(req.rels)
         if len(req.rels) < 2:
             raise ValueError("join needs at least two relations")
@@ -617,7 +912,17 @@ class JoinServer:
             raise ValueError("JoinServer needs a concrete b_max "
                              f"(e.g. the default {DEFAULT_B_MAX}); the "
                              "adaptive b_max=None grid is driver-side only")
-        req._class = shape_class_of(req)
+        mode = req.serve_mode or self.serve_mode
+        if mode not in SERVE_MODES:
+            raise ValueError(f"unknown serve_mode {mode!r}")
+        if self.mesh is None or req.use_kernels:
+            # the merge only tells mesh pipelines apart: off the mesh (and
+            # on the single-device kernel route) there is one pipeline, the
+            # exact one
+            mode = "exact-parity"
+        req._class = shape_class_of(
+            req, () if req.use_kernels else self.mesh_shape, mode,
+            self._planned_cap(req, mode))
         req._submit_t = time.perf_counter()
         if not req._ingest_t:
             req._ingest_t = req._submit_t
@@ -642,6 +947,7 @@ class JoinServer:
         compiled form only holds dataset *names*; relations resolve at
         submit time through the normal handle path.
         """
+        self._check_meshless("a query plan")
         key = plan.signature()
         compiled = self._plan_cache.get(key)
         if compiled is None:
@@ -691,6 +997,29 @@ class JoinServer:
             handle.requests[node.name] = req
         self.plans[query_id] = handle
         return handle
+
+    def _planned_cap(self, req: JoinRequest, mode: str) -> int:
+        """Static per-(source, dest) shuffle bucket capacity of a query.
+
+        exact-parity: the lossless worst case (a rank's rows) unless the
+        server was built with a ``bucket_cap``.  psum: planned from the
+        request's ``overlap_hint`` or its dataset's registration-time
+        overlap estimate with 2x slack, pow2-bucketed so near-equal
+        estimates share one stage; inline relations plan at overlap 1.0.
+        """
+        if self.mesh is None or req.use_kernels:
+            return 0
+        local_n = max(bucket_capacity(r.capacity) for r in req.rels) \
+            // self.mesh_k
+        if self.bucket_cap:
+            return min(self.bucket_cap, local_n)
+        if mode != "psum":
+            return local_n
+        overlap = req.overlap_hint
+        if overlap is None:
+            overlap = self._dataset_overlap.get(req.dataset, 1.0)
+        cap = planned_bucket_cap(local_n, self.mesh_k, overlap)
+        return min(bucket_capacity(cap), local_n)
 
     # -- stage + filter-word caches -----------------------------------------
 
@@ -743,6 +1072,46 @@ class JoinServer:
         self.diagnostics.filter_build_s += time.perf_counter() - t0
         return words
 
+    def _mesh_words_for(self, rel: ShardedRelation, fp: Optional[str],
+                        num_blocks: int, seed: int, use_kernels: bool,
+                        step_words: list) -> tuple:
+        """A mesh server's :meth:`_words_for`: ``(word id, words)``.
+
+        Each rank builds its block's partition filter (through the build
+        kernel for a kernel class) and the OR-reduce makes the dataset
+        filter on every rank, bit-identical to a single build.  The exchange
+        puts k - 1 copies of the words on the wire
+        (``filter_exchange_bytes_measured``); a cache hit moves nothing.
+        An inline relation's words (``fp=None``) live for the step: their
+        id goes on ``step_words``.
+        """
+        key = (fp, num_blocks, seed)
+        if fp is not None and key in self._filter_words:
+            self._filter_words.move_to_end(key)
+            self.diagnostics.filter_cache_hits += 1
+            return self._word_ids[key], self._filter_words[key]
+        t0 = time.perf_counter()
+        build, _ = self._executable(
+            "fbuild", (rel.capacity, num_blocks, self.mesh_shape, use_kernels),
+            None, lambda: partial(self._ranks.call, "fbuild",
+                                  num_blocks=num_blocks, kernels=use_kernels))
+        wkey = next(self._wkeys)
+        words = build(rid=rel.rid, wkey=wkey, seed=seed)
+        sync(words.device)
+        self.diagnostics.filter_exchange_bytes_measured += float(
+            words.numel() * words.element_size() * (self.mesh_k - 1))
+        if fp is None:
+            step_words.append(wkey)
+        else:
+            self._filter_words[key] = words
+            self._word_ids[key] = wkey
+            while len(self._filter_words) > self.filter_cache_entries:
+                old, _ = self._filter_words.popitem(last=False)
+                self._ranks.release_words(self._word_ids.pop(old))
+        self.diagnostics.filter_builds += 1
+        self.diagnostics.filter_build_s += time.perf_counter() - t0
+        return wkey, words
+
     # -- engine -------------------------------------------------------------
 
     def _deadline(self, req: JoinRequest) -> float:
@@ -762,7 +1131,8 @@ class JoinServer:
         """
         if not cls.use_kernels:
             return self.batch_slots
-        cap = min(slot_budget(device) // slot_bytes(cls), self.batch_slots)
+        cap = min(slot_budget(device, self.memory_share) // slot_bytes(cls),
+                  self.batch_slots)
         cap = max(cap, 1)
         return 1 << (cap.bit_length() - 1)          # floor to pow2
 
@@ -790,7 +1160,7 @@ class JoinServer:
         if backlog:
             candidates.sort(key=self._deadline)   # stable: FIFO on ties
         batch, seen_ids = [], set()
-        slots = self._slot_cap(cls, candidates[0].rels[0].keys.device)
+        slots = self._slot_cap(cls, _rows_of(candidates[0].rels[0]).device)
         for r in candidates:
             if len(batch) == slots:
                 break
@@ -837,7 +1207,11 @@ class JoinServer:
 
     def _path_of(self, cls: ShapeClass) -> str:
         """Serving-path tag for trace/reconciliation grouping."""
-        return "kernel" if cls.use_kernels else "single"
+        if cls.use_kernels:
+            return "kernel"
+        if cls.mesh:
+            return f"mesh{self.mesh_k}/{cls.serve_mode}"
+        return "single"
 
     def _trace_step(self, cls: ShapeClass, batch: list[JoinRequest],
                     t_form: float, t_dispatch: float, t_done: float) -> None:
@@ -933,8 +1307,6 @@ class JoinServer:
 
     @staticmethod
     def _req_meta(req: JoinRequest) -> dict:
-        # serve_mode: the JAX package's mesh merge choice, always the
-        # server default (None) on a single device
         return {"dataset": req.dataset,
                 "datasets": None if req.datasets is None
                 else list(req.datasets),
@@ -944,7 +1316,7 @@ class JoinServer:
                 "seed": req.seed, "fp_rate": req.fp_rate,
                 "max_strata": req.max_strata, "b_max": req.b_max,
                 "dedup": req.dedup, "use_kernels": req.use_kernels,
-                "serve_mode": None, "filter_seed": req.filter_seed,
+                "serve_mode": req.serve_mode, "filter_seed": req.filter_seed,
                 "overlap_hint": req.overlap_hint, "stream": req.stream,
                 "window_id": req.window_id,
                 "n_rels": len(req.rels) if req.rels is not None else 0,
@@ -971,6 +1343,7 @@ class JoinServer:
         + :meth:`restore_state`.  The capture is synchronous with respect to
         engine mutation: call between steps (the async tier snapshots on
         its loop thread under the engine lock)."""
+        self._check_meshless("a snapshot")
         flat: dict = {}
         meta: dict = {}
         ds_meta = []
@@ -1023,6 +1396,7 @@ class JoinServer:
         observes, is preserved).  Served-but-undrained results are NOT part
         of a snapshot: their futures resolved at completion time, before
         any crash this snapshot survives."""
+        self._check_meshless("a restore")
         device = torch.device("cuda" if device is None else device)
         for di, d in enumerate(meta.get("datasets", [])):
             self.datasets[d["name"]] = [
@@ -1049,7 +1423,8 @@ class JoinServer:
                 expr=m["expr"], query_id=m["query_id"], seed=m["seed"],
                 fp_rate=m["fp_rate"], max_strata=m["max_strata"],
                 b_max=m["b_max"], dedup=m["dedup"],
-                use_kernels=m["use_kernels"], filter_seed=m["filter_seed"],
+                use_kernels=m["use_kernels"], serve_mode=m.get("serve_mode"),
+                filter_seed=m["filter_seed"],
                 overlap_hint=m["overlap_hint"], stream=m["stream"],
                 window_id=m["window_id"], plan=m.get("plan"),
                 plan_node=m.get("plan_node"))
@@ -1079,11 +1454,64 @@ class JoinServer:
 
     # -- execution ----------------------------------------------------------
 
+    def _kernel_gather(self, rel: ShardedRelation, memo: dict) -> Relation:
+        """A kernel class's rows on rank 0 (the CUDA kernels serve on one
+        device): at mesh 1 rank 0's block is the relation; at k > 1 the
+        ranks' blocks gather to rank 0, once per relation a step, metered
+        in ``kernel_gather_bytes`` as the bytes rank 0 received."""
+        if self.mesh_k == 1:
+            return rel.local
+        hit = memo.get(rel.rid)
+        if hit is None:
+            hit = memo[rel.rid] = self._ranks.call("gather", rid=rel.rid)
+            # a row crosses as three int32s (gather_fields)
+            self.diagnostics.kernel_gather_bytes += float(
+                12 * rel.capacity * (self.mesh_k - 1) // self.mesh_k)
+        return hit
+
+    def _mesh_batch_inputs(self, cls: ShapeClass, batch: list[JoinRequest]):
+        """:meth:`_batch_inputs` on a mesh: a mesh class's step names its
+        relations and filters by id (every rank stacks its own blocks); a
+        kernel class's gathers its rows to rank 0 and stacks them there."""
+        B = bucket_capacity(len(batch))
+        reqs = batch + [batch[-1]] * (B - len(batch))
+        dev = _rows_of(batch[0].rels[0]).device
+        seeds = torch.tensor([r.seed & MASK for r in reqs], device=dev)
+        fseeds = torch.tensor([(r.seed if r.filter_seed is None
+                                else r.filter_seed) & MASK for r in reqs],
+                              device=dev)
+        num_blocks = bloom.num_blocks_for(max(cls.caps), cls.fp_rate)
+        step_words: list = []
+        per_req = []
+        for r in batch:
+            if r._words is not None:
+                self._check_meshless("a request with prebuilt words")
+            fs = r.seed if r.filter_seed is None else r.filter_seed
+            per_req.append([self._mesh_words_for(
+                r.rels[s], r._fps[s], num_blocks, fs, cls.use_kernels,
+                step_words) for s in range(cls.n_inputs)])
+        per_req += [per_req[-1]] * (B - len(batch))
+        self._step_words = step_words    # dropped once the step is done
+        if cls.use_kernels:
+            memo: dict = {}
+            rows = [[self._kernel_gather(r.rels[s], memo) for r in reqs]
+                    for s in range(cls.n_inputs)]
+            rels_b = [Relation(*(torch.stack([rel[f] for rel in side])
+                                 for f in range(3))) for side in rows]
+            words_b = torch.stack([torch.stack([w for _, w in ws])
+                                   for ws in per_req])
+            return B, rels_b, words_b, seeds, fseeds, num_blocks
+        slots = [[r.rels[s].rid for s in range(cls.n_inputs)] for r in reqs]
+        wkeys = [[w for w, _ in ws] for ws in per_req]
+        return B, slots, wkeys, seeds, fseeds, num_blocks
+
     def _batch_inputs(self, cls: ShapeClass, batch: list[JoinRequest]):
         """Pad to the pow2 batch bucket; stack relations, words and seeds.
 
         Seeds come back as int64 ``[B]`` tensors on the batch's device,
         each wrapped mod 2^32, as the kernels take them."""
+        if self.mesh is not None:
+            return self._mesh_batch_inputs(cls, batch)
         B = bucket_capacity(len(batch))
         reqs = batch + [batch[-1]] * (B - len(batch))  # pad slots (discarded)
         rels_b = [Relation(torch.stack([r.rels[s].keys for r in reqs]),
@@ -1144,13 +1572,16 @@ class JoinServer:
 
     def _finish_batch(self, batch, *, strata_slice, live_counts, total_counts,
                       fbytes, d_filter, exact_idx, e_est, e_cnt,
-                      value, err, cnt, dof, stats, skeys):
-        """Per-query results + sigma feedback."""
+                      value, err, cnt, dof, stats, skeys, dropped=None):
+        """Per-query results + sigma feedback (``dropped``: each query's
+        rows past the mesh's shuffle buckets)."""
         n = batch[0]._class.n_inputs
         for i, req in enumerate(batch):
             strata_i = strata_slice(i)
             live_i, tot_i = live_counts[i], total_counts[i]
             diag = dict(
+                dist_dropped_tuples=0.0 if dropped is None
+                else float(dropped[i]),
                 total_counts=tot_i, live_counts=live_i,
                 overlap_fraction=live_i.sum()
                 / torch.clamp(tot_i.sum(), min=1),
@@ -1181,15 +1612,41 @@ class JoinServer:
             self.sigma.update(req.query_id, skeys[i], sig, ok)
             self.diagnostics.sampled_queries += 1
 
-    def _stage_builders(self, cls: ShapeClass) -> dict:
+    def _stage_builders(self, cls: ShapeClass, num_blocks: int) -> dict:
         """Per-route stage builders.
 
-        The plain and kernel routes share every other line of the step
-        (warmup, timing, host decisions, result assembly).  Kernel classes
-        the sampler kernel does not take (:func:`kernel_sampler`) keep the
-        kernel prepare and take the plain sampler — exactly approx_join's
-        own use_kernels composition.
+        The plain, kernel and mesh routes share every other line of the
+        step (warmup, timing, host decisions, result assembly).  Kernel
+        classes the sampler kernel does not take (:func:`kernel_sampler`)
+        keep the kernel prepare and take the plain sampler — exactly
+        approx_join's own use_kernels composition.  A mesh class's stages
+        broadcast their header and run on every rank, on the per-rank state
+        the prepare left there (its ``sorted_rels`` / ``strata`` arguments
+        are rank 0's copy, unread).
         """
+        if self.mesh is not None and not cls.use_kernels:
+            ranks = self._ranks
+            cap = cls.bucket_cap or max(cls.caps) // self.mesh_k
+            merge = "psum" if cls.serve_mode == "psum" else "gather"
+            pspec = ("prepare", cls.n_inputs, num_blocks, cls.max_strata,
+                     cap, merge)
+            sspec = ("sample", merge, cls.b_max, cls.agg, cls.dedup,
+                     cls.confidence, cls.expr)
+            espec = ("exact", merge, cls.agg, cls.expr)
+
+            def prepare(slots, wkeys, fseeds, n_real):
+                return ranks.call("prepare", spec=pspec, slots=slots,
+                                  wkeys=wkeys, fseeds=fseeds.tolist(),
+                                  n_real=n_real)
+
+            def sample(sorted_rels, strata, b, seeds, n_real):
+                return ranks.call("sample", b, spec=sspec,
+                                  seeds=seeds.tolist(), n_real=n_real)
+
+            def exact(sorted_rels, strata, n_real):
+                return ranks.call("exact", spec=espec, n_real=n_real)
+            return dict(prepare=lambda: prepare, sample=lambda: sample,
+                        exact=lambda: exact)
         prepare = partial(_make_prepare, cls.max_strata)
         sample = partial(_make_sample, cls.b_max, cls.agg, cls.dedup,
                          cls.confidence, cls.expr)
@@ -1205,19 +1662,21 @@ class JoinServer:
         """One engine step: one call per stage for the whole batch."""
         B, rels_b, words_b, seeds, fseeds, num_blocks = \
             self._batch_inputs(cls, batch)
-        n_real, device = len(batch), words_b.device
-        builders = self._stage_builders(cls)
+        n_real, device = len(batch), seeds.device
+        builders = self._stage_builders(cls, num_blocks)
         # stage-timing scratch for the tracer ({} only while tracing, so the
         # untraced path waits for the device no more than it must)
         stages = {} if self.tracer.enabled else None
 
         prepare, fresh = self._executable("prepare", cls, B,
                                           builders["prepare"])
-        if fresh:
+        if fresh and not cls.mesh:
             # warm the stage off the clock: d_filter feeds the latency cost
             # function (§3.2), which models repeated query execution —
             # charging the kernels' load and the first allocations would
-            # skew every latency budget on the first batch of a class
+            # skew every latency budget on the first batch of a class.  A
+            # mesh class loads no kernel, and its warm-up would shuffle
+            # every slot's rows once more
             tc = time.perf_counter()
             prepare(rels_b, words_b, fseeds, n_real)
             sync(device)
@@ -1263,35 +1722,91 @@ class JoinServer:
                 stages["exact"] = (ts, time.perf_counter() - ts,
                                    {"queries": len(exact_idx)})
 
+        # kernel classes run the single-device pipeline even on a mesh
+        # server (a plain PrepareOut: no shuffle buckets, nothing dropped)
+        meshless = self.mesh is None or cls.use_kernels
         if cls.use_kernels:
             self.diagnostics.kernel_queries += len(batch)
+        dropped = None if meshless else \
+            prep.bucket_overflow.cpu().numpy().astype(np.float64)
         fbytes = num_blocks * bloom.WORDS_PER_BLOCK * 4
         self._finish_batch(
             batch, strata_slice=slice_i, live_counts=prep.live_counts,
             total_counts=prep.total_counts, fbytes=fbytes, d_filter=d_filter,
             exact_idx=exact_idx, e_est=e_est, e_cnt=e_cnt, value=value,
-            err=err, cnt=cnt, dof=dof, stats=stats, skeys=skeys)
+            err=err, cnt=cnt, dof=dof, stats=stats, skeys=skeys,
+            dropped=dropped)
         self.diagnostics.filter_exchange_bytes_model += \
             len(batch) * float(filter_exchange_bytes(cls.n_inputs, fbytes))
+        if not meshless:
+            # the measured shuffle volume and the capacity plan's drops
+            # (always 0 under the lossless exact-parity default), pad slots
+            # excluded
+            d = self.diagnostics
+            d.dist_shuffled_tuple_bytes += float(
+                prep.shuffled_tuple_bytes[:n_real].sum())
+            d.per_device_shuffled_bytes = d.per_device_shuffled_bytes \
+                + prep.device_shuffled_bytes[:n_real].sum(0).cpu().numpy()
+            d.dist_dropped_tuples += float(dropped[:n_real].sum())
+            d.per_device_dropped_tuples = d.per_device_dropped_tuples \
+                + prep.device_dropped[:n_real].sum(0).cpu().numpy()
+            d.dist_wire_bytes_model += n_real * self._wire_bytes_model(cls)
+        if self.mesh is not None:
+            for wkey in self._step_words:
+                self._ranks.release_words(wkey)
         if stages is not None:
             self._stage_trace = stages
-            self._recon_batch = self._recon_records(cls, batch, prep, fbytes)
+            self._recon_batch = self._recon_records(cls, batch, prep, fbytes,
+                                                    meshless)
+
+    def _wire_bytes_model(self, cls: ShapeClass) -> float:
+        """Static per-rank collective bytes for ONE query through the mesh
+        pipeline (buffers, not live tuples: what a static-shape dataflow
+        puts on the wire; the serve-time restatement of Eq. 24)."""
+        k = self.mesh_k
+        if k <= 1:
+            return 0.0
+        cap = cls.bucket_cap or max(cls.caps) // k
+        n = cls.n_inputs
+        a2a = n * (k - 1) * cap * TUPLE_BYTES     # key shuffle send buffers
+        if cls.serve_mode == "psum":
+            merge = len(SumParts._fields) * 4 * (k - 1)
+        else:
+            # gather merge: all_gathers of [S] slot arrays, strata keys +
+            # per-side counts (prepare), 7 stat fields (sample), per-side
+            # sums (exact)
+            merge = ((1 + n) + 7 + n) * cls.max_strata * 4 * (k - 1)
+        return float(a2a + merge)
 
     def _recon_records(self, cls: ShapeClass, batch: list[JoinRequest],
-                       prep, fbytes: int) -> dict:
+                       prep, fbytes: int, meshless: bool) -> dict:
         """Per-query byte-reconciliation records (traced steps only): each
         modeled cost paired with its metered counterpart, keyed by request
-        identity for ``_trace_step``.  A single-device server moves no
-        tuples or filters over a wire, so both pairs are unmetered."""
-        live = prep.live_counts[:len(batch)].cpu().numpy()
-        path = self._path_of(cls)
+        identity for ``_trace_step``.  A single-device or kernel query
+        moves no tuples over a wire, so its pairs are unmetered."""
+        n_real, k = len(batch), self.mesh_k
+        live = prep.live_counts[:n_real].cpu().numpy()
+        tup = dev = None
+        if not meshless:
+            tup = prep.shuffled_tuple_bytes[:n_real].cpu().numpy()
+            dev = prep.device_shuffled_bytes[:n_real].cpu().numpy()
+        path, wire = self._path_of(cls), self._wire_bytes_model(cls)
         fe_model = float(filter_exchange_bytes(cls.n_inputs, fbytes))
         out = {}
         for i, req in enumerate(batch):
-            # live-tuple bytes: §3.1's filtered-shuffle volume
+            # live-tuple bytes: §3.1's filtered-shuffle volume against the
+            # tuple bytes the mesh's shuffle moved
             live_model = float(live[i].sum()) * TUPLE_BYTES
-            pairs = [recon_pair("live_tuple_bytes", live_model, None),
+            pairs = [recon_pair("live_tuple_bytes", live_model,
+                                None if tup is None else float(tup[i])),
+                     # the measured exchange is cumulative and amortized
+                     # over the word cache (the server-level pair)
                      recon_pair("filter_exchange_bytes", fe_model, None)]
+            if not meshless:
+                # static collective-buffer model against live tuple bytes:
+                # the gap is the dense dataflow's buffer slack
+                pairs.append(recon_pair("dist_wire_bytes_model", wire,
+                                        float(tup[i])))
             if req._bytes_model is not None:
                 # compile-time plan-node model vs this execution's serve-
                 # time restatement of the same §3.1 cost
@@ -1299,10 +1814,14 @@ class JoinServer:
                     "node_bytes_model",
                     float(req._bytes_model["bytes_pushdown"]),
                     live_model + fe_model))
-            out[id(req)] = {"query_id": req.query_id, "path": path,
-                            "stream": req.stream, "window_id": req.window_id,
-                            "plan": req.plan, "plan_node": req.plan_node,
-                            "pairs": pairs}
+            rec = {"query_id": req.query_id, "path": path,
+                   "stream": req.stream, "window_id": req.window_id,
+                   "plan": req.plan, "plan_node": req.plan_node,
+                   "pairs": pairs}
+            if dev is not None:
+                rec["per_device"] = {"modeled": [wire / k] * k,
+                                     "measured": [float(x) for x in dev[i]]}
+            out[id(req)] = rec
         return out
 
     def reconciliation_report(self) -> dict:
@@ -1310,8 +1829,19 @@ class JoinServer:
         queries), per-path aggregates, and the cumulative server-level
         pairs that exist with tracing off too."""
         d = self.diagnostics
-        server_pairs = [recon_pair("filter_exchange_bytes",
-                                   d.filter_exchange_bytes_model, None)]
+        if self.mesh is None:   # nothing crosses a wire
+            return _recon_report(self.tracer.recon, [recon_pair(
+                "filter_exchange_bytes", d.filter_exchange_bytes_model,
+                None)])
+        server_pairs = [
+            recon_pair("filter_exchange_bytes", d.filter_exchange_bytes_model,
+                       d.filter_exchange_bytes_measured),
+            recon_pair("dist_wire_bytes_model", d.dist_wire_bytes_model,
+                       d.dist_shuffled_tuple_bytes),
+            # the kernel route's gathers to rank 0 are unmodeled cost:
+            # modeled 0, so any metered bytes surface as model error
+            recon_pair("kernel_gather_bytes", 0.0,
+                       d.kernel_gather_bytes or None)]
         return _recon_report(self.tracer.recon, server_pairs)
 
     def query_trace(self, query_id: str) -> list:

@@ -563,3 +563,89 @@ def test_snapshot_checkpoint_restore_on_card(card, tmp_path):
     for f in ("n_sampled", "sum_f", "sum_f2"):
         assert torch.equal(getattr(nxt[0].result.stats, f),
                            getattr(nxt[1].result.stats, f)), f
+
+
+# -- the mesh on the card: NCCL at mesh 1, 2 ranks sharing the card over
+# -- gloo (NCCL refuses two ranks on one card), and NCCL a card a rank on a
+# -- machine of as many cards ----------------------------------------------
+MESH_N = 1 << 14
+MESH_JOINS = [dict(mode="exact", max_strata=4096, seed=7),
+              dict(mode="sample", budget=QueryBudget(error=0.5), b_max=256,
+                   max_strata=4096, seed=5),
+              dict(mode="sample", budget=QueryBudget(error=0.5), b_max=256,
+                   max_strata=4096, seed=5, merge="psum")]
+MESH_SCRIPT = [({"batch_slots": 2}, [
+    [{"query_id": "a", "seed": 5, "budget": (None, 0.5), "max_strata": 4096,
+      "b_max": 256},
+     {"query_id": "x", "seed": 7, "budget": (), "max_strata": 4096,
+      "b_max": 256},
+     {"query_id": "a", "seed": 8, "budget": (None, 0.5), "max_strata": 4096,
+      "b_max": 256}],
+    [{"query_id": "k", "seed": 21, "budget": (None, 0.5), "max_strata": 4096,
+      "b_max": 256, "use_kernels": True}]])]
+
+
+MESH_WORLDS = [(1, "nccl"), (2, "gloo"), (2, "nccl"), (4, "nccl")]
+
+
+def _mesh_cards(world, backend):
+    if backend == "nccl" and torch.cuda.device_count() < world:
+        pytest.skip(f"NCCL a card a rank needs {world} cards")
+
+
+def _mesh_data():
+    rng = np.random.default_rng(3)
+    return [(rng.integers(lo, hi, MESH_N).astype(np.uint32),
+             rng.normal(mu, 2, MESH_N).astype(np.float32),
+             rng.random(MESH_N) > 0.1)
+            for lo, hi, mu in ((0, 900, 10.0), (600, 1500, 5.0))]
+
+
+@pytest.mark.parametrize("world,backend", MESH_WORLDS)
+def test_mesh_join_on_card_equals_approx_join(card, tmp_path, world,
+                                              backend):
+    """distributed_approx_join on the card: the gather merge bit for bit
+    with approx_join's plain route, the psum merge within rtol 1e-5; each
+    rank's shuffled bytes what the data routes off it."""
+    import torch_dist
+    _mesh_cards(world, backend)
+    data = _mesh_data()
+    got = torch_dist.spawn(torch_dist.join_rank, world,
+                           (data, [((world, 1), ("data",))], (),
+                            MESH_JOINS), tmp_path,
+                           device="cuda", backend=backend)
+    rels = [relation(k, v, m, device=card) for k, v, m in data]
+    for case, res in zip(MESH_JOINS, got[0][0]["joins"]):
+        single = dict(max_strata=case["max_strata"], seed=case["seed"])
+        if case["mode"] == "sample":
+            single["b_max"] = case["b_max"]
+        want = _fields(approx_join(rels, case.get("budget", QueryBudget()),
+                                   **single))
+        if case.get("merge") == "psum":
+            assert np.allclose(res["surface"], want, rtol=1e-5, atol=0)
+        else:
+            assert tuple(res["surface"]) == tuple(want)
+        assert res["overflow"] == 0
+        assert res["per_rank"] == torch_dist.routed_bytes(
+            data, world, case["seed"]).tolist()
+    for r in got[1:]:
+        assert [j["surface"] for j in r[0]["joins"]] \
+            == [j["surface"] for j in got[0][0]["joins"]]
+
+
+@pytest.mark.parametrize("world,backend", MESH_WORLDS)
+def test_mesh_server_on_card_equals_meshless(card, tmp_path, world, backend):
+    """A mesh JoinServer on the card equals the meshless one bit for bit,
+    its kernel class served on rank 0 (gathered to it at 2 ranks)."""
+    import torch_dist
+    _mesh_cards(world, backend)
+    data = _mesh_data()
+    got = torch_dist.spawn(torch_dist.serve_rank, world, (data, MESH_SCRIPT),
+                           tmp_path, device="cuda", backend=backend)[0][0]
+    rels = [relation(k, v, m, device=card) for k, v, m in data]
+    want = torch_dist.run_script(JoinServer, rels, MESH_SCRIPT)[0]
+    assert [r[:5] for r in got["results"]] \
+        == [r[:5] for r in want["results"]]
+    assert got["sigma"] == want["sigma"]
+    gathered = got["snaps"][-1]["kernel_gather_bytes"]
+    assert (gathered == 0) if world == 1 else (gathered > 0)

@@ -3,11 +3,12 @@
 * ``repro_torch`` and ``chip_smoke.py`` import neither JAX nor ``repro``;
 * the card is the default device: without CUDA, building a relation with the
   default device raises instead of landing on the CPU, and so do the
-  serving launcher (sync and ``--async``) and the streaming launcher unless
-  ``--device cpu`` asks for the CPU;
+  serving launcher (sync, ``--async`` and ``--mesh``) and the streaming
+  launcher unless ``--device cpu`` asks for the CPU;
 * a CPU tensor takes a kernel's plain version and launches nothing;
 * ``chip_smoke.py`` fails, printing no result, without a card or without the
-  rest of the repository.
+  rest of the repository;
+* a program that ran mesh ranks leaves no helper process when it ends.
 """
 
 import json
@@ -49,7 +50,8 @@ def test_port_modules_import_no_jax_and_no_reference():
               "repro_torch.runtime.stream_join",
               "repro_torch.launch.join_stream", "repro_torch.core.plan",
               "repro_torch.runtime.checkpoint", "repro_torch.runtime.fault",
-              "repro_torch.runtime.async_serve"):
+              "repro_torch.runtime.async_serve",
+              "repro_torch.core.distributed", "repro_torch.launch.mesh"):
         assert m in mods, m
     code = ("import importlib, json, sys\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
@@ -111,6 +113,30 @@ def test_async_launcher_without_a_card_fails_and_serves_nothing(tmp_path):
     assert not (tmp_path / "ckpt").exists()
 
 
+def test_mesh_launcher_without_a_card_fails_and_serves_nothing():
+    """``--mesh 2`` hidden from every card raises before it starts a rank;
+    given ``--device cpu --dist-backend gloo`` it serves on two CPU ranks,
+    and NCCL on the CPU is refused, not swapped for gloo."""
+    small = ("--tenants", "1", "--queries-per-tenant", "1", "--base-n", "256")
+    out = _launch_without_a_card("repro_torch.launch.join_serve", "--mesh",
+                                 "2", *small)
+    assert out.returncode != 0
+    assert "no CUDA card" in out.stderr
+    assert "[join-serve" not in out.stdout
+    out = _launch_without_a_card("repro_torch.launch.join_serve", "--mesh",
+                                 "2", "--device", "cpu", "--dist-backend",
+                                 "nccl", *small)
+    assert out.returncode != 0
+    assert "nccl backend needs tensors on a CUDA card" in out.stderr
+    assert "[join-serve" not in out.stdout
+    out = _launch_without_a_card("repro_torch.launch.join_serve", "--mesh",
+                                 "2", "--device", "cpu", "--dist-backend",
+                                 "gloo", *small)
+    assert out.returncode == 0, out.stderr
+    assert "on mesh[2] gloo on cpu" in out.stdout
+    assert "dist_shuffled_tuple_bytes=" in out.stdout
+
+
 def test_stream_launcher_without_a_card_fails_and_streams_nothing():
     """The same for the streaming launcher."""
     out = _launch_without_a_card(
@@ -148,3 +174,44 @@ def test_chip_smoke_fails_without_card_or_repo(alone, tmp_path):
     out = _run_smoke(tmp_path if alone else ROOT)
     assert out.returncode != 0
     assert '"ok"' not in out.stdout and '"kernels"' not in out.stdout
+
+
+def test_ranks_leave_no_process_behind_their_program(tmp_path):
+    """A program that ran ranks leaves no helper process when it ends: the
+    fork server and resource tracker are stopped at exit and waited for,
+    and :func:`stop_rank_server` stops them at once, after which a new
+    spawn starts a new server."""
+    import textwrap
+
+    prog = textwrap.dedent("""
+        import os, sys
+        from multiprocessing import forkserver, resource_tracker
+        from repro_torch.launch.mesh import stop_rank_server
+        from torch_dist import spawn
+        from tests_helpers import one_rank
+        spawn(one_rank, 1, (), sys.argv[1])
+        helpers = [forkserver._forkserver._forkserver_pid,
+                   resource_tracker._resource_tracker._pid]
+        stop_rank_server()
+        for pid in helpers:
+            try:
+                os.kill(pid, 0)
+                sys.exit(f"helper {pid} still runs after stop_rank_server")
+            except ProcessLookupError:
+                pass
+        assert spawn(one_rank, 1, (), sys.argv[1]) == [1]
+        print(forkserver._forkserver._forkserver_pid,
+              resource_tracker._resource_tracker._pid)
+    """)
+    (tmp_path / "tests_helpers.py").write_text(
+        "def one_rank(mesh, dev):\n    return 1\n")
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [str(ROOT / "src"), str(ROOT / "tests"), str(tmp_path)]))
+    out = subprocess.run([sys.executable, "-c", prog, str(tmp_path)],
+                         env=env, capture_output=True, text=True,
+                         timeout=240)
+    assert out.returncode == 0, out.stderr
+    for pid in map(int, out.stdout.split()):
+        # the second server and tracker were stopped at the program's exit
+        with pytest.raises(ProcessLookupError):
+            os.kill(pid, 0)
