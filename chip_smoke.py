@@ -126,7 +126,35 @@ Phases, each of which fails the run (non-zero exit, no result line):
    shape equals its plain version on every rank and is timed.  Prints
    each join's and serving pass's time with each collective's calls,
    bytes and time (the gloo times are host staging on one card, not an
-   interconnect's).
+   interconnect's);
+11. the rest of the mesh: (a) streaming at phase 7's shape (micro-batches
+   of 2^20 rows a side of the phase-4 pair, windows of 8 sliding by one,
+   16 ticks: 9 windows a session) through three sessions of one
+   ``StreamJoinServer(mesh=...)``: K on the kernel route (its sub-window
+   filters built by the build kernel on every rank and OR-merged, its
+   windows served on rank 0), E as mesh classes in exact-parity, P under
+   psum; on mesh 1 over NCCL in this process and on 2 spawned ranks (NCCL
+   a card a rank where there are 2 cards, else gloo sharing the one card).
+   K and E must equal a meshless ``StreamJoinServer``'s windows bit for
+   bit (surfaces, draws, words), P within rtol 1e-5 of E's with its
+   buckets planned from the rolling overlap; rank 0's scatter bytes as
+   reckoned (each sub-window once for its build, each plain window once,
+   the session's model); once drained, every rank holds the words of the
+   live sub-windows and nothing else; windows/s is the steady rate, after
+   the tick of the first windows.  On the 2 ranks also (b) phase 8's
+   plan over 3 relations of 2^24 rows as mesh classes twice,
+   then on the kernel route, every node equal to a meshless server's, the
+   byte model equal, one compile; (c) phase 6's small class on a sync mesh
+   server, its snapshot with 2 rounds queued restored into a meshless
+   server (the same results), the workload through a front door of two
+   mesh servers over the same ranks (the same results), and phase 9 (b)'s
+   drill as mesh classes over 16 micro-batches, replica0 killed after its
+   second window and 2 pushes: 1 failover onto the mesh, 0 shed, every
+   window equal to the uninterrupted mesh run.  Every kernel must launch
+   in the phase's mesh runs.  Every kernel call of the phase (the
+   meshless references', mesh 1's and each rank's) keeps its operands at
+   each new shape, and after the path each is held against its plain
+   version on them on the process that made it, bit for bit.
 
 It then prints one line ``{"kernels": [...]}`` and, last,
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -2241,7 +2269,9 @@ def mesh_rank(mesh, dev, data_dir, cfg):
     from repro_torch.core import bloom
     from repro_torch.core.relation import relation, shard_to_mesh
     from repro_torch.kernels import bloom_build, bloom_probe, edge_sample
-    from repro_torch.runtime.join_serve import JoinServer, serve_mesh_worker
+    from repro_torch.runtime.join_serve import (JoinServer,
+                                                close_mesh_workers,
+                                                serve_mesh_worker)
 
     wrappers = {"bloom_build": bloom_build.bloom_build_batched,
                 "bloom_probe": bloom_probe.bloom_probe_batched,
@@ -2259,6 +2289,7 @@ def mesh_rank(mesh, dev, data_dir, cfg):
         srv = JoinServer(batch_slots=cfg["slots"], mesh=mesh)
         served = mesh_serve(torch, srv, rels, cfg)
         srv.shutdown()
+        close_mesh_workers()
     else:
         del rels
         serve_mesh_worker(mesh, dev)
@@ -2561,8 +2592,588 @@ def mesh_phase(rels, torch, wrappers, rates):
     return launches, builds
 
 
+# phase 11: the rest of the mesh.  (a) streams at phase 7's shape, (b) phase
+# 8's plan, (c) the fleet, the drill of phase 9 (b) and a restore; every
+# mesh server exact-parity unless a session says psum.  Every kernel call
+# of the phase keeps its operands at each new shape, and after the path
+# each is held against the plain version on them.
+# K first: each new sub-window's filter is built through the build kernel
+# (on every rank, OR-merged), and E and P hit the cache (the same words)
+SLICE_SESSIONS = (("K", None, True), ("E", "exact-parity", False),
+                  ("P", "psum", False))
+SLICE_FLEET_SLOTS = 4     # a replica's step: 4 plain small-class slots
+SLICE_DRILL_KILL = DRILL_KILL_WINDOWS * DRILL_SIZE + DRILL_MID_PUSHES
+KERNEL_FNS = ("bloom_build_batched", "bloom_probe_batched",
+              "edge_sample_batched")
+SLICE_TIMEOUT_S = 600
+FIELDS = ("estimate", "error_bound", "count", "dof")
+
+
+def keep_operands(torch):
+    """Route the three kernel wrappers, where the port calls them
+    (``kernels/ops.py``), through a hook that keeps a copy of the operands
+    of the first call at each shape.  Returns the kept calls and the undo;
+    launches are counted as before."""
+    from repro_torch.kernels import ops
+    kept, saved = {}, {n: getattr(ops, n) for n in KERNEL_FNS}
+
+    def hook(name, fn):
+        def call(*a):
+            key = (name,) + tuple(
+                (tuple(x.shape), x.dtype) if isinstance(x, torch.Tensor)
+                else x for x in a)
+            if key not in kept:
+                kept[key] = (name, [x.clone() if isinstance(x, torch.Tensor)
+                                    else x for x in a])
+            return fn(*a)
+        return call
+    for n, fn in saved.items():
+        setattr(ops, n, hook(n, fn))
+
+    def undo():
+        for n, fn in saved.items():
+            setattr(ops, n, fn)
+    return kept, undo
+
+
+def check_kept(torch, kept):
+    """Each kept call again through the kernel and through its plain
+    version on the same operands.  Returns per call the kernel, its shape,
+    the largest absolute difference and whether the two are equal bit for
+    bit."""
+    from repro_torch.kernels import bloom_build as kb
+    from repro_torch.kernels import bloom_probe as kp
+    from repro_torch.kernels import edge_sample as ke
+
+    out = []
+    for name, a in kept.values():
+        if name == "bloom_build_batched":
+            keys, _, nb, _ = a
+            got = [kb.bloom_build_batched(*a)]
+            want = [kb.bloom_build_ref(*a)]
+            shape = f"{keys.shape[0]} x {keys.shape[1]} keys into {nb} blocks"
+        elif name == "bloom_probe_batched":
+            words, keys, _ = a
+            got = [kp.bloom_probe_batched(*a)]
+            want = [kp.bloom_probe_ref(*a)]
+            shape = f"{keys.shape[0]} x {keys.shape[1]} keys against " \
+                    f"{words.shape[1]}-block filters"
+        else:
+            *arrays, seeds, b_max, expr = a
+            got = ke.edge_sample_batched(*arrays, seeds, b_max, expr)
+            want = ke.edge_sample_ref(*arrays, b_max, seeds, expr)
+            B, S = arrays[2].shape
+            shape = f"{B} x {S} strata over {arrays[0].shape[1]} rows, " \
+                    f"b_max {b_max}"
+        err = max((float((g.double() - w.double()).abs().max())
+                   if g.numel() else 0.0) for g, w in zip(got, want))
+        out.append(dict(kernel=name.removesuffix("_batched"), shape=shape,
+                        max_abs_err=err,
+                        equal=all(torch.equal(g, w)
+                                  for g, w in zip(got, want))))
+    return out
+
+
+def check_kept_calls(label, calls):
+    for c in calls:
+        check(c["equal"], f"slice {label}: {c['kernel']} at {c['shape']} != "
+              f"its plain version (max abs err {c['max_abs_err']})")
+    for c in calls:
+        print(f"slice kernels {label}: {c['kernel']} at {c['shape']} equals "
+              f"its plain version (max abs err {c['max_abs_err']})")
+
+
+def words_digest(words):
+    """A window's filter words, one SHA-1 a side."""
+    import hashlib
+    return [hashlib.sha1(w.cpu().numpy().tobytes()).hexdigest()
+            for w in words]
+
+
+def slice_micro_batches(rels, ticks):
+    from repro_torch.core.relation import Relation
+    return [[Relation(*(f[m * STREAM_SUB_ROWS:(m + 1) * STREAM_SUB_ROWS]
+                        for f in r)) for r in rels] for m in range(ticks)]
+
+
+def slice_stream(torch, srv, mbs, sessions):
+    """Phase 11 (a)'s sessions on ``srv``: each slides windows of
+    ``STREAM_SIZE`` sub-windows by one over ``mbs``, a SUM under
+    ``QueryBudget(error=0.01)``, one push a session and a ``run()`` a tick.
+    Returns per session its windows (surface, draws, the words' digests,
+    drops, bucket cap), its rolling overlap, the seconds and windows
+    served after the tick of the first windows (the steady rate: the
+    first window builds all its sub-windows' filters), the scatter bytes
+    and, on a mesh, each rank's relation and word ids once the stream is
+    drained and its requests dropped, with the server's word ids of the
+    live sub-windows."""
+    import gc
+
+    from repro_torch.core import distributed as D
+    from repro_torch.core.budget import QueryBudget
+    from repro_torch.core.window import WindowSpec
+
+    spec = WindowSpec(STREAM_SIZE, 1, STREAM_SUB_ROWS)
+    sess = {name: srv.open_stream(
+        name, spec, budget=QueryBudget(error=0.01), max_strata=MAX_STRATA,
+        b_max=B_MAX, seed=SEED, serve_mode=mode, use_kernels=kernels)
+        for name, mode, kernels in sessions}
+    out = {name: [] for name in sess}
+    dev = mbs[0][0].keys.device
+    sent = D.COMM.bytes["scatter"]
+    t0, steady = None, 0
+    for mb in mbs:
+        for s in sess.values():
+            s.push(mb)
+        srv.run()
+        served = 0
+        for name, s in sess.items():
+            # plain values only: a served window's request holds its rows
+            done = s.drain()
+            served += len(done)
+            out[name] += [dict(
+                w=r.window_id, surface=surface(r.result),
+                n_sampled=r.result.stats.n_sampled.cpu().numpy(),
+                words=words_digest(r._words),
+                dropped=float(r.result.diagnostics.dist_dropped_tuples),
+                cap=r._class.bucket_cap) for r in done]
+        if t0 is not None:
+            steady += served
+        elif served:
+            torch.cuda.synchronize(dev) if dev.type == "cuda" else None
+            t0 = time.perf_counter()
+    torch.cuda.synchronize(dev) if dev.type == "cuda" else None
+    got = dict(windows=out, seconds=time.perf_counter() - t0, steady=steady,
+               ewma={n: s.overlap_ewma for n, s in sess.items()},
+               scattered=D.COMM.bytes["scatter"] - sent,
+               model={n: s.window_scatter_bytes_model()
+                      for n, s in sess.items()},
+               diag=srv.diagnostics.snapshot())
+    if srv.mesh is not None:
+        del sess, s, done
+        gc.collect()
+        got["live"] = srv.mesh_state()
+        got["word_ids"] = sorted(srv._word_ids.values())
+    return got
+
+
+def slice_plan(srv, dev):
+    """Phase 11 (b): phase 8's plan over ``ROWS``-row relations A, B and C
+    on ``srv``: twice as mesh classes, then once on the kernel
+    route.  Returns each submission's node surfaces, the compiled byte
+    model and the plan cache's compiles and hits."""
+    from repro_torch.core.budget import QueryBudget
+    from repro_torch.data.synthetic import overlapping_relations
+
+    rels = overlapping_relations([ROWS] * 3, 0.1,
+                                 keys_per_dataset=KEYS_PER_DATASET, lam=10,
+                                 seed=SEED, device=dev)
+    for name, r in zip("ABC", rels):
+        srv.register_dataset(name, [r])
+    plan = make_plan(QueryBudget(error=0.01))
+    subs = []
+    t0 = time.perf_counter()
+    for i, kernels in enumerate((False, False, True)):
+        h = srv.submit_plan(plan, query_id=f"S{i}", seed=5 + i,
+                            use_kernels=kernels)
+        srv.run()
+        subs.append({n: surface(r) for n, r in h.results().items()})
+    return dict(nodes=subs, model=srv.compile_plan(plan).bytes_model,
+                compiles=srv.diagnostics.plan_compiles,
+                hits=srv.diagnostics.plan_cache_hits,
+                seconds=time.perf_counter() - t0)
+
+
+def slice_small(dev):
+    from repro_torch.data.synthetic import overlapping_relations
+    return {f"s{t}": overlapping_relations(
+        [SMALL_ROWS, SMALL_ROWS], 0.1, keys_per_dataset=SMALL_KEYS, lam=10,
+        seed=t, device=dev) for t in range(SMALL_TENANTS)}
+
+
+def slice_requests(rounds):
+    from repro_torch.runtime.join_serve import JoinRequest
+    return [JoinRequest(dataset=ds, budget=b, query_id=q, seed=s,
+                        max_strata=SMALL_STRATA, b_max=B_MAX)
+            for ds, (q, b, s) in small_spec(rounds)]
+
+
+def slice_fleet(torch, mesh, dev):
+    """Phase 11 (c), the fleet: phase 6's small class as mesh classes on a
+    sync mesh server (rounds 0-1 served, rounds 2-3 queued and
+    snapshotted, then served), the snapshot restored into a meshless
+    server on the card and served, and the whole workload through a front
+    door of two mesh servers over the same ranks.  Returns the three's
+    surfaces and the fleet's q/s."""
+    from repro_torch.runtime.async_serve import AsyncJoinFrontDoor
+    from repro_torch.runtime.join_serve import JoinServer
+
+    small = slice_small(dev)
+    srv = JoinServer(batch_slots=SLICE_FLEET_SLOTS, mesh=mesh)
+    for name, r in small.items():
+        srv.register_dataset(name, r)
+    first = [srv.submit(q) for q in slice_requests(range(2))]
+    srv.run()
+    later = [srv.submit(q) for q in slice_requests(range(2, SMALL_ROUNDS))]
+    flat, meta = srv.snapshot_state()
+    srv.run()
+    sync = [surface(q.result) for q in first + later]
+    srv.shutdown()
+    flat = {k: v.cpu().numpy() for k, v in flat.items()}
+    dst = JoinServer(batch_slots=SLICE_FLEET_SLOTS)
+    restored = dst.restore_state(flat, meta, device=dev)
+    dst.run()
+    fd = AsyncJoinFrontDoor(replicas=2, device=dev, engine_factory=lambda i:
+                            JoinServer(batch_slots=SLICE_FLEET_SLOTS,
+                                       mesh=mesh))
+    try:
+        for name, r in small.items():
+            fd.register_dataset(name, r)
+        torch.cuda.synchronize() if dev.type == "cuda" else None
+        t0 = time.perf_counter()
+        futs = [fd.submit(q) for q in slice_requests(range(SMALL_ROUNDS))]
+        reqs = [f.result(timeout=SLICE_TIMEOUT_S) for f in futs]
+        dt = time.perf_counter() - t0
+        steals = fd.steals
+    finally:
+        fd.close(timeout=120)
+    return dict(sync=sync, restored=[surface(q.result) for q in restored],
+                later=[surface(q.result) for q in later],
+                fleet=[surface(q.result) for q in reqs], seconds=dt,
+                steals=steals)
+
+
+def slice_drill(torch, mesh, rels):
+    """Phase 11 (c), the drill: phase 9 (b)'s tumbling windows as mesh
+    classes, an uninterrupted run on a sync mesh StreamJoinServer, then two
+    mesh-server replicas checkpointing, replica0 killed after its second
+    window and 2 more pushes; the successor restores onto the mesh."""
+    from repro_torch.core.budget import QueryBudget
+    from repro_torch.core.window import WindowSpec
+    from repro_torch.runtime.async_serve import AsyncJoinFrontDoor
+    from repro_torch.runtime.fault import InjectedFault
+    from repro_torch.runtime.stream_join import StreamJoinServer
+
+    spec = WindowSpec(DRILL_SIZE, DRILL_SIZE, STREAM_SUB_ROWS)
+    mbs = slice_micro_batches(rels, STREAM_TICKS)
+    kw = dict(budget=QueryBudget(error=0.01), max_strata=MAX_STRATA,
+              b_max=B_MAX, seed=SEED)
+
+    def engine():
+        return StreamJoinServer(batch_slots=STREAM_SLOTS, mesh=mesh)
+    base = engine()
+    bsess = base.open_stream("D", spec, **kw)
+    for mb in mbs:
+        bsess.push(mb)
+        base.run()
+    baseline = {r.window_id: surface(r.result) for r in bsess.drain()}
+    base.shutdown()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_ckpt11_")
+    out = {}
+    try:
+        fd = AsyncJoinFrontDoor(
+            replicas=2, checkpoint_dir=tmp, device=rels[0].keys.device,
+            checkpoint_every_s=DRILL_CHECKPOINT_EVERY_S,
+            engine_factory=lambda i: engine())
+        try:
+            rep, _ = fd.open_stream("D", spec, **kw)
+            futs = [f for t in range(SLICE_DRILL_KILL)
+                    for f in fd.push("D", mbs[t])]
+            for f in futs:
+                r = f.result(timeout=SLICE_TIMEOUT_S)
+                out[r.window_id] = surface(r.result)
+            rep.call(lambda: None).result(timeout=60)
+            deadline = time.monotonic() + 60
+            while rep._dirty and time.monotonic() < deadline:
+                time.sleep(0.01)
+            rep.kill_after(0)
+            rep._thread.join(60)
+            died = not rep._thread.is_alive() \
+                and isinstance(rep.error, InjectedFault)
+            fd.maybe_failover()
+            for t in range(SLICE_DRILL_KILL, STREAM_TICKS):
+                for f in fd.push("D", mbs[t]):
+                    r = f.result(timeout=SLICE_TIMEOUT_S)
+                    out[r.window_id] = surface(r.result)
+            succ = next(r for r in fd.replicas if r.error is None)
+            shed = succ.call(
+                lambda: succ.engine.stream_diagnostics.windows_shed).result(
+                    timeout=60)
+            failovers, ckpts = fd.failovers, rep.stats["checkpoints"]
+            dead_stopped = rep.engine._ranks is None
+        finally:
+            fd.close(timeout=120)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return dict(baseline=baseline, out=out, shed=shed, failovers=failovers,
+                died=died, checkpoints=ckpts, dead_stopped=dead_stopped)
+
+
+def slice_rank(mesh, dev, data_dir, cfg):
+    """One rank of phase 11's 2-rank mesh: rank 0 streams (a), serves the
+    plan (b), the fleet and the drill (c) on mesh servers, the others
+    serve them; then each rank holds the kernel calls it made at each
+    shape against the plain versions.  Returns rank 0's results (the
+    others' worker reports), this rank's kernel launches and its kept
+    calls' checks."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.core.relation import relation
+    from repro_torch.kernels import bloom_build, bloom_probe, edge_sample
+    from repro_torch.runtime.join_serve import (JoinServer,
+                                                close_mesh_workers,
+                                                serve_mesh_worker)
+    from repro_torch.runtime.stream_join import StreamJoinServer
+
+    globals().update(cfg)          # the sizes a rehearsal shrinks
+    wrappers = {"bloom_build": bloom_build.bloom_build_batched,
+                "bloom_probe": bloom_probe.bloom_probe_batched,
+                "edge_sample": edge_sample.edge_sample_batched}
+    for w in wrappers.values():
+        w.launches = 0
+    kept, undo = keep_operands(torch)
+    if dist.get_rank() != 0:
+        report = serve_mesh_worker(mesh, dev)
+        undo()
+        return dict(worker=report,
+                    launches={n: w.launches for n, w in wrappers.items()},
+                    kernels=check_kept(torch, kept))
+    try:
+        rels = [relation(*(np.load(os.path.join(data_dir, f"{i}_{f}.npy"))
+                           for f in ("keys", "values", "valid")), device=dev)
+                for i in range(2)]
+        srv = StreamJoinServer(batch_slots=STREAM_SLOTS,
+                               window_slots=STREAM_WINDOW_SLOTS, mesh=mesh)
+        stream = slice_stream(torch, srv, slice_micro_batches(
+            rels, STREAM_TICKS), SLICE_SESSIONS)
+        srv.shutdown()
+        srv = JoinServer(batch_slots=SERVE_SLOTS, mesh=mesh)
+        plan = slice_plan(srv, dev)
+        plan["gathered"] = srv.host_gather_bytes
+        srv.shutdown()
+        t0 = time.perf_counter()
+        fleet = slice_fleet(torch, mesh, dev)
+        drill = slice_drill(torch, mesh, rels)
+        fleet_s = time.perf_counter() - t0
+    finally:
+        close_mesh_workers()
+        undo()
+    launches = {n: w.launches for n, w in wrappers.items()}
+    del rels, srv
+    return dict(stream=stream, plan=plan, fleet=fleet, drill=drill,
+                fleet_s=fleet_s, launches=launches,
+                kernels=check_kept(torch, kept))
+
+
+def check_slice_stream(label, got, want, k, note):
+    """A mesh stream against the meshless one: E and K bit for bit (draws
+    and words too), P within rtol 1e-5 of E with its buckets planned from
+    the rolling overlap and its drops counted; the ranks hold the words of
+    the live sub-windows only; the scatter bytes as reckoned."""
+    windows = got["windows"]
+    n_win = len(want["windows"]["E"])
+    for name in ("E", "K"):
+        check(len(windows[name]) == n_win, f"slice {label} {name}: "
+              f"{len(windows[name])} windows, want {n_win}")
+        for g, w in zip(windows[name], want["windows"][name]):
+            check(g["surface"] == w["surface"]
+                  and np.array_equal(g["n_sampled"], w["n_sampled"])
+                  and g["words"] == w["words"],
+                  f"slice {label} {name} window {g['w']}: {g['surface']} != "
+                  f"the meshless stream's {w['surface']}")
+    drops = [g["dropped"] for g in windows["P"]]
+    for g, w in zip(windows["P"], want["windows"]["E"]):
+        if g["dropped"] == 0:
+            check(rtol_ok(g["surface"], w["surface"]),
+                  f"slice {label} P window {g['w']}: {g['surface']} not "
+                  f"within rtol 1e-5 of {w['surface']}")
+    ewma = got["ewma"]["P"]
+    caps = [g["cap"] for g in windows["P"]]
+    check(ewma is not None and ewma < 1.0 and caps[-1] < caps[0]
+          if k > 1 else ewma is not None,
+          f"slice {label} P: overlap_ewma {ewma}, bucket caps {caps}")
+    d = got["diag"]
+    check(d["kernel_queries"] == n_win, f"slice {label}: kernel windows "
+          f"{d['kernel_queries']}")
+    check(d["kernel_gather_bytes"] == 0, f"slice {label}: the kernel "
+          f"windows gathered {d['kernel_gather_bytes']} B")
+    subs = (n_win - 1) + STREAM_SIZE
+    sub_b = 2 * 12 * STREAM_SUB_ROWS * (k - 1) // k * subs
+    model = got["model"]
+    want_b = sub_b + n_win * (model["E"] + model["P"])
+    check(got["scattered"] == want_b, f"slice {label}: scattered "
+          f"{got['scattered']} B, reckoned {want_b}")
+    live = got["live"]
+    check(len(got["word_ids"]) == 2 * (STREAM_SIZE - 1)
+          and all(w == got["word_ids"] and not r for r, w in live),
+          f"slice {label}: the ranks hold {live}, the live sub-windows "
+          f"{got['word_ids']}")
+    wps = got["steady"] / got["seconds"]
+    print(f"slice stream {label}{note}: {3 * n_win} windows of "
+          f"{STREAM_SIZE} x {STREAM_SUB_ROWS} rows a side, the "
+          f"{got['steady']} after the first tick in {got['seconds']:.3f} s = "
+          f"{wps:.3f} windows/s; E and K bit for "
+          f"bit with the meshless stream, P within rtol 1e-5 (drops "
+          f"{drops}, overlap_ewma {ewma!r}, bucket caps {caps})")
+    print(f"slice stream {label}: scatter {model['E']:.0f} B a plain window "
+          f"(the model), {sub_b / subs:.0f} B a sub-window build; "
+          f"{got['scattered']} B in all as reckoned; after the last retire "
+          f"the ranks hold word ids {got['word_ids']} "
+          f"({len(got['word_ids'])} = {STREAM_SIZE - 1} live sub-windows x "
+          f"2 sides) and no relation")
+    return wps
+
+
+def slice_phase(rels, torch, wrappers):
+    """Phase 11: the rest of the mesh.  (a) the streaming sessions at phase
+    7's shape against a meshless StreamJoinServer, on mesh 1 over NCCL in
+    this process and on 2 spawned ranks (NCCL a card a rank where there
+    are 2 cards, else gloo sharing the one card); (b) the plan, (c) the
+    fleet, a restore into a meshless server and the drill on the 2 ranks.
+    Every kernel call of the phase is held against its plain version at
+    each shape it took.  Returns each kernel's launches in the phase's
+    mesh runs, and those checks."""
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import (init_ranks, make_host_mesh,
+                                         run_ranks, stop_rank_server)
+    from repro_torch.runtime.join_serve import JoinServer
+    from repro_torch.runtime.stream_join import StreamJoinServer
+
+    t_phase = time.perf_counter()
+    dev = rels[0].keys.device
+    card = dev.type == "cuda"
+    mbs = slice_micro_batches(rels, STREAM_TICKS)
+    kept, undo = keep_operands(torch)
+    # -- the meshless references -------------------------------------------
+    want = slice_stream(torch, StreamJoinServer(
+        batch_slots=STREAM_SLOTS, window_slots=STREAM_WINDOW_SLOTS), mbs,
+        [s for s in SLICE_SESSIONS if s[0] != "P"])
+    print(f"slice: the meshless stream, {len(want['windows']['E'])} windows "
+          f"a session, {want['steady']} after the first tick in "
+          f"{want['seconds']:.3f} s = "
+          f"{want['steady'] / want['seconds']:.3f} windows/s")
+    plan_want = slice_plan(JoinServer(batch_slots=SERVE_SLOTS), dev)
+    for w in wrappers.values():
+        w.launches = 0
+    # -- (a) mesh 1 over NCCL, this process ----------------------------------
+    tmp = tempfile.mkdtemp(prefix="mesh11-")
+    init_ranks(0, 1, backend="nccl" if card else "gloo", device=dev,
+               store_path=os.path.join(tmp, "store"),
+               timeout_s=MESH_TIMEOUT_S)
+    try:
+        srv = StreamJoinServer(batch_slots=STREAM_SLOTS,
+                               window_slots=STREAM_WINDOW_SLOTS,
+                               mesh=make_host_mesh(1, 1))
+        one = slice_stream(torch, srv, mbs, SLICE_SESSIONS)
+        srv.shutdown()
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(tmp, ignore_errors=True)
+        undo()
+    launches = {n: w.launches for n, w in wrappers.items()}
+    wps = {1: check_slice_stream("1/nccl" if card else "1/gloo", one, want,
+                                 1, "")}
+    # the kernel calls of the references and of mesh 1, against plain
+    calls = check_kept(torch, kept)
+    check_kept_calls("this process", calls)
+    del kept
+    # -- 2 ranks: (a), (b) and (c) ---------------------------------------------
+    if card:
+        torch.cuda.empty_cache()
+    nccl = card and torch.cuda.device_count() >= 2
+    backend = "nccl" if nccl else "gloo"
+    note = " (nccl, a card a rank)" if nccl else \
+        " (gloo through the host, one card)" if card else " (gloo, CPU)"
+    cfg = {k: globals()[k] for k in (
+        "ROWS", "KEYS_PER_DATASET", "MAX_STRATA", "B_MAX", "SERVE_SLOTS",
+        "SMALL_ROWS", "SMALL_KEYS", "SMALL_STRATA", "STREAM_SUB_ROWS",
+        "STREAM_TICKS")}
+    try:
+        with tempfile.TemporaryDirectory(prefix="mesh11-data-") as data_dir:
+            for i, r in enumerate(rels):
+                np.save(os.path.join(data_dir, f"{i}_keys.npy"),
+                        r.keys.cpu().numpy().astype(np.uint32))
+                np.save(os.path.join(data_dir, f"{i}_values.npy"),
+                        r.values.cpu().numpy())
+                np.save(os.path.join(data_dir, f"{i}_valid.npy"),
+                        r.valid.cpu().numpy())
+            t0 = time.perf_counter()
+            ranks = run_ranks(slice_rank, 2, (data_dir, cfg),
+                              backend=backend, device=dev.type,
+                              timeout_s=SLICE_TIMEOUT_S)
+            spawn_s = time.perf_counter() - t0
+    finally:
+        stop_rank_server()
+    label = f"2/{backend}"
+    got = ranks[0]
+    for r in ranks:
+        for n, c in r["launches"].items():
+            launches[n] += c
+    check(all(r["worker"].open == () for r in ranks[1:]),
+          f"slice {label}: a worker still held a server's state at close")
+    for i, r in enumerate(ranks):
+        check_kept_calls(f"{label} rank {i}", r["kernels"])
+        calls += r["kernels"]
+    wps[2] = check_slice_stream(label, got["stream"], want, 2, note)
+    # (b) the plan
+    plan = got["plan"]
+    for i, (g, w) in enumerate(zip(plan["nodes"], plan_want["nodes"])):
+        check(g == w, f"slice {label} plan submission {i}: {g} != the "
+              f"meshless server's {w}")
+    check(plan["model"] == plan_want["model"],
+          f"slice {label}: the compiled byte model differs from the "
+          f"meshless one")
+    check((plan["compiles"], plan["hits"]) == (plan_want["compiles"],
+                                               plan_want["hits"]) == (1, 3),
+          f"slice {label}: plan compiles/hits {plan['compiles']}/"
+          f"{plan['hits']}, meshless {plan_want['compiles']}/"
+          f"{plan_want['hits']}")
+    print(f"slice plan {label}{note}: 3 submissions (mesh classes twice, "
+          f"then the kernel route) of 2 nodes over 3 x {ROWS} rows in "
+          f"{plan['seconds']:.3f} s, every node bit for bit with the "
+          f"meshless server's; byte model equal; 1 compile, then 3 cache "
+          f"hits; the model's rows gathered once: {plan['gathered']:.0f} B")
+    # (c) the fleet, the restore and the drill
+    fleet = got["fleet"]
+    check(fleet["fleet"] == fleet["sync"], f"slice {label}: the mesh "
+          f"fleet's results != the sync mesh server's")
+    check(fleet["restored"] == fleet["later"], f"slice {label}: the "
+          f"meshless server restored from the mesh's snapshot served "
+          f"{fleet['restored']} != {fleet['later']}")
+    n_fleet = len(fleet["fleet"])
+    print(f"slice fleet {label}{note}: {n_fleet} small-class requests "
+          f"through 2 mesh-server replicas in {fleet['seconds']:.3f} s = "
+          f"{n_fleet / fleet['seconds']:.3f} q/s (steals {fleet['steals']}),"
+          f" bit for bit with the sync mesh server; its snapshot of "
+          f"{len(fleet['later'])} queued requests restored into a meshless "
+          f"server served them bit for bit")
+    drill = got["drill"]
+    n_win = STREAM_TICKS // DRILL_SIZE
+    check(drill["died"] and drill["failovers"] == 1 and drill["shed"] == 0
+          and drill["dead_stopped"],
+          f"slice {label} drill: died {drill['died']}, failovers "
+          f"{drill['failovers']}, shed {drill['shed']}, dead server "
+          f"stopped {drill['dead_stopped']}")
+    check(sorted(drill["out"]) == sorted(drill["baseline"])
+          == list(range(n_win)) and drill["out"] == drill["baseline"],
+          f"slice {label} drill: windows {drill['out']} != the "
+          f"uninterrupted run's {drill['baseline']}")
+    print(f"slice drill {label}{note}: replica0 killed after "
+          f"{DRILL_KILL_WINDOWS} of {n_win} windows and {DRILL_MID_PUSHES} "
+          f"pushes, {drill['checkpoints']} "
+          f"checkpoints; 1 failover onto the mesh, 0 shed, every window "
+          f"bit for bit with the uninterrupted mesh run; the fleet, restore "
+          f"and drill took {got['fleet_s']:.1f} s")
+    print(f"slice: windows/s by mesh size {wps} (mesh 2{note}); the 2 ranks "
+          f"ran in {spawn_s:.1f} s; launches {launches}; phase 11 took "
+          f"{time.perf_counter() - t_phase:.1f} s")
+    for name, n in launches.items():
+        check(n > 0, f"slice: {name} never launched in phase 11")
+    return launches, calls
+
+
 def main() -> int:
-    """Phases 1-10."""
+    """Phases 1-11."""
     t_start = time.perf_counter()
     import torch
 
@@ -2674,7 +3285,13 @@ def main() -> int:
             ln["mesh_shape"] = {str(k): {f: b[f] for f in (
                 "keys", "num_blocks", "ms", "plain_ms", "bound_ms",
                 "bound_by")} for k, b in builds.items()}
-    print(f"chip_smoke: phases 1-10 took {time.perf_counter() - t_start:.1f} s")
+    # --- phase 11: the rest of the mesh -------------------------------------
+    sliced, calls = slice_phase(rels, torch, wrappers)
+    for ln in lines:
+        ln["phase11_launches"] = sliced[ln["name"]]
+        ln["phase11_shapes"] = sorted({c["shape"] for c in calls
+                                       if c["kernel"] == ln["name"]})
+    print(f"chip_smoke: phases 1-11 took {time.perf_counter() - t_start:.1f} s")
 
     print(json.dumps({"kernels": lines}))
     print(json.dumps({"ok": True, "device": {

@@ -108,14 +108,16 @@ class WindowBuffer:
         return due, expired
 
 
-def window_relations(subs: Sequence[SubWindow]) -> list[Relation]:
+def window_relations(subs: Sequence[SubWindow],
+                     minimum: int = 1) -> list[Relation]:
     """Assemble a window's per-side relations from its sub-windows.
 
     Concatenation order is arrival order; the result is padded to the
-    window's pow2 capacity bucket (invalid padding rows), so every window of
-    a given spec lands in ONE serving shape class.
+    window's pow2 capacity bucket (invalid padding rows), at least
+    ``minimum`` rows (a mesh server's size), so every window of a given spec
+    lands in ONE serving shape class.
     """
     n_sides = len(subs[0].rels)
-    cap = bucket_capacity(len(subs) * subs[0].rels[0].capacity)
+    cap = bucket_capacity(len(subs) * subs[0].rels[0].capacity, minimum)
     return [pad_to(concatenate([s.rels[side] for s in subs]), cap)
             for side in range(n_sides)]

@@ -30,10 +30,18 @@ Usage:
   # memory)
   PYTHONPATH=src python -m repro_torch.launch.join_serve --mesh 1
 
+  # the async fleet on a mesh: both replicas mesh servers over the same
+  # 2 ranks, and its fault drill (the successor restores onto the mesh)
+  PYTHONPATH=src python -m repro_torch.launch.join_serve --device cpu \
+      --async --mesh 2 --dist-backend gloo \
+      --checkpoint-dir "$TMPDIR/ckpt" --kill-after 2
+
 It serves on the CUDA card unless ``--device cpu`` asks for the CPU, and
 fails without a card rather than fall back to the CPU.  With ``--mesh N``
-it starts N ranks (``launch/mesh.run_ranks``): rank 0 serves the tenants'
-queries as mesh classes, the others run the server's worker loop.
+it starts N ranks (``launch/mesh.run_on_mesh``): rank 0 serves the tenants'
+queries as mesh classes (through the async fleet with ``--async``, every
+replica a mesh server over the same ranks), the others run the servers'
+worker loop.
 """
 
 from __future__ import annotations
@@ -41,30 +49,17 @@ from __future__ import annotations
 import argparse
 import time
 
-import torch
 import torch.distributed as dist
 
 from repro_torch.core.budget import QueryBudget
 from repro_torch.core.cost import CostModel, sync
 from repro_torch.data.synthetic import overlapping_relations
-from repro_torch.launch.mesh import backend_for, run_ranks
+from repro_torch.launch.mesh import check_device, run_on_mesh
 from repro_torch.runtime.async_serve import AsyncJoinFrontDoor
-from repro_torch.runtime.join_serve import (JoinRequest, JoinServer,
-                                            serve_mesh_worker)
+from repro_torch.runtime.join_serve import JoinRequest, JoinServer
 from repro_torch.runtime.telemetry import (Tracer, dump_chrome_trace,
                                            format_reconciliation,
                                            reconciliation_report)
-
-
-def _check_device(device: str) -> str:
-    """The device's name for the report; raises without a card unless the
-    caller asked for the CPU."""
-    if torch.device(device).type != "cuda":
-        return "cpu"
-    if not torch.cuda.is_available():
-        raise RuntimeError("join_serve: no CUDA card; pass --device cpu to "
-                           "serve on the CPU")
-    return torch.cuda.get_device_name(torch.device(device))
 
 
 def run(*, tenants: int = 4, queries_per_tenant: int = 8, slots: int = 4,
@@ -73,7 +68,7 @@ def run(*, tenants: int = 4, queries_per_tenant: int = 8, slots: int = 4,
         serve_mode: str = "exact-parity") -> dict:
     """Serve the tenants' workload: on the kernel route, or with ``mesh``
     (on its rank 0) as mesh classes merged by ``serve_mode``."""
-    where = _check_device(device)
+    where = check_device(device, "join_serve")
     tracer = Tracer(enabled=True) if trace_out else None
     server = JoinServer(batch_slots=slots,
                         cost_model=CostModel(beta_compute=1e-7, epsilon=1e-3),
@@ -133,29 +128,12 @@ def run(*, tenants: int = 4, queries_per_tenant: int = 8, slots: int = 4,
             **d.snapshot()}
 
 
-def _mesh_rank(mesh, device, kw: dict):
-    if dist.get_rank() != 0:
-        return serve_mesh_worker(mesh, device)
-    return run(mesh=mesh, device=str(device), **kw)
-
-
-def run_mesh(n: int, *, device: str = "cuda",
-             dist_backend: str | None = None, **kw) -> dict:
-    """:func:`run` on a mesh of ``n`` ranks over ``dist_backend`` (NCCL on
-    the card unless ``'gloo'`` is asked for, gloo on the CPU); returns rank
-    0's report.  Without a card it fails before it starts a rank, unless
-    ``device`` is the CPU."""
-    _check_device(device)
-    backend = backend_for(device, dist_backend)
-    return run_ranks(_mesh_rank, n, (kw,), backend=backend,
-                     device=device, timeout_s=600)[0]
-
-
 def run_async(*, tenants: int = 4, queries_per_tenant: int = 8,
               slots: int = 4, base_n: int = 1 << 12, seed: int = 0,
               replicas: int = 2, device: str = "cuda",
               checkpoint_dir: str | None = None, kill_after: int = 0,
-              trace_out: str | None = None) -> dict:
+              trace_out: str | None = None, mesh=None,
+              serve_mode: str = "exact-parity") -> dict:
     """The same tenant workload through the always-on async tier: replica
     event loops with continuous batching behind a work-stealing front door
     (``runtime/async_serve.py``); submissions return futures immediately.
@@ -166,13 +144,16 @@ def run_async(*, tenants: int = 4, queries_per_tenant: int = 8,
     and a successor adopts its tenants from the newest checkpoint.  Futures
     that were in flight on the dead replica fail with the injected fault
     (counted below); their requests are re-served from the checkpoint by
-    the successor."""
-    where = _check_device(device)
+    the successor.  With ``mesh`` (on its rank 0) every replica is a mesh
+    server over its ranks, serving the queries as mesh classes merged by
+    ``serve_mode``, and the successor restores onto the mesh."""
+    where = check_device(device, "join_serve")
 
     def factory(i: int) -> JoinServer:
         return JoinServer(batch_slots=slots,
                           cost_model=CostModel(beta_compute=1e-7,
-                                               epsilon=1e-3))
+                                               epsilon=1e-3),
+                          mesh=mesh, serve_mode=serve_mode)
 
     budgets = [QueryBudget(error=0.5), QueryBudget(latency_s=0.5),
                QueryBudget()]
@@ -187,16 +168,20 @@ def run_async(*, tenants: int = 4, queries_per_tenant: int = 8,
             fd.register_dataset(f"tenant{t}", rels)
         t0 = time.perf_counter()
         if kill_after:
-            # arm before submitting: the drill must fire mid-workload, not
-            # race a drained queue (work stealing can empty replica0 fast)
+            # arm before submitting, and steal nothing until the failover:
+            # the first submission routes to replica0, which then keeps its
+            # tenant's queries (a repeat of a query id waits for the next
+            # step) and dies at its Nth step whatever the timing, given
+            # --queries-per-tenant >= N
             fd.replicas[0].kill_after(kill_after)
+            fd.work_stealing = False
         futs = []
         for q in range(queries_per_tenant):
             for t in range(tenants):   # interleave tenants (worst case)
                 futs.append(fd.submit(JoinRequest(
                     dataset=f"tenant{t}", budget=budgets[t % len(budgets)],
                     query_id=f"tenant{t}/agg", seed=seed + q,
-                    max_strata=2048, b_max=512, use_kernels=True)))
+                    max_strata=2048, b_max=512, use_kernels=mesh is None)))
         reqs, killed = [], 0
         for f in futs:
             try:
@@ -205,6 +190,7 @@ def run_async(*, tenants: int = 4, queries_per_tenant: int = 8,
                 killed += 1
         if kill_after:
             fd.maybe_failover()
+            fd.work_stealing = True
             # re-served-from-checkpoint requests carry no caller futures:
             # wait for the successor to drain its adopted queue
             deadline = time.monotonic() + 600
@@ -216,6 +202,9 @@ def run_async(*, tenants: int = 4, queries_per_tenant: int = 8,
         snap = fd.snapshot()
 
     qps = len(reqs) / max(dt, 1e-9)
+    if mesh is not None:
+        where = f"mesh[{fd.replicas[0].engine.mesh_k}] " \
+            f"{dist.get_backend()} on {where}"
     # the live replicas' count: a successor's restored counters carry the
     # queries the dead replica served before its last checkpoint
     served = sum(rd["queries"] for name, rd in snap["replicas"].items()
@@ -296,15 +285,16 @@ def main() -> None:
                   queries_per_tenant=args.queries_per_tenant,
                   slots=args.slots, base_n=args.base_n, device=args.device,
                   trace_out=args.trace_out)
-    if args.mesh and args.async_:
-        ap.error("--mesh serves through the step loop, not --async")
-    if args.async_:
-        run_async(replicas=args.replicas, checkpoint_dir=args.checkpoint_dir,
-                  kill_after=args.kill_after, **common)
-    elif args.mesh:
+    fleet = dict(replicas=args.replicas, checkpoint_dir=args.checkpoint_dir,
+                 kill_after=args.kill_after) if args.async_ else {}
+    if args.mesh:
         device = common.pop("device")
-        run_mesh(args.mesh, device=device, dist_backend=args.dist_backend,
-                 serve_mode=args.serve_mode, **common)
+        run_on_mesh(run_async if args.async_ else run, args.mesh,
+                    dict(serve_mode=args.serve_mode, **common, **fleet),
+                    device=device, dist_backend=args.dist_backend,
+                    who="join_serve")
+    elif args.async_:
+        run_async(**fleet, **common)
     else:
         run(**common)
 

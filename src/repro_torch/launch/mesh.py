@@ -50,6 +50,18 @@ def backend_for(device, dist_backend: Optional[str] = None) -> str:
     return dist_backend
 
 
+def check_device(device, who: str) -> str:
+    """The name of ``device`` for a launcher's report.  Raises without a
+    card unless the caller asked for the CPU: a launcher never falls back
+    to it."""
+    if torch.device(device).type != "cuda":
+        return "cpu"
+    if not torch.cuda.is_available():
+        raise RuntimeError(f"{who}: no CUDA card; pass --device cpu to run "
+                           f"on the CPU")
+    return torch.cuda.get_device_name(torch.device(device))
+
+
 def init_ranks(rank: int, world: int, *, backend: str, device,
                store_path: str, timeout_s: float) -> torch.device:
     """Join the default process group as ``rank`` of ``world``; returns the
@@ -214,6 +226,32 @@ def run_ranks(fn: Callable, world: int, args: tuple = (), *,
                 p.kill()
             p.join(timeout=60)
         shutil.rmtree(tmp, ignore_errors=True)
+
+
+def _serve_from_rank0(mesh, device, fn, kw):
+    from repro_torch.runtime.join_serve import (close_mesh_workers,
+                                                serve_mesh_worker)
+    if dist.get_rank() != 0:
+        return serve_mesh_worker(mesh, device)
+    try:
+        return fn(mesh=mesh, device=str(device), **kw)
+    finally:
+        close_mesh_workers()
+
+
+def run_on_mesh(fn: Callable, world: int, kw: dict, *, device="cuda",
+                dist_backend: Optional[str] = None, who: str,
+                timeout_s: float = 600.0):
+    """A launcher's ``fn(mesh=..., device=..., **kw)`` on rank 0 of
+    ``world`` new ranks over ``dist_backend`` (NCCL on the card unless
+    ``'gloo'`` is asked for, gloo on the CPU), the other ranks running the
+    mesh servers' worker loop until rank 0 closes it; returns rank 0's
+    result.  Without a card it fails before it starts a rank, unless
+    ``device`` is the CPU."""
+    check_device(device, who)
+    backend = backend_for(device, dist_backend)
+    return run_ranks(_serve_from_rank0, world, (fn, kw), backend=backend,
+                     device=device, timeout_s=timeout_s)[0]
 
 
 def _end_helper(pid: Optional[int], alive_fd: Optional[int],

@@ -4,8 +4,10 @@ continuous batching, and a tenant-sharded multi-replica front door.
 The engine (``runtime/join_serve.py``) is caller-driven: nothing happens
 between ``step()`` calls, so a query's queue latency is however long the
 driver sleeps, not however long the engine needs.  This module, the port of
-the JAX package's ``runtime/async_serve.py`` without its mesh, closes that
-gap the way LLM serving engines do:
+the JAX package's ``runtime/async_serve.py``, closes that
+gap the way LLM serving engines do (on one device or on a mesh: the
+replicas may be mesh servers over the same ranks, each its own server id,
+whose operations the mesh lock of ``runtime/join_serve.py`` serialises):
 
 * :class:`AsyncJoinServer` runs ONE engine on a dedicated event-loop
   thread.  ``submit()`` is ingestion only — it appends to a lock-protected
@@ -44,7 +46,16 @@ Devices: a replica's batches run where its relations lie, and every
 replica's loop thread launches on the device's current stream: all
 replicas of one card share that one stream, so no result crosses streams.
 A failover successor restores a dead replica's checkpoint onto the front
-door's ``device`` (the card unless the caller asks for the CPU).
+door's ``device`` (the card unless the caller asks for the CPU), and onto
+its mesh when it is a mesh server; the dead replica's mesh state is then
+dropped on the ranks.
+
+Steals and checkpoints (a departure from the JAX package, whose fleet can
+serve a query twice): a steal marks the victim (and the thief) dirty, so
+the next checkpoint no longer holds the stolen requests, and a failover
+successor drops the restored requests of every tenant the front door
+assigns to another replica: the dead replica gave those up after its last
+checkpoint, and their thief serves them.
 
 Locking (strict order ``front-door _alock`` > ``replica _elock`` >
 ``replica _cv``; no thread ever acquires leftward while holding
@@ -276,6 +287,9 @@ class AsyncJoinServer:
             self._ckpt_writer.join(timeout)
         self._fail_pending(RuntimeError(f"AsyncJoinServer {self.name} "
                                         "closed"))
+        # a mesh engine's state on the ranks goes with its replica
+        if not self._thread.is_alive():
+            self.engine.shutdown()
 
     def __enter__(self) -> "AsyncJoinServer":
         return self
@@ -368,6 +382,9 @@ class AsyncJoinServer:
                 self.tracer.span("checkpoint", cat="fleet", tid=self.name,
                                  step=self._ckpt_step):
             t0 = time.perf_counter()
+            # cleared under the lock: a steal (which needs it) after this
+            # capture marks the replica dirty again
+            self._dirty = False
             flat, meta = self.engine.snapshot_state()
             meta["replica"] = self.name
             self._ckpt_writer = save_checkpoint(
@@ -376,7 +393,6 @@ class AsyncJoinServer:
             self.stats["checkpoint_s"] += time.perf_counter() - t0
         self._ckpt_step += 1
         self._last_ckpt_t = now
-        self._dirty = False
         self.stats["checkpoints"] += 1
 
     def kill_after(self, steps: int) -> None:
@@ -440,7 +456,8 @@ class AsyncJoinServer:
         counts = Counter(r._class for r in self.engine.queue)
         device = {}
         for r in self.engine.queue:
-            device.setdefault(r._class, r.rels[0].keys.device)
+            device.setdefault(r._class,
+                              join_serve._rows_of(r.rels[0]).device)
         return any(n >= self.engine._slot_cap(cls, device[cls])
                    for cls, n in counts.items())
 
@@ -520,6 +537,8 @@ class AsyncJoinServer:
                 if moved:
                     self._ingress = [it for it in self._ingress
                                      if it not in moved]
+                # the last checkpoint still holds the tenant's requests
+                self._dirty = True
                 self.stats["stolen_out"] += len(admitted) + len(moved)
                 return tenant, admitted, moved
         finally:
@@ -533,6 +552,7 @@ class AsyncJoinServer:
         if admitted:
             with self._elock:
                 self.engine.queue.extend(admitted)
+                self._dirty = True
         with self._cv:
             if ingress_items:
                 self._ingress.extend(ingress_items)
@@ -717,8 +737,11 @@ class AsyncJoinFrontDoor:
         if dead._ckpt_writer is not None:
             dead._ckpt_writer.join()       # let the final write finish
         if dead.checkpoint_dir is not None:
-            restore = partial(elastic_restore_engine, dead.checkpoint_dir,
-                              successor.engine, device=self.device)
+            # tenants the front door moved off the dead replica (steals)
+            # after its last checkpoint: their thief serves them
+            gone = {t for t, rep in self._assign.items() if rep is not dead}
+            restore = partial(self._restore_onto, dead.checkpoint_dir,
+                              successor.engine, gone)
             if threading.current_thread() is successor._thread:
                 # the successor's own loop detected the death: run inline
                 # (a call() rendezvous with yourself never returns)
@@ -731,11 +754,46 @@ class AsyncJoinFrontDoor:
             if rep is dead:
                 self._assign[tenant] = successor
                 moved += 1
+        if dead.engine.mesh is not None:
+            # the dead replica's loop has left (its error is set): drop its
+            # server's state on the ranks
+            dead._thread.join(timeout=60)
+            dead.engine.shutdown()
         self.failovers += 1
         self.tracer.instant("failover", cat="fleet", tid="front-door",
                             dead=dead.name, successor=successor.name,
                             tenants=moved)
         return True
+
+    def _restore_onto(self, ckpt_dir: str, engine: JoinServer,
+                      gone: set) -> None:
+        """Restore a dead replica's newest checkpoint into ``engine`` (on
+        ``self.device``, and on the engine's mesh), then drop the restored
+        requests of the ``gone`` tenants, and their plan handles.  Their
+        sigmas keep the shared registry's values, which are never older
+        than the checkpoint's."""
+        before = set(map(id, engine.queue))
+        sigmas = {q: t for q, t in engine.sigma.table.items()
+                  if tenant_of(q) in gone}
+        elastic_restore_engine(ckpt_dir, engine, device=self.device)
+        for q in [q for q in engine.sigma.table if tenant_of(q) in gone]:
+            if q in sigmas:
+                engine.sigma.table[q] = sigmas[q]
+            else:
+                del engine.sigma.table[q]
+        stale = [r for r in engine.queue if id(r) not in before
+                 and tenant_of(r.query_id) in gone]
+        if not stale:
+            return
+        drop = set(map(id, stale))
+        engine.queue = [r for r in engine.queue if id(r) not in drop]
+        for r in stale:
+            engine._release_request_words(r)
+            handle = engine.plans.get(r.plan) if r.plan is not None \
+                else None
+            if handle is not None and all(
+                    id(q) in drop for q in handle.requests.values()):
+                del engine.plans[r.plan]
 
     def _steal_for(self, thief: AsyncJoinServer) -> bool:
         """Move one whole tenant from the most backed-up replica to an idle

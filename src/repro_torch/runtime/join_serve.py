@@ -87,20 +87,45 @@ different orders.  ``serve_mode`` picks the merge:
   and dropped rows are counted.
 
 Kernel classes on a mesh are single-device classes: at mesh 1 they serve
-with no gather; at k > 1 rank 0 gathers their rows (metered in
+with no gather; at k > 1 rank 0 gathers their datasets' rows (metered in
 ``kernel_gather_bytes``) and the CUDA kernels serve them there, with their
-dataset filters built by the build kernel on every rank and OR-merged.
-Snapshots, plans, prebuilt window words and the async tier run on a
-single device only.
+dataset filters built by the build kernel on every rank and OR-merged.  A
+kernel request's inline relations stay on rank 0 (nothing to scatter and
+gather back).
+
+Everything the single-device server serves is served on a mesh too:
+
+* **plans**: ``compile_plan``'s byte model reads each dataset's rows once
+  per plan signature, gathered to rank 0 (metered in ``host_gather_bytes``);
+  node requests are ordinary mesh requests, n-way ones included;
+* **prebuilt words** (a streaming window's OR of its sub-window filters):
+  a mesh class needs them on every rank under a word id.  A request whose
+  ``_word_keys`` name words the ranks already hold sends nothing but the
+  ids; one without (a restored request) broadcasts its words once, for the
+  step that serves it;
+* **snapshots**: ``snapshot_state`` gathers every relation to rank 0 in its
+  global row order, so the checkpoint format stays the JAX package's and
+  mesh-agnostic, and ``restore_state`` scatters what it restores onto this
+  server's mesh (any size or layout); restored filter words reach the ranks
+  under fresh word ids the first time a mesh class needs them.
+
+Several mesh servers may share the same ranks (the replicas of an async
+front door, a dead replica and its successor): every server has a server
+id, its headers carry it, each rank keeps one state per id, and on rank 0
+one lock makes each operation (header plus collectives) atomic across
+servers and threads.  ``shutdown()`` ends one server's state on the ranks;
+:func:`close_mesh_workers` ends the worker loops.
 """
 
 from __future__ import annotations
 
 import functools
 import itertools
+import threading
 import time
 import weakref
 from collections import OrderedDict
+from collections.abc import Mapping
 from dataclasses import dataclass, field
 from functools import partial
 from typing import NamedTuple, Optional, Sequence
@@ -270,6 +295,9 @@ class JoinRequest:
     # prebuilt per-side filter words; when set, the batch path uses them
     # verbatim instead of fetching through the per-dataset cache
     _words: Optional[list] = field(default=None, repr=False)
+    # on a mesh: the word ids under which every rank holds ``_words`` (a
+    # streaming window's OR, made on the ranks); released once served
+    _word_keys: Optional[list] = field(default=None, repr=False)
     # compile-time byte model of the owning plan node (submit_plan copies
     # the node's node_bytes_model dict here): the reconciliation report
     # pairs its bytes_pushdown against the serve-time restatement
@@ -612,20 +640,30 @@ def _rows_of(rel) -> torch.Tensor:
     return (rel.local if isinstance(rel, ShardedRelation) else rel).keys
 
 
+# Every header and every collective of a mesh server goes over the ranks of
+# the default group, so on rank 0 one lock serialises the operations of all
+# the mesh servers of the process (replicas of a front door step from their
+# own threads): an operation's header and its collectives reach the ranks
+# whole and in one order.
+_MESH_LOCK = threading.RLock()
+_SERVER_IDS = itertools.count()
+
+
 class _MeshRank:
-    """What every rank of a mesh server holds and runs: its block of each
-    relation (by ``rid``), the dataset filters (by word id), the current
-    step's per-rank prepare output, and the per-rank stages.
+    """What every rank holds and runs for one mesh server (``sid``): its
+    block of each relation (by ``rid``), the filters (by word id), the
+    current step's per-rank prepare output, and the per-rank stages.
 
     Rank 0's server calls :meth:`call`, which broadcasts the operation's
-    header to the other ranks' :func:`serve_mesh_worker` loops and runs it
-    on rank 0 too.  A header also carries the relations and filters rank 0
-    let go of since the last one; every rank drops them after the
-    operation.
+    header (its server id, and the join axes the first time) to the other
+    ranks' :func:`serve_mesh_worker` loops and runs it on rank 0 too, under
+    the process's mesh lock.  A header also carries the relations and
+    filters rank 0 let go of since the last one; every rank drops them
+    after the operation.
     """
 
-    def __init__(self, mesh, axes, device=None):
-        self.mesh, self.axes = mesh, tuple(axes)
+    def __init__(self, mesh, axes, device=None, sid: int = 0):
+        self.mesh, self.axes, self.sid = mesh, tuple(axes), sid
         self.device = None if device is None else torch.device(device)
         self.rels: dict = {}
         self.words: dict = {}
@@ -633,6 +671,7 @@ class _MeshRank:
         self._stages: dict = {}
         self._free_rels: list = []
         self._free_words: list = []
+        self._opened = False
 
     def release_rel(self, rid: int) -> None:
         self._free_rels.append(rid)
@@ -642,21 +681,26 @@ class _MeshRank:
 
     def call(self, op: str, payload=None, **header):
         """Rank 0: broadcast ``op``'s header, then run it here."""
-        header.update(op=op)
-        header["free_rels"], self._free_rels = self._free_rels, []
-        header["free_words"], self._free_words = self._free_words, []
-        box = [header]
-        dist.broadcast_object_list(box, src=0)
-        return self.run(header, payload)
+        header.update(op=op, sid=self.sid)
+        with _MESH_LOCK:
+            if not self._opened:
+                header["axes"], self._opened = self.axes, True
+            header["free_rels"], self._free_rels = self._free_rels, []
+            header["free_words"], self._free_words = self._free_words, []
+            dist.broadcast_object_list([header], src=0)
+            return self.run(header, payload)
 
     def run(self, h: dict, payload=None):
         try:
             return getattr(self, "_" + h["op"])(h, payload)
         finally:
-            for rid in h["free_rels"]:
-                self.rels.pop(rid, None)
-            for wkey in h["free_words"]:
-                self.words.pop(wkey, None)
+            self._drop(h)
+
+    def _drop(self, h: dict) -> None:
+        for rid in h["free_rels"]:
+            self.rels.pop(rid, None)
+        for wkey in h["free_words"]:
+            self.words.pop(wkey, None)
 
     def _stage(self, spec: tuple):
         fn = self._stages.get(spec)
@@ -682,6 +726,31 @@ class _MeshRank:
         self.words[h["wkey"]] = words
         return words
 
+    def _words(self, h, words):
+        """Rank 0's ``words`` on every rank, under ``wkey``."""
+        dev = self.device if words is None else words.device
+        self.words[h["wkey"]] = out = broadcast_from0(
+            words, h["shape"], torch.int32, dev)
+        return out
+
+    def _wor(self, h, _):
+        """The OR of the words under ``srcs`` (one rank-local fold), kept
+        under ``wkey``: a window's filter from its sub-windows'."""
+        out = self.words[h["srcs"][0]]
+        for w in h["srcs"][1:]:
+            out = out | self.words[w]
+        self.words[h["wkey"]] = out
+        return out
+
+    def _live(self, h, _):
+        """Every rank's relation and word ids (an object all_gather), once
+        what rank 0 let go of is dropped."""
+        self._drop(h)
+        mine = (sorted(self.rels), sorted(self.words))
+        out = [None] * dist.get_world_size()
+        dist.all_gather_object(out, mine)
+        return out
+
     def _prepare(self, h, _):
         slots, n_sides = h["slots"], len(h["slots"][0])
         rels_b = [Relation(*(torch.stack([self.rels[sl[s]][f] for sl in slots])
@@ -703,27 +772,76 @@ class _MeshRank:
         return self._stage(h["spec"])(self.prep, h["n_real"])
 
     def _stop(self, h, _):
+        self.rels.clear()
+        self.words.clear()
         self.prep = None
 
 
-def serve_mesh_worker(mesh, device, join_axes: Optional[Sequence[str]] = None
-                      ) -> int:
-    """The loop of ranks 1..k-1 of a mesh server: run every operation rank
-    0's ``JoinServer(mesh=mesh, join_axes=join_axes)`` broadcasts, on this
-    rank's block of the rows on ``device``, until it shuts down.  Returns
-    the number of operations run.  ``join_axes`` must be the server's."""
+class MeshWorkerReport(NamedTuple):
+    """What a worker loop ran: operations by server id, in the order the
+    servers first spoke, and the servers whose state it still held when
+    the loop closed (shut down none of them: ``()``)."""
+
+    ops: dict
+    open: tuple
+
+
+def serve_mesh_worker(mesh, device) -> MeshWorkerReport:
+    """The loop of ranks 1..k-1 under the mesh servers of rank 0: run
+    every operation they broadcast, each on this rank's state of its
+    server (on ``device``), until rank 0 calls
+    :func:`close_mesh_workers`.  A server's ``shutdown()`` drops its state
+    here."""
     if dist.get_rank() == 0:
         raise ValueError("rank 0 runs the JoinServer; serve_mesh_worker is "
                          "for ranks 1..k-1")
-    rank = _MeshRank(mesh, join_axes or mesh.mesh_dim_names, device)
-    n = 0
+    ranks: dict = {}
+    ops: dict = {}
     while True:
         box = [None]
         dist.broadcast_object_list(box, src=0)
-        rank.run(box[0])
-        if box[0]["op"] == "stop":
-            return n
-        n += 1
+        h = box[0]
+        if h["op"] == "close":
+            return MeshWorkerReport(ops, tuple(ranks))
+        sid = h["sid"]
+        rank = ranks.get(sid)
+        if rank is None:
+            rank = ranks[sid] = _MeshRank(mesh, h["axes"], device, sid)
+            ops.setdefault(sid, 0)
+        rank.run(h)
+        if h["op"] == "stop":
+            del ranks[sid]
+        else:
+            ops[sid] += 1
+
+
+def close_mesh_workers() -> None:
+    """Rank 0: end every rank's :func:`serve_mesh_worker` loop (once its
+    mesh servers have shut down; a no-op on a mesh of one rank)."""
+    with _MESH_LOCK:
+        dist.broadcast_object_list([{"op": "close"}], src=0)
+
+
+class _GatheredDatasets(Mapping):
+    """A mesh server's datasets as :func:`compile_plan` reads them: each
+    dataset's relations gathered to rank 0 when first read, each relation
+    once."""
+
+    def __init__(self, server: "JoinServer"):
+        self.server, self._memo = server, {}
+
+    def __getitem__(self, name: str) -> list:
+        return [self.server._full_rows(r, self._memo)
+                for r in self.server.datasets[name]]
+
+    def __contains__(self, name) -> bool:
+        return name in self.server.datasets
+
+    def __iter__(self):
+        return iter(self.server.datasets)
+
+    def __len__(self) -> int:
+        return len(self.server.datasets)
 
 
 class JoinServer:
@@ -734,11 +852,12 @@ class JoinServer:
 
     ``mesh`` (a ``DeviceMesh`` of ``launch/mesh.py``) serves over its ranks
     from rank 0, joined over ``join_axes`` (all of the mesh's dims by
-    default); ranks 1..k-1 run :func:`serve_mesh_worker` with the same
-    axes until :meth:`shutdown`.  ``bucket_cap`` forces the per-(source,
-    dest) shuffle bucket size; ``serve_mode`` is the default merge
-    (``SERVE_MODES``), overridable per request.  ``memory_share`` is the
-    share of the card one step's slots may plan for (``slot_budget``).
+    default); ranks 1..k-1 run :func:`serve_mesh_worker`, which serves any
+    number of mesh servers of rank 0 until :func:`close_mesh_workers`.
+    ``bucket_cap`` forces the per-(source, dest) shuffle bucket size;
+    ``serve_mode`` is the default merge (``SERVE_MODES``), overridable per
+    request.  ``memory_share`` is the share of the card one step's slots
+    may plan for (``slot_budget``).
     """
 
     def __init__(self, *, batch_slots: int = 4,
@@ -822,7 +941,7 @@ class JoinServer:
                 self.mesh_k, np.float64)
             self.diagnostics.per_device_dropped_tuples = np.zeros(
                 self.mesh_k, np.float64)
-            self._ranks = _MeshRank(mesh, axes)
+            self._ranks = _MeshRank(mesh, axes, sid=next(_SERVER_IDS))
             self._rids = itertools.count()
             self._wkeys = itertools.count()
             # (fp, num_blocks, seed) -> word id of the filter cache's entry
@@ -831,35 +950,62 @@ class JoinServer:
             if tracer is not None:
                 tracer.tags.setdefault(
                     "mesh", "x".join(str(n) for _, n in self.mesh_shape))
+        # rows gathered to rank 0 for the host on a mesh: plans' byte model
+        # and snapshots (the kernel classes' are kernel_gather_bytes)
+        self.host_gather_bytes = 0.0
 
     def shutdown(self) -> None:
-        """Stop the mesh's worker loops (a no-op without a mesh, or when
-        already stopped)."""
+        """Drop this server's state on every rank of its mesh (a no-op
+        without a mesh, or when already stopped); the worker loops go on
+        serving the process's other mesh servers."""
         if self.mesh is not None and self._ranks is not None:
             self._ranks.call("stop")
             self._ranks = None
 
-    def _check_meshless(self, what: str) -> None:
-        if self.mesh is not None:
-            raise NotImplementedError(f"{what} on a mesh server is not "
-                                      "ported yet (ROADMAP A5b)")
+    def mesh_state(self) -> list:
+        """Each rank's ``(relation ids, word ids)`` of this server, in rank
+        order: what the ranks hold now (a mesh server only)."""
+        return self._ranks.call("live")
 
     # -- admission ----------------------------------------------------------
 
-    def _admit_rels(self, rels: Sequence[Relation]) -> list:
+    def _admit_rels(self, rels: Sequence[Relation],
+                    scatter: bool = True) -> list:
         """Bucket relations to their pow2 capacity (at least the mesh size);
-        on a mesh, scatter each over the ranks and keep its handle."""
-        rels = [bucket_to_pow2(r, minimum=self.mesh_k) for r in rels]
-        if self.mesh is None:
-            return rels
+        on a mesh, scatter each over the ranks and keep its handle (a
+        handle passes through; ``scatter=False`` keeps the rows on rank
+        0, as a kernel class serves them)."""
         out = []
         for r in rels:
-            rid = next(self._rids)
-            local = self._ranks.call("rel", r, rid=rid, capacity=r.capacity)
-            handle = ShardedRelation(rid, local, r.capacity)
-            weakref.finalize(handle, self._ranks.release_rel, rid)
-            out.append(handle)
+            if not isinstance(r, ShardedRelation):
+                r = bucket_to_pow2(r, minimum=self.mesh_k)
+                if self.mesh is not None and scatter:
+                    rid = next(self._rids)
+                    local = self._ranks.call("rel", r, rid=rid,
+                                             capacity=r.capacity)
+                    handle = ShardedRelation(rid, local, r.capacity)
+                    weakref.finalize(handle, self._ranks.release_rel, rid)
+                    r = handle
+            out.append(r)
         return out
+
+    def _full_rows(self, rel, memo: Optional[dict] = None) -> Relation:
+        """A relation's rows in their global order on rank 0: a mesh
+        handle's blocks gathered (metered in ``host_gather_bytes``; at mesh
+        1 rank 0's block is the relation)."""
+        if not isinstance(rel, ShardedRelation):
+            return rel
+        if self.mesh_k == 1:
+            return rel.local
+        if memo is not None and rel.rid in memo:
+            return memo[rel.rid]
+        full = self._ranks.call("gather", rid=rel.rid)
+        # a row crosses as three int32s (gather_fields)
+        self.host_gather_bytes += float(
+            12 * rel.capacity * (self.mesh_k - 1) // self.mesh_k)
+        if memo is not None:
+            memo[rel.rid] = full
+        return full
 
     def register_dataset(self, name: str, rels: Sequence[Relation]) -> None:
         """Store a named (bucketed) dataset for handle queries.
@@ -893,8 +1039,10 @@ class JoinServer:
             # key set on the admission hot path to feed a cache that only
             # pays off for repeated identical key sets — that contract
             # belongs to register_dataset.  Their filter words build per
-            # step, uncached.
-            req.rels = self._admit_rels(req.rels)
+            # step, uncached.  A kernel request's rows stay on rank 0 of a
+            # mesh, where its kernels serve them.
+            req.rels = self._admit_rels(req.rels,
+                                        scatter=not req.use_kernels)
             req._fps = [None] * len(req.rels)
         if len(req.rels) < 2:
             raise ValueError("join needs at least two relations")
@@ -947,14 +1095,15 @@ class JoinServer:
         compiled form only holds dataset *names*; relations resolve at
         submit time through the normal handle path.
         """
-        self._check_meshless("a query plan")
         key = plan.signature()
         compiled = self._plan_cache.get(key)
         if compiled is None:
             with self.tracer.span("plan-compile", cat="plan",
                                   tid=self.trace_name,
                                   nodes=len(plan.nodes)):
-                compiled = compile_plan(plan, self.datasets)
+                compiled = compile_plan(plan, self.datasets
+                                        if self.mesh is None
+                                        else _GatheredDatasets(self))
             self._plan_cache[key] = compiled
             self.diagnostics.plan_compiles += 1
         else:
@@ -1072,29 +1221,39 @@ class JoinServer:
         self.diagnostics.filter_build_s += time.perf_counter() - t0
         return words
 
-    def _mesh_words_for(self, rel: ShardedRelation, fp: Optional[str],
-                        num_blocks: int, seed: int, use_kernels: bool,
+    def _mesh_words_for(self, rel, fp: Optional[str], num_blocks: int,
+                        seed: int, use_kernels: bool,
                         step_words: list) -> tuple:
         """A mesh server's :meth:`_words_for`: ``(word id, words)``.
 
         Each rank builds its block's partition filter (through the build
         kernel for a kernel class) and the OR-reduce makes the dataset
-        filter on every rank, bit-identical to a single build.  The exchange
-        puts k - 1 copies of the words on the wire
-        (``filter_exchange_bytes_measured``); a cache hit moves nothing.
-        An inline relation's words (``fp=None``) live for the step: their
-        id goes on ``step_words``.
+        filter on every rank, bit-identical to a single build; rows rank 0
+        holds whole (a streaming sub-window's) are scattered for the build
+        first.  The exchange puts k - 1 copies of the words on the wire
+        (``filter_exchange_bytes_measured``); a cache hit moves nothing,
+        except that a mesh class broadcasts words the ranks lack (a
+        restored entry) once, under a fresh word id.  An inline relation's
+        words (``fp=None``) live for the step: their id goes on
+        ``step_words``.
         """
         key = (fp, num_blocks, seed)
         if fp is not None and key in self._filter_words:
             self._filter_words.move_to_end(key)
             self.diagnostics.filter_cache_hits += 1
-            return self._word_ids[key], self._filter_words[key]
+            words = self._filter_words[key]
+            wkey = self._word_ids.get(key)
+            if wkey is None and not use_kernels:
+                wkey = self._word_ids[key] = self._push_words(words)
+            return wkey, words
         t0 = time.perf_counter()
         build, _ = self._executable(
             "fbuild", (rel.capacity, num_blocks, self.mesh_shape, use_kernels),
             None, lambda: partial(self._ranks.call, "fbuild",
                                   num_blocks=num_blocks, kernels=use_kernels))
+        # a handle lives through its build (the ranks drop a scattered
+        # sub-window's block at the next header once it is gone)
+        rel = self._admit_rels([rel])[0]
         wkey = next(self._wkeys)
         words = build(rid=rel.rid, wkey=wkey, seed=seed)
         sync(words.device)
@@ -1106,11 +1265,41 @@ class JoinServer:
             self._filter_words[key] = words
             self._word_ids[key] = wkey
             while len(self._filter_words) > self.filter_cache_entries:
-                old, _ = self._filter_words.popitem(last=False)
-                self._ranks.release_words(self._word_ids.pop(old))
+                self._evict_words(next(iter(self._filter_words)))
         self.diagnostics.filter_builds += 1
         self.diagnostics.filter_build_s += time.perf_counter() - t0
         return wkey, words
+
+    def _push_words(self, words: torch.Tensor) -> int:
+        """Rank 0's ``words`` on every rank under a fresh word id."""
+        wkey = next(self._wkeys)
+        self._ranks.call("words", words, wkey=wkey, shape=tuple(words.shape))
+        return wkey
+
+    def _or_words_on_ranks(self, wkeys: Sequence[int]) -> int:
+        """The OR of the words every rank holds under ``wkeys``, kept on the
+        ranks under a fresh word id (a window's filter: no bytes move)."""
+        wkey = next(self._wkeys)
+        self._ranks.call("wor", srcs=list(wkeys), wkey=wkey)
+        return wkey
+
+    def _release_request_words(self, req: JoinRequest) -> None:
+        """Let the ranks drop a request's ``_word_keys`` (served or shed)."""
+        if self.mesh is not None and req._word_keys:
+            for wkey in req._word_keys:
+                self._ranks.release_words(wkey)
+        req._word_keys = None
+
+    def _evict_words(self, key) -> bool:
+        """Drop a filter-cache entry, and on a mesh its words on the ranks;
+        False when it was not cached."""
+        if self._filter_words.pop(key, None) is None:
+            return False
+        if self.mesh is not None:
+            wkey = self._word_ids.pop(key, None)
+            if wkey is not None and self._ranks is not None:
+                self._ranks.release_words(wkey)
+        return True
 
     # -- engine -------------------------------------------------------------
 
@@ -1328,12 +1517,15 @@ class JoinServer:
         flat[f"{prefix}/values"] = r.values
         flat[f"{prefix}/valid"] = r.valid
 
-    @staticmethod
-    def _rel_restore(flat: dict, prefix: str, device) -> Relation:
+    def _rel_restore(self, flat: dict, prefix: str, device,
+                     scatter: bool = True):
         """A snapshot's relation (tensors, or the numpy arrays a checkpoint
-        loads) on ``device``."""
-        return relation(flat[f"{prefix}/keys"], flat[f"{prefix}/values"],
-                        flat[f"{prefix}/valid"], device=device)
+        loads) on ``device``; on a mesh scattered over this server's ranks
+        (unless ``scatter`` is False: rows a kernel class or a streaming
+        session keeps on rank 0)."""
+        r = relation(flat[f"{prefix}/keys"], flat[f"{prefix}/values"],
+                     flat[f"{prefix}/valid"], device=device)
+        return self._admit_rels([r], scatter)[0]
 
     def snapshot_state(self) -> tuple[dict, dict]:
         """Capture the full serving state as ``(flat tensors, meta)``.
@@ -1342,17 +1534,21 @@ class JoinServer:
         (``tree=flat``, ``extra=meta``); the inverse is ``load_checkpoint``
         + :meth:`restore_state`.  The capture is synchronous with respect to
         engine mutation: call between steps (the async tier snapshots on
-        its loop thread under the engine lock)."""
-        self._check_meshless("a snapshot")
+        its loop thread under the engine lock).  On a mesh every relation
+        is gathered to rank 0 in its global row order, so the snapshot is
+        the one a single-device server of the same state takes."""
         flat: dict = {}
         meta: dict = {}
         ds_meta = []
+        memo: dict = {}
         for di, (name, rels) in enumerate(self.datasets.items()):
             for i, r in enumerate(rels):
-                self._rel_arrays(flat, f"ds/{di}/{i}", r)
+                self._rel_arrays(flat, f"ds/{di}/{i}",
+                                 self._full_rows(r, memo))
             # overlap: a mesh engine's registration-time estimate
             ds_meta.append({"name": name, "n": len(rels),
-                            "fps": self._dataset_fps[name], "overlap": None})
+                            "fps": self._dataset_fps[name],
+                            "overlap": self._dataset_overlap.get(name)})
         meta["datasets"] = ds_meta
         fw_keys = []
         for j, (key, words) in enumerate(self._filter_words.items()):
@@ -1367,7 +1563,8 @@ class JoinServer:
             # datasets themselves are in the snapshot and resolve by name
             if req.dataset is None and req.datasets is None:
                 for i, r in enumerate(req.rels):
-                    self._rel_arrays(flat, f"q/{j}/rels/{i}", r)
+                    self._rel_arrays(flat, f"q/{j}/rels/{i}",
+                                     self._full_rows(r, memo))
             if req._words is not None:           # pre-merged window words
                 for i, w in enumerate(req._words):
                     flat[f"q/{j}/words/{i}"] = w
@@ -1395,27 +1592,38 @@ class JoinServer:
         order, so same-``query_id`` FIFO, the only order sigma feedback
         observes, is preserved).  Served-but-undrained results are NOT part
         of a snapshot: their futures resolved at completion time, before
-        any crash this snapshot survives."""
-        self._check_meshless("a restore")
+        any crash this snapshot survives.
+
+        On a mesh, whatever mesh (or none) took the snapshot, every
+        relation is scattered over this server's ranks (a kernel request's
+        stays on rank 0) and cached filter words reach the ranks under
+        fresh word ids when a mesh class first needs them."""
         device = torch.device("cuda" if device is None else device)
         for di, d in enumerate(meta.get("datasets", [])):
-            self.datasets[d["name"]] = [
-                self._rel_restore(flat, f"ds/{di}/{i}", device)
-                for i in range(d["n"])]
+            rels = [self._rel_restore(flat, f"ds/{di}/{i}", device, False)
+                    for i in range(d["n"])]
+            if self.mesh is not None:
+                overlap = d.get("overlap")
+                self._dataset_overlap[d["name"]] = overlap \
+                    if overlap is not None else bloom_overlap_estimate(
+                        [bucket_to_pow2(r, minimum=self.mesh_k)
+                         for r in rels])
+            self.datasets[d["name"]] = self._admit_rels(rels)
             self._dataset_fps[d["name"]] = list(d["fps"])
         for j, key in enumerate(meta.get("filter_cache", [])):
             fp, num_blocks, seed = key
             self._filter_words[(fp, int(num_blocks), int(seed))] = \
                 torch.as_tensor(flat[f"fw/{j}"], device=device)
         while len(self._filter_words) > self.filter_cache_entries:
-            self._filter_words.popitem(last=False)
+            self._evict_words(next(iter(self._filter_words)))
         for q, t in meta.get("sigma", {}).items():
             self.sigma.table[q] = {int(k): float(v) for k, v in t.items()}
         restored = []
         for j, m in enumerate(meta.get("queue", [])):
             rels = None
             if m["dataset"] is None and not m.get("datasets"):
-                rels = [self._rel_restore(flat, f"q/{j}/rels/{i}", device)
+                rels = [self._rel_restore(flat, f"q/{j}/rels/{i}", device,
+                                          not m["use_kernels"])
                         for i in range(m["n_rels"])]
             req = JoinRequest(
                 rels=rels, dataset=m["dataset"], datasets=m.get("datasets"),
@@ -1459,6 +1667,8 @@ class JoinServer:
         device): at mesh 1 rank 0's block is the relation; at k > 1 the
         ranks' blocks gather to rank 0, once per relation a step, metered
         in ``kernel_gather_bytes`` as the bytes rank 0 received."""
+        if not isinstance(rel, ShardedRelation):
+            return rel                  # rows kept on rank 0
         if self.mesh_k == 1:
             return rel.local
         hit = memo.get(rel.rid)
@@ -1472,7 +1682,10 @@ class JoinServer:
     def _mesh_batch_inputs(self, cls: ShapeClass, batch: list[JoinRequest]):
         """:meth:`_batch_inputs` on a mesh: a mesh class's step names its
         relations and filters by id (every rank stacks its own blocks); a
-        kernel class's gathers its rows to rank 0 and stacks them there."""
+        kernel class's gathers its rows to rank 0 and stacks them there.  A
+        request's prebuilt words serve as they are on a kernel class; a
+        mesh class takes them by their word ids on the ranks, or broadcasts
+        them for the step when the ranks lack them."""
         B = bucket_capacity(len(batch))
         reqs = batch + [batch[-1]] * (B - len(batch))
         dev = _rows_of(batch[0].rels[0]).device
@@ -1485,7 +1698,20 @@ class JoinServer:
         per_req = []
         for r in batch:
             if r._words is not None:
-                self._check_meshless("a request with prebuilt words")
+                if len(r._words) != cls.n_inputs:
+                    raise ValueError(f"{len(r._words)} prebuilt filters for "
+                                     f"{cls.n_inputs} inputs")
+                if cls.use_kernels:
+                    keys = [None] * cls.n_inputs
+                elif r._word_keys is not None:
+                    keys = r._word_keys
+                    step_words += keys
+                    r._word_keys = None      # released with the step's
+                else:
+                    keys = [self._push_words(w) for w in r._words]
+                    step_words += keys
+                per_req.append(list(zip(keys, r._words)))
+                continue
             fs = r.seed if r.filter_seed is None else r.filter_seed
             per_req.append([self._mesh_words_for(
                 r.rels[s], r._fps[s], num_blocks, fs, cls.use_kernels,

@@ -8,8 +8,8 @@ every join input and serves tumbling- or sliding-window ApproxJoin estimates
 — each window carrying the paper's CLT error bound — through a
 :class:`StreamJoinServer` (a
 :class:`~repro_torch.runtime.join_serve.JoinServer` with per-tenant
-admission control).  It is the single-device port of the JAX package's
-streaming server.
+admission control).  It is the port of the JAX package's streaming
+server, on one device or on a mesh (``StreamJoinServer(mesh=...)``).
 
 What is incremental, and what licenses it:
 
@@ -63,6 +63,31 @@ fingerprint) and once per admitted micro-batch longer than the sub-window
 slot (the count of the rows it drops); draining copies each finished
 window's estimator parts once.
 
+**On a mesh** (rank 0 serves, ranks 1..k-1 run the server's worker loop):
+
+* **Rows.**  Admitted micro-batches stay whole on rank 0, and each window,
+  assembled there in arrival order, is scattered over the ranks when it is
+  submitted, as any request's relations are: rank ``d`` holds rows
+  ``[d W/k, (d+1) W/k)`` of the window in its global order, the layout
+  whose gather merge equals the single-device server bit for bit.
+  (Scattering each micro-batch at push, as the JAX package shards it,
+  would give a rank its blocks of the sub-windows, whose concatenation is
+  a row permutation of its block of the window.)  The scatter moves ``12 x
+  window capacity x (k - 1) / k`` bytes a side and window
+  (:meth:`StreamJoinSession.window_scatter_bytes_model`).  A kernel
+  session's windows are single-device classes and stay on rank 0.
+* **Filters.**  A sub-window's words are built once, on the ranks: its
+  rows are scattered for the build, every rank builds its block's
+  partition filter (through the build kernel for a kernel session) and
+  the OR-reduce leaves the sub-window's filter on every rank under a word
+  id, cached like a dataset's.  A plain window's filter is the OR of its
+  sub-windows' word ids, folded on every rank under a word id of its own
+  (the header carries ids only); it is released once the window is served
+  or shed.  Retiring a sub-window releases its words on the ranks.
+* **Bucket plan.**  Each finished window's overlap fraction updates the
+  session's rolling ``overlap_ewma`` (smoothing ``overlap_alpha``), the
+  hint a psum window's shuffle buckets are planned from.
+
 :meth:`StreamJoinServer.snapshot_state` adds every session's live state to
 the engine's snapshot (sub-windows with their fingerprints, sketches, the
 running parts, the buffer bookkeeping), so a failover successor's
@@ -71,6 +96,7 @@ restored session emits the same future windows as the uninterrupted one.
 
 from __future__ import annotations
 
+import math
 from typing import Optional, Sequence
 
 import torch
@@ -177,8 +203,10 @@ class StreamJoinSession:
                  seed: int = 0, fp_rate: float = 0.01,
                  max_strata: Optional[int] = None,
                  b_max: Optional[int] = DEFAULT_B_MAX,
+                 serve_mode: Optional[str] = None,
                  use_kernels: bool = False,
-                 sketch_strata: int = 64, sketch_cap: int = 64):
+                 sketch_strata: int = 64, sketch_cap: int = 64,
+                 overlap_alpha: float = 0.5):
         self.server = server
         self.name = name
         self.spec = spec.validate()
@@ -190,10 +218,13 @@ class StreamJoinSession:
         self.filter_seed = seed
         self.fp_rate = fp_rate
         self.b_max = b_max
+        self.serve_mode = serve_mode
         # every window of the session shares one shape class: fixed
-        # sub-window slots, window capacity = one pow2 bucket
-        self.sub_cap = bucket_capacity(spec.sub_rows)
-        self.window_cap = bucket_capacity(spec.size * self.sub_cap)
+        # sub-window slots, window capacity = one pow2 bucket (at least the
+        # mesh's size, which must divide it)
+        self.sub_cap = bucket_capacity(spec.sub_rows, minimum=server.mesh_k)
+        self.window_cap = bucket_capacity(spec.size * self.sub_cap,
+                                          minimum=server.mesh_k)
         self.max_strata = self.window_cap if max_strata is None else max_strata
         self.num_blocks = bloom.num_blocks_for(self.window_cap, fp_rate)
         self.buffer = WindowBuffer(spec)
@@ -208,9 +239,10 @@ class StreamJoinSession:
         # first micro-batch's device (None: built with sketch_cap=0)
         self.sketch_strata, self.sketch_cap = sketch_strata, sketch_cap
         self.sketch = [None] * n_sides if sketch_cap else None
-        # a mesh engine's rolling live-fraction estimate of its windows (the
-        # JAX package plans psum shuffle buckets from it); a single-device
-        # session only carries it through snapshots
+        # rolling Bloom-probe overlap of the finished windows (a mesh only;
+        # None until the first window lands, so the first psum plan is the
+        # lossless overlap-1.0 one)
+        self.overlap_alpha = overlap_alpha
         self.overlap_ewma: Optional[float] = None
 
     # -- ingestion ----------------------------------------------------------
@@ -275,36 +307,60 @@ class StreamJoinSession:
             for fp in sub.fps:
                 if fp in keep:
                     continue
-                key = (fp, self.num_blocks, self.filter_seed)
-                if self.server._filter_words.pop(key, None) is not None:
+                # on a mesh the ranks drop the words too
+                if self.server._evict_words(
+                        (fp, self.num_blocks, self.filter_seed)):
                     self.server.stream_diagnostics.retired_filter_words += 1
 
     # -- emission -----------------------------------------------------------
 
-    def _window_words(self, subs: Sequence[SubWindow]) -> list:
+    def _window_words(self, subs: Sequence[SubWindow]) -> tuple:
         """Per-side window filter words: OR of the cached sub-window builds
-        (new sub-windows build, survivors hit the cache)."""
+        (new sub-windows build, survivors hit the cache).  On a mesh also
+        the word ids under which a plain session's ranks hold each side's
+        OR (None for a kernel session, which serves on rank 0 alone)."""
         srv = self.server
-        words = []
+        words, keys = [], []
         for side in range(self.n_sides):
-            sub_words = [srv._words_for(s.rels[side], s.fps[side],
-                                        self.num_blocks, self.filter_seed,
-                                        use_kernels=self.use_kernels)
-                         for s in subs]
+            if srv.mesh is None:
+                sub_words = [srv._words_for(s.rels[side], s.fps[side],
+                                            self.num_blocks, self.filter_seed,
+                                            use_kernels=self.use_kernels)
+                             for s in subs]
+            else:
+                got = [srv._mesh_words_for(s.rels[side], s.fps[side],
+                                           self.num_blocks, self.filter_seed,
+                                           self.use_kernels, [])
+                       for s in subs]
+                sub_words = [w for _, w in got]
+                if not self.use_kernels:
+                    keys.append(srv._or_words_on_ranks([k for k, _ in got]))
             words.append(sub_words[0] if len(sub_words) == 1
                          else _or_words(sub_words))
-        return words
+        return words, (keys or None)
+
+    def window_scatter_bytes_model(self) -> float:
+        """Bytes rank 0's scatter of one window puts on the wire (every
+        side; a row travels as three int32s to each of the other ranks'
+        blocks); 0 off a mesh and for a kernel session."""
+        srv = self.server
+        if srv.mesh is None or self.use_kernels:
+            return 0.0
+        world = torch.distributed.get_world_size()
+        return float(self.n_sides * 12 * self.window_cap * (world - 1)
+                     // srv.mesh_k)
 
     def _emit(self, w: int, subs: Sequence[SubWindow]) -> JoinRequest:
         self._drain_finished()
         req = JoinRequest(
-            rels=window_relations(subs),
+            rels=window_relations(subs, minimum=self.server.mesh_k),
             budget=self.budget, agg=self.agg, expr=self.expr,
             query_id=self.query_id, seed=self.seed + 1 + w,
             filter_seed=self.filter_seed, fp_rate=self.fp_rate,
             max_strata=self.max_strata, b_max=self.b_max, dedup=self.dedup,
-            use_kernels=self.use_kernels, stream=self.name, window_id=w)
-        req._words = self._window_words(subs)
+            use_kernels=self.use_kernels, serve_mode=self.serve_mode,
+            overlap_hint=self.overlap_ewma, stream=self.name, window_id=w)
+        req._words, req._word_keys = self._window_words(subs)
         self.server._submit_window(self, req)
         self.pending.append(req)
         self.server.stream_diagnostics.windows_emitted += 1
@@ -321,6 +377,15 @@ class StreamJoinSession:
                 still.append(req)
                 continue
             self.results.append(req)
+            if self.server.mesh is not None:
+                # the rolling overlap only feeds the mesh psum bucket plan;
+                # off the mesh there is no reader, so skip the host copy
+                obs = float(req.result.diagnostics.overlap_fraction)
+                if math.isfinite(obs):
+                    self.overlap_ewma = obs if self.overlap_ewma is None \
+                        else (self.overlap_alpha * obs
+                              + (1.0 - self.overlap_alpha)
+                              * self.overlap_ewma)
             self._accumulate(req)
         self.pending = still
 
@@ -412,6 +477,7 @@ class StreamJoinServer(JoinServer):
             # multi-tenant queue, and requests are identities, not values
             self.queue = [r for r in self.queue if r is not victim]
             victim.shed = True
+            self._release_request_words(victim)
             self.stream_diagnostics.windows_shed += 1
             self.tracer.instant(
                 "shed", cat="admission", tid=self.trace_name,
@@ -464,11 +530,10 @@ class StreamJoinServer(JoinServer):
                 "dedup": s.dedup, "seed": s.seed,
                 "filter_seed": s.filter_seed, "fp_rate": s.fp_rate,
                 "max_strata": s.max_strata, "b_max": s.b_max,
-                "serve_mode": None, "use_kernels": s.use_kernels,
+                "serve_mode": s.serve_mode, "use_kernels": s.use_kernels,
                 "sketch_strata": s.sketch_strata,
                 "sketch_cap": s.sketch_cap,
-                # the JAX package's default smoothing of overlap_ewma
-                "overlap_alpha": 0.5,
+                "overlap_alpha": s.overlap_alpha,
                 "overlap_ewma": s.overlap_ewma,
                 "running": list(s._running), "acc_end": s._acc_end,
                 "accumulated_windows": s.accumulated_windows,
@@ -500,9 +565,11 @@ class StreamJoinServer(JoinServer):
                 budget=QueryBudget(*m["budget"]), agg=m["agg"],
                 expr=m["expr"], dedup=m["dedup"], seed=m["seed"],
                 fp_rate=m["fp_rate"], max_strata=m["max_strata"],
-                b_max=m["b_max"], use_kernels=m["use_kernels"],
+                b_max=m["b_max"], serve_mode=m.get("serve_mode"),
+                use_kernels=m["use_kernels"],
                 sketch_strata=m["sketch_strata"],
-                sketch_cap=m["sketch_cap"])
+                sketch_cap=m["sketch_cap"],
+                overlap_alpha=m.get("overlap_alpha", 0.5))
             s.filter_seed = m["filter_seed"]
             s.overlap_ewma = m["overlap_ewma"]
             s._running = tuple(m["running"])
@@ -511,9 +578,10 @@ class StreamJoinServer(JoinServer):
             s.buffer.arrived = m["arrived"]
             s.buffer.emitted = m["emitted"]
             for j, sub_m in enumerate(m["live"]):
+                # a sub-window's rows stay whole on rank 0
                 rels = tuple(
                     self._rel_restore(flat, f"sess/{si}/live/{j}/{side}",
-                                      device)
+                                      device, scatter=False)
                     for side in range(s.n_sides))
                 s.buffer.live.append(
                     SubWindow(sub_m["index"], rels, tuple(sub_m["fps"])))

@@ -315,6 +315,86 @@ def test_async_stream_shed_windows_resolve_futures():
     assert reqs[-1].done and reqs[-1].result is not None
 
 
+# -- a steal, then a death before the next checkpoint ----------------------
+
+class _GatedServer(JoinServer):
+    """A JoinServer whose steps serve nothing until its ``gate`` is set,
+    and which records the query id of every request it serves."""
+
+    def __init__(self, **kw):
+        super().__init__(**kw)
+        self.gate = threading.Event()
+        self.served: list = []
+
+    def step(self):
+        return super().step() if self.gate.is_set() else 0
+
+    def _run_batch(self, cls, batch):
+        self.served += [r.query_id for r in batch]
+        super()._run_batch(cls, batch)
+
+
+def test_steal_then_death_before_a_checkpoint_serves_each_query_once(
+        rng, tmp_path):
+    """Replica0 holds two tenants' requests, all in its newest checkpoint;
+    replica1 steals one tenant, and replica0 dies before it checkpoints
+    again.  The successor restores that checkpoint: it must serve the
+    other tenant's requests (whose futures failed with replica0) and not
+    the stolen ones, which the thief serves.  Every query id is served
+    once, and the live fleet's queries equal the futures returned plus the
+    futures failed (the JAX package's fleet serves the stolen ones twice
+    here).  The locks held make the interleaving the same on every run."""
+    from repro_torch.runtime.fault import InjectedFault
+
+    fd = AsyncJoinFrontDoor(replicas=2, work_stealing=False,
+                            engine_factory=lambda i: _GatedServer(
+                                batch_slots=4),
+                            checkpoint_dir=str(tmp_path), device="cpu")
+    rep0, rep1 = fd.replicas
+    rep1.engine.gate.set()
+    pair = list(make_pair(rng))
+    try:
+        with fd._alock:
+            fd._assign["ta"] = fd._assign["tb"] = rep0
+        futs = {f"{t}/q{i}": fd.submit(_req(pair, QueryBudget(error=0.5),
+                                            f"{t}/q{i}", 10 + i))
+                for t in ("ta", "tb") for i in range(3)}
+        deadline = time.monotonic() + 60
+        while True:         # replica0's newest checkpoint holds all six
+            with rep0._elock:
+                if len(rep0.engine.queue) == 6 and not rep0._ingress \
+                        and not rep0._dirty:
+                    break
+            assert time.monotonic() < deadline, "replica0 never checkpointed"
+            time.sleep(0.01)
+        with fd._alock, rep0._elock:
+            rep0._ckpt_writer.join(60)
+            fd.work_stealing = True
+            assert fd._steal_for(rep1)                 # tenant ta moves
+            assert fd._assign["ta"] is rep1
+            fault = InjectedFault("replica0 dies before its next checkpoint")
+            rep0.error = fault
+            rep0._fail_pending(fault)
+            assert fd.maybe_failover() == 1
+        returned, failed = [], []
+        for qid, f in futs.items():
+            try:
+                returned.append(f.result(timeout=120).query_id)
+            except InjectedFault:
+                failed.append(qid)
+        deadline = time.monotonic() + 120
+        while rep1.backlog() and time.monotonic() < deadline:
+            time.sleep(0.01)
+        served = rep1.call(lambda: list(rep1.engine.served)).result(60)
+        queries = rep1.snapshot()["queries"]
+    finally:
+        fd.close(timeout=60)
+    assert sorted(returned) == [f"ta/q{i}" for i in range(3)]
+    assert sorted(failed) == [f"tb/q{i}" for i in range(3)]
+    assert sorted(served) == sorted(futs)             # each id once
+    assert queries == len(returned) + len(failed)
+
+
 # -- the launcher's fault drill ----------------------------------------------
 
 def test_launcher_fault_drill_on_the_cpu(tmp_path):
@@ -338,8 +418,8 @@ def test_launcher_fault_drill_on_the_cpu(tmp_path):
                   out.stdout)
     assert m, out.stdout
     failovers, failed, fleet, returned, failed2 = map(int, m.groups())
-    # how many futures fail depends on how much of replica0's queue the
-    # idle replica stole before the kill; none may be lost either way
+    # replica0 keeps its tenants until the failover (the drill steals
+    # nothing meanwhile); none of their queries may be lost or served twice
     assert failovers == 1 and failed == failed2
     assert returned + failed == 16
     assert fleet == returned + failed

@@ -649,3 +649,99 @@ def test_mesh_server_on_card_equals_meshless(card, tmp_path, world, backend):
     assert got["sigma"] == want["sigma"]
     gathered = got["snaps"][-1]["kernel_gather_bytes"]
     assert (gathered == 0) if world == 1 else (gathered > 0)
+
+
+# -- the rest of the mesh on the card: streams (plain and kernel route),
+# -- plans, snapshots and the streaming drill on mesh servers ---------------
+SLICE_SUB = 1 << 12
+
+
+def _slice_batches(n_ticks, n=SLICE_SUB, seed=11):
+    rng = np.random.default_rng(seed)
+    return [[(rng.integers(lo, hi, n).astype(np.uint32),
+              rng.normal(10, 3, n).astype(np.float32))
+             for lo, hi in ((0, 3000), (2000, 5000))]
+            for _ in range(n_ticks)]
+
+
+SLICE_STREAMS = [dict(name=name, spec=(4, 1, SLICE_SUB), budget=(None, 0.5),
+                      mode="exact-parity", kernels=kernels, ms=4096, bm=256,
+                      seed=5, batches=_slice_batches(6))
+                 for name, kernels in (("kern", True), ("plain", False))]
+SLICE_PAIRS = [[(k, v, np.ones(len(k), bool)) for k, v in tick]
+               for tick in _slice_batches(2, n=1 << 13, seed=12)]
+SLICE_PLAN = [(k, v, np.ones(len(k), bool))
+              for tick in _slice_batches(2, n=1 << 12, seed=13)
+              for k, v in tick]
+SLICE_DRILL = _slice_batches(6, n=256, seed=14)
+_SLICE: dict = {}
+
+
+def _slice_run(card, tmp_path, world, backend):
+    """One spawn a mesh: every case of the slice on it (see
+    ``torch_dist.card_rank``); the drill on meshes of more than 1 rank."""
+    import torch_dist
+    _mesh_cards(world, backend)
+    key = (world, backend)
+    if key not in _SLICE:
+        _SLICE[key] = torch_dist.spawn(
+            torch_dist.card_rank, world,
+            (SLICE_STREAMS, SLICE_PLAN, SLICE_PAIRS, SLICE_DRILL,
+             str(tmp_path / "ckpt"), 256, world > 1), tmp_path,
+            device="cuda", backend=backend)[0]
+    return _SLICE[key]
+
+
+@pytest.mark.parametrize("world,backend", MESH_WORLDS)
+def test_mesh_stream_on_card_equals_meshless(card, tmp_path, world,
+                                             backend):
+    """Sliding windows on mesh servers on the card, on the kernel route
+    (the sub-window filters built by the build kernel on every rank and
+    OR-merged, the windows served on rank 0) and as mesh classes, equal
+    the meshless server's bit for bit."""
+    import torch_dist
+    got = _slice_run(card, tmp_path, world, backend)["streams"]
+    before = [c.launches for c in COUNTERS]
+    want = [torch_dist.stream_windows(StreamJoinServer(batch_slots=2), case,
+                                      card) for case in SLICE_STREAMS]
+    assert all(c.launches > b for c, b in zip(COUNTERS, before))
+    for g, w in zip(got, want):
+        assert len(g["windows"]) == len(w["windows"]) == 3
+        for a, b in zip(g["windows"], w["windows"]):
+            assert a["surface"] == b["surface"]
+            assert np.array_equal(a["n_sampled"], b["n_sampled"])
+            for x, y in zip(a["words"], b["words"]):
+                assert np.array_equal(x, y)
+        assert g["sigma"] == w["sigma"]
+    assert got[0]["diag"]["kernel_queries"] == 3
+
+
+@pytest.mark.parametrize("world,backend", MESH_WORLDS)
+def test_mesh_plan_and_snapshot_on_card(card, tmp_path, world, backend):
+    """A plan (plain, then on the kernel route) on a mesh server on the
+    card equals the meshless server's node for node, with the same byte
+    model; a loaded mesh server's snapshot restored into a meshless server
+    on the card gives the same next results as the mesh server."""
+    import torch_dist
+    got = _slice_run(card, tmp_path, world, backend)
+    want = torch_dist.serve_plan(JoinServer(batch_slots=4), SLICE_PLAN, 256,
+                                 card)
+    for g, w in zip(got["plan"]["nodes"], want["nodes"]):
+        assert {n: x[0] for n, x in g.items()} \
+            == {n: x[0] for n, x in w.items()}
+    assert got["plan"]["model"] == want["model"]
+    assert torch_dist.restored_results(lambda: JoinServer(batch_slots=4),
+                                       got["snapshot"], card) == got["next"]
+    loaded = torch_dist.loaded_server(lambda: JoinServer(batch_slots=4),
+                                      SLICE_PAIRS, 256, card)
+    assert torch_dist.next_results(loaded) == got["next"]
+
+
+@pytest.mark.parametrize("world,backend", MESH_WORLDS[1:])
+def test_mesh_drill_on_card(card, tmp_path, world, backend):
+    """The streaming drill on mesh servers on the card: one failover,
+    nothing shed, every window equal to the uninterrupted run."""
+    got = _slice_run(card, tmp_path, world, backend)["drill"]
+    assert got["failovers"] == 1 and got["shed"] == 0
+    assert got["out"] == got["baseline"] and len(got["out"]) == 3
+    assert got["dead_stopped"]

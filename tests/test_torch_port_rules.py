@@ -3,8 +3,10 @@
 * ``repro_torch`` and ``chip_smoke.py`` import neither JAX nor ``repro``;
 * the card is the default device: without CUDA, building a relation with the
   default device raises instead of landing on the CPU, and so do the
-  serving launcher (sync, ``--async`` and ``--mesh``) and the streaming
-  launcher unless ``--device cpu`` asks for the CPU;
+  serving launcher (sync, ``--async``, ``--mesh`` and both together) and
+  the streaming launcher (with and without ``--mesh``) unless ``--device
+  cpu`` asks for the CPU;
+* no mesh server refuses what a meshless one serves;
 * a CPU tensor takes a kernel's plain version and launches nothing;
 * ``chip_smoke.py`` fails, printing no result, without a card or without the
   rest of the repository;
@@ -135,6 +137,62 @@ def test_mesh_launcher_without_a_card_fails_and_serves_nothing():
     assert out.returncode == 0, out.stderr
     assert "on mesh[2] gloo on cpu" in out.stdout
     assert "dist_shuffled_tuple_bytes=" in out.stdout
+
+
+def test_async_mesh_launcher_without_a_card_fails_and_serves_nothing(
+        tmp_path):
+    """``--async --mesh 2`` hidden from every card raises before it starts
+    a rank or a replica; given ``--device cpu --dist-backend gloo`` its
+    fleet of mesh servers serves on two CPU ranks, and its drill fails
+    replica0 over once, every query served once."""
+    small = ("--async", "--mesh", "2", "--tenants", "2",
+             "--queries-per-tenant", "2", "--base-n", "256")
+    out = _launch_without_a_card("repro_torch.launch.join_serve", *small)
+    assert out.returncode != 0
+    assert "no CUDA card" in out.stderr
+    assert "[join-serve" not in out.stdout
+    out = _launch_without_a_card(
+        "repro_torch.launch.join_serve", *small, "--device", "cpu",
+        "--dist-backend", "gloo", "--checkpoint-dir", str(tmp_path / "ck"),
+        "--kill-after", "1")
+    assert out.returncode == 0, out.stderr
+    assert "on mesh[2] gloo on cpu x2 replicas" in out.stdout
+    # replica0 dies at its first step and fails over onto the mesh; no
+    # query is lost or served twice
+    m = re.search(r"failovers=(\d+) futures_failed=(\d+) .*live fleet "
+                  r"queries=(\d+) = (\d+) returned \+ (\d+) failed",
+                  out.stdout)
+    assert m, out.stdout
+    failovers, failed, fleet, returned, failed2 = map(int, m.groups())
+    assert failovers == 1 and failed == failed2
+    assert fleet == returned + failed and returned + failed == 4
+
+
+def test_stream_mesh_launcher_without_a_card_fails_and_streams_nothing():
+    """``join_stream --mesh 2`` hidden from every card raises before it
+    starts a rank; on two gloo CPU ranks it streams to the end."""
+    small = ("--mesh", "2", "--tenants", "1", "--pushes", "5",
+             "--sub-rows", "256")
+    out = _launch_without_a_card("repro_torch.launch.join_stream", *small)
+    assert out.returncode != 0
+    assert "no CUDA card" in out.stderr
+    assert "[join-stream]" not in out.stdout
+    out = _launch_without_a_card("repro_torch.launch.join_stream", *small,
+                                 "--device", "cpu", "--dist-backend", "gloo",
+                                 "--serve-mode", "psum")
+    assert out.returncode == 0, out.stderr
+    assert "on mesh[2] gloo on cpu (psum)" in out.stdout
+    assert "dist_shuffled_tuple_bytes=" in out.stdout
+
+
+def test_mesh_servers_refuse_nothing_the_meshless_ones_serve():
+    """No mesh refusal is left in the port: plans, prebuilt window words,
+    snapshots and restores are served on a mesh too."""
+    pat = re.compile(r"_check_meshless|not ported yet|ROADMAP A5b")
+    bad = [f"{f}:{i + 1}" for f in sorted(PORT.rglob("*.py"))
+           for i, line in enumerate(f.read_text().splitlines())
+           if pat.search(line)]
+    assert bad == []
 
 
 def test_stream_launcher_without_a_card_fails_and_streams_nothing():
