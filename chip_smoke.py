@@ -154,7 +154,28 @@ Phases, each of which fails the run (non-zero exit, no result line):
    in the phase's mesh runs.  Every kernel call of the phase (the
    meshless references', mesh 1's and each rank's) keeps its operands at
    each new shape, and after the path each is held against its plain
-   version on them on the process that made it, bit for bit.
+   version on them on the process that made it, bit for bit;
+12. the model stack (``repro_torch.models``; no kernel of the port): (a)
+   ``qwen3-1.7b`` at full width and depth, its float32 weights made on the
+   card from a seeded ``torch.Generator``: a forward of [2, 4096] tokens
+   (the chunked attention), timed warm, with its peak memory; 8 sequences
+   decoded for 128 steps from an empty cache of 4,096 positions, every
+   step's logits within 0.08 of the scale of a forward's over the same
+   tokens (the reference's own bound, ``tests/test_models.py``) in float32
+   (the bf16 figure printed), timed in bf16 with its peak against the
+   weights' and the cache's bytes and the device busy share of 16 profiled
+   steps; (b) the other nine configs at full width, their depth cut to two
+   pattern periods (one for a pattern of three; whisper whole, 12 + 12
+   layers over 1,500 frames), a forward of [2, 512] (phi-3-vision with its
+   576 image tokens) and 32 decode steps held the same way in float32 and
+   in bf16 (an MoE's bf16 figure printed: a rounding step can flip a top-k
+   choice); (c) every config's ``reduced()`` form, weights made on the CPU
+   and carried to the card through the JAX package's pytree layout
+   (``params_to_jax`` / ``params_from_jax``), forward and decode on the
+   card against the CPU in float32 (within 1e-4 of the scale, 1e-3 for the
+   scans) and in bf16 (mean within 2e-2, largest 0.08; not the MoE); (d)
+   the three join examples (``examples/torch_*.py``), each a process on
+   the card, each exiting 0 with its own check.
 
 It then prints one line ``{"kernels": [...]}`` and, last,
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -3172,8 +3193,381 @@ def slice_phase(rels, torch, wrappers):
     return launches, calls
 
 
+# phase 12: the model stack's forward and decode (``repro_torch.models``).
+# (a) qwen3-1.7b whole: a forward of [2, 4096] tokens (the chunked
+# attention), then 8 sequences decoded for 128 steps from an empty cache of
+# 4,096 positions; (b) the other nine configs at full width with their
+# depth cut (``model_cut``); (c) every config's ``reduced()`` form on the
+# card against the CPU; (d) the three join examples on the card.
+MODEL_MAIN = "qwen3-1.7b"
+MODEL_PREFILL = (2, 4096)
+MODEL_DECODE = (8, 128)          # sequences, steps
+MODEL_MAX_SEQ = 4096
+MODEL_PROFILE_STEPS = 16
+OTHER_PREFILL = (2, 512)
+OTHER_DECODE = (2, 32)
+SMALL_MODEL = (2, 16)            # (c): batch, tokens and decode steps
+# a decode step's logits against the teacher-forced forward's, relative to
+# the latter's largest magnitude: the reference's own bound
+# (tests/test_models.py); the card against the CPU in bf16 (the mean and
+# the largest difference) and in float32, as the CPU tests hold the port to
+# the JAX package (tests/torch_models_parity.py)
+DECODE_BOUND = 0.08
+BF16_MEAN, BF16_MAX = 2e-2, 0.08
+F32_TOL = {"ssm": 1e-3, "hybrid": 1e-3}   # by family; 1e-4 otherwise
+EXAMPLES = ("torch_quickstart", "torch_network_flows", "torch_tpch_budget")
+EXAMPLE_TIMEOUT_S = 300
+
+
+def model_cut(cfg):
+    """(the config phase 12 (b) runs, the cut as words): full width, depth
+    cut to two pattern periods, one for a pattern of three; whisper
+    whole."""
+    import dataclasses
+    if cfg.is_encdec:
+        return cfg, (f"whole: {cfg.encoder.n_layers} + {cfg.n_layers} layers,"
+                     f" {cfg.encoder.n_frames} frames")
+    period = len(cfg.mixer_pattern)
+    n = period * (1 if period >= 3 else 2)
+    return dataclasses.replace(cfg, n_layers=n), \
+        f"depth {cfg.n_layers} -> {n} ({n // period} x {cfg.mixer_pattern})"
+
+
+def model_inputs(torch, cfg, B, T, gen):
+    """Random tokens and the stub frontends' inputs, on the card."""
+    from repro_torch.models.model import CLIP_DIM
+    dev = gen.device
+    b = {"tokens": torch.randint(0, cfg.vocab, (B, T), generator=gen,
+                                 device=dev)}
+    if cfg.num_img_tokens:
+        b["img_embeds"] = torch.randn((B, cfg.num_img_tokens, CLIP_DIM),
+                                      generator=gen, device=dev)
+    if cfg.is_encdec:
+        e = cfg.encoder
+        b["frames"] = torch.randn((B, e.n_frames, e.d_input), generator=gen,
+                                  device=dev)
+    return b
+
+
+def tensor_bytes(tree) -> int:
+    if hasattr(tree, "element_size"):
+        return tree.numel() * tree.element_size()
+    items = tree.values() if isinstance(tree, dict) else tree
+    return sum(tensor_bytes(t) for t in items)
+
+
+def decode_errors(torch, model, b, steps, max_seq):
+    """Largest error of ``steps`` decode steps' logits from an empty cache
+    against the teacher-forced forward's at each position (its largest
+    magnitude the scale), as a float; and whether all are finite.  A VLM
+    decodes without its image prefix, so its forward is the text-only one
+    of the same weights."""
+    import dataclasses
+    cfg = model.cfg
+    toks = b["tokens"][:, :steps]
+    model.cfg = dataclasses.replace(cfg, num_img_tokens=0)
+    try:
+        want, _ = model.forward({**b, "tokens": toks})
+    finally:
+        model.cfg = cfg
+    cache = model.init_cache(toks.shape[0], max_seq, b.get("frames"))
+    errs = torch.empty(steps, device=toks.device)
+    finite = torch.ones((), dtype=torch.bool, device=toks.device)
+    for t in range(steps):
+        got, cache = model.decode_step(toks[:, t], cache)
+        w = want[:, t]
+        errs[t] = (got - w).abs().max() / w.abs().max()
+        finite &= torch.isfinite(got).all()
+    return float(errs.max()), bool(finite)
+
+
+def main_model(torch, gen):
+    """Phase 12 (a): qwen3-1.7b whole on the card."""
+    from repro_torch.models import ARCHS, Model
+    cfg = ARCHS[MODEL_MAIN]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    model = Model(cfg, device="cuda", generator=gen)
+    torch.cuda.synchronize()
+    weights = tensor_bytes(list(model.parameters()))
+    n_params = sum(p.numel() for p in model.parameters())
+    print(f"model {MODEL_MAIN}: {cfg.n_layers} layers, d_model {cfg.d_model},"
+          f" {cfg.n_heads}/{cfg.n_kv_heads} heads of {cfg.hd}, d_ff "
+          f"{cfg.d_ff}, vocab {cfg.vocab}, attn_chunk {cfg.attn_chunk}: "
+          f"{n_params} float32 parameters ({weights / 1e9:.3f} GB) "
+          f"initialised on the card in {time.perf_counter() - t0:.3f} s")
+    out = {"arch": MODEL_MAIN, "params": n_params, "weight_bytes": weights}
+    # prefill: the first forward pays the library's set-up, the second is
+    # the steady one
+    B, T = MODEL_PREFILL
+    b = model_inputs(torch, cfg, B, T, gen)
+    for rnd in ("first", "warm"):
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        logits, _ = model.forward(b)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        check(tuple(logits.shape) == (B, T, cfg.vocab),
+              f"model prefill: logits {tuple(logits.shape)}")
+        check(bool(torch.isfinite(logits).all()),
+              "model prefill: logits not finite")
+        del logits
+        print(f"model prefill {rnd} [{B}, {T}]: {dt:.4f} s = "
+              f"{B * T / dt:.1f} tokens/s; peak device memory "
+              f"{peak / 1e9:.3f} GB ({(peak - base) / 1e9:.3f} above the "
+              f"weights' {weights / 1e9:.3f} GB)")
+    out.update(prefill_s=dt, prefill_tokens_per_s=B * T / dt,
+               prefill_peak_bytes=peak)
+    # decode: 8 sequences from an empty cache of 4,096 positions, every
+    # step held against the forward over the same 128 tokens, in float32
+    # (the port's compute dtype switched, the cache's with it); in bf16 the
+    # two paths' rounding steps, amplified through 28 layers, part them by
+    # more than the bound (PERF.md), so the bf16 figure is printed
+    B, steps = MODEL_DECODE
+    b = model_inputs(torch, cfg, B, steps, gen)
+    with compute_dtype(torch.float32):
+        err, finite = decode_errors(torch, model, b, steps, MODEL_MAX_SEQ)
+    check(finite, "model decode: float32 logits not finite")
+    check(err < DECODE_BOUND, f"model decode: a step's float32 logits {err} "
+          f"of the scale from the forward's (bound {DECODE_BOUND})")
+    err16, finite = decode_errors(torch, model, b, steps, MODEL_MAX_SEQ)
+    check(finite, "model decode: bf16 logits not finite")
+    torch.cuda.empty_cache()
+
+    def loop(n):
+        cache = model.init_cache(B, MODEL_MAX_SEQ)
+        for t in range(n):
+            _, cache = model.decode_step(b["tokens"][:, t], cache)
+        torch.cuda.synchronize()
+        return cache
+
+    cache_bytes = tensor_bytes(model.cache_shape(B, MODEL_MAX_SEQ)["blocks"])
+    loop(4)                         # warm
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    loop(steps)
+    dt = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    step_ms = dt / steps * 1e3
+    print(f"model decode [{B} sequences, {steps} steps, cache of "
+          f"{MODEL_MAX_SEQ}]: {step_ms:.4f} ms a step = {B * steps / dt:.1f}"
+          f" tokens/s; every step's logits within {err:.4g} of the "
+          f"forward's scale in float32 (bound {DECODE_BOUND}), {err16:.4g} "
+          f"in bf16 (not held); peak device memory "
+          f"{peak / 1e9:.3f} GB against the weights' {weights / 1e9:.3f} GB "
+          f"+ the cache's {cache_bytes / 1e9:.3f} GB")
+    wall_us, by_name = device_profile(
+        torch, lambda: loop(MODEL_PROFILE_STEPS))
+    busy = sum(us for us, _ in by_name.values())
+    if by_name:
+        print(f"model decode profile ({MODEL_PROFILE_STEPS} steps): wall "
+              f"{wall_us / 1e3:.3f} ms under the profiler, device busy "
+              f"{busy / 1e3:.3f} ms ({100 * busy / wall_us:.1f}%), "
+              f"{sum(n for _, n in by_name.values())} device events")
+        for name, (us, n) in sorted(by_name.items(),
+                                    key=lambda kv: -kv[1][0])[:8]:
+            print(f"  {us / 1e3:9.4f} ms {n:6d}x  {name[:90]}")
+    else:
+        print("model decode profile: the profiler recorded no device time "
+              "(not measured)")
+    out.update(decode_ms_per_step=step_ms, decode_tokens_per_s=B * steps / dt,
+               decode_max_err=err, decode_max_err_bf16=err16,
+               decode_peak_bytes=peak,
+               cache_bytes=cache_bytes,
+               decode_busy_share=busy / wall_us if by_name else None)
+    return out
+
+
+def other_models(torch, gen):
+    """Phase 12 (b): the other nine configs at full width, depth cut."""
+    from repro_torch.models import ARCHS, Model
+    out = {}
+    for name, full in ARCHS.items():
+        if name == MODEL_MAIN:
+            continue
+        cfg, cut = model_cut(full)
+        print(f"model cut {name}: {cut}")
+        torch.cuda.empty_cache()
+        model = Model(cfg, device="cuda", generator=gen)
+        weights = tensor_bytes(list(model.parameters()))
+        B, T = OTHER_PREFILL
+        b = model_inputs(torch, cfg, B, T, gen)
+        model.forward(b)                    # warm
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        logits, aux = model.forward(b)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        check(tuple(logits.shape) == (B, T, cfg.vocab),
+              f"model {name}: logits {tuple(logits.shape)}")
+        check(bool(torch.isfinite(logits).all()),
+              f"model {name}: logits not finite")
+        del logits
+        moe = (f", moe overflow {int(aux['moe_overflow'])}"
+               if "moe_overflow" in aux else "")
+        Bd, steps = OTHER_DECODE
+        bd = model_inputs(torch, cfg, Bd, steps, gen)
+        errs = {}
+        for label, dtype in (("float32", torch.float32),
+                             ("bf16", torch.bfloat16)):
+            with compute_dtype(dtype):
+                err, finite = decode_errors(torch, model, bd, steps, steps)
+            check(finite, f"model {name} decode: {label} logits not finite")
+            # in bf16 a rounding step can flip an MoE's top-k choice between
+            # the two paths: its bf16 figure is printed, not held
+            check(err < DECODE_BOUND or (label == "bf16" and cfg.moe),
+                  f"model {name} decode: a step's {label} logits {err} of "
+                  f"the scale from the forward's")
+            errs[label] = err
+        prefix = (f" (+{cfg.num_img_tokens} image tokens)"
+                  if cfg.num_img_tokens else "")
+        print(f"model {name}: {weights / 1e9:.3f} GB of weights; forward "
+              f"[{B}, {T}]{prefix} {dt:.4f} s = {B * T / dt:.1f} tokens/s, "
+              f"peak {peak / 1e9:.3f} GB{moe}; {steps} decode steps of {Bd} "
+              f"within {errs['float32']:.4g} (float32) and "
+              f"{errs['bf16']:.4g} (bf16{', not held' if cfg.moe else ''}) "
+              f"of the forward's scale")
+        out[name] = {"cut": cut, "forward_s": dt, "peak_bytes": peak,
+                     "decode_max_err": errs}
+        del model
+    return out
+
+
+class compute_dtype:
+    """Both the card and the CPU compute in ``dtype`` (the port's module
+    constants; the KV cache's dtype is bound as a default)."""
+
+    def __init__(self, dtype):
+        from repro_torch.models import layers, moe, rglru, ssm
+        self.mods, self.dtype = (layers, moe, ssm, rglru), dtype
+        self.layers = layers
+
+    def __enter__(self):
+        self.saved = [m.COMPUTE_DTYPE for m in self.mods]
+        self.defaults = self.layers.init_kv_cache.__defaults__
+        for m in self.mods:
+            m.COMPUTE_DTYPE = self.dtype
+        self.layers.init_kv_cache.__defaults__ = (self.dtype, "cuda")
+
+    def __exit__(self, *exc):
+        for m, d in zip(self.mods, self.saved):
+            m.COMPUTE_DTYPE = d
+        self.layers.init_kv_cache.__defaults__ = self.defaults
+
+
+def small_models_card_vs_cpu(torch):
+    """Phase 12 (c): every config's ``reduced()`` form, weights made on the
+    CPU from a seed, carried to the card through the JAX package's pytree
+    layout (``params_to_jax`` / ``params_from_jax``), forward and decode on
+    both; float32 at the CPU tests' tight tolerance, bf16 at their loose
+    one (the MoE configs in float32 only: a bf16 rounding step can flip a
+    top-k expert choice)."""
+    from repro_torch.models import ARCHS, Model
+    from repro_torch.models.convert import params_from_jax, params_to_jax
+    worst = {}
+    for i, (name, full) in enumerate(ARCHS.items()):
+        cfg = full.reduced()
+        cpu = Model(cfg, device="cpu",
+                    generator=torch.Generator().manual_seed(SEED + i))
+        card = params_from_jax(cfg, params_to_jax(cpu), device="cuda")
+        B, T = SMALL_MODEL
+        b = model_inputs(torch, cfg, B, T,
+                         torch.Generator().manual_seed(SEED + i))
+        dtypes = [("float32", torch.float32)] + (
+            [] if cfg.moe else [("bf16", torch.bfloat16)])
+        for label, dtype in dtypes:
+            with compute_dtype(dtype):
+                got = [x.cpu() for x in run_small(
+                    torch, card, {k: v.cuda() for k, v in b.items()}, T)]
+                want = run_small(torch, cpu, b, T)
+            errs = []
+            for w, g in zip(want, got):
+                d = (g.double() - w.double()).abs()
+                scale = float(w.abs().max())
+                errs.append((float(d.max()) / scale, float(d.mean()) / scale))
+            if label == "float32":
+                tol = F32_TOL.get(cfg.family, 1e-4)
+                ok = all(e <= tol for e, _ in errs)
+            else:
+                ok = all(e <= BF16_MAX and m <= BF16_MEAN for e, m in errs)
+            check(ok, f"model {name} reduced, {label}: card against CPU "
+                  f"(largest, mean) of forward and decode {errs}")
+            worst[f"{name}/{label}"] = max(e for e, _ in errs)
+    print(f"model reduced configs, card against CPU (largest error of "
+          f"forward and decode logits over their scale): "
+          f"{json.dumps(worst)}")
+    return worst
+
+
+def run_small(torch, model, b, steps):
+    """(forward logits, ``steps`` decode steps' logits) of ``model``."""
+    logits, _ = model.forward(b)
+    cache = model.init_cache(b["tokens"].shape[0], steps, b.get("frames"))
+    dec = []
+    for t in range(steps):
+        step, cache = model.decode_step(b["tokens"][:, t], cache)
+        dec.append(step)
+    return logits, torch.stack(dec, 1)
+
+
+def run_examples(torch):
+    """Phase 12 (d): the three join examples, each a process on the card,
+    all at once; each must exit 0 and print its own check."""
+    env = {**os.environ, "PYTHONPATH": os.path.join(ROOT, "src")}
+    t0 = time.perf_counter()
+    procs = {name: subprocess.Popen(
+        [sys.executable, os.path.join(ROOT, "examples", f"{name}.py")],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, cwd=ROOT,
+        env=env) for name in EXAMPLES}
+    outs = {}
+    try:
+        for name, p in procs.items():
+            outs[name] = p.communicate(timeout=EXAMPLE_TIMEOUT_S)
+    finally:
+        for p in procs.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    kind = torch.cuda.get_device_name(0)
+    for name, (stdout, stderr) in outs.items():
+        rc = procs[name].returncode
+        check(rc == 0, f"example {name} exited {rc}: {stderr[-2000:]}")
+        check(stdout.startswith(f"on {kind}"),
+              f"example {name} did not run on the card: {stdout[:200]}")
+        check("[OK]" in stdout, f"example {name} printed no check")
+        for line in stdout.strip().splitlines():
+            print(f"  {name}: {line}")
+    print(f"examples: {len(outs)} on the card in "
+          f"{time.perf_counter() - t0:.1f} s, each exited 0 with its check")
+
+
+def model_phase(torch):
+    """Phase 12: the model stack's forward and decode on the card, and the
+    join examples.  Returns the numbers it printed."""
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    out = {"main": main_model(torch, gen)}
+    torch.cuda.empty_cache()
+    out["others"] = other_models(torch, gen)
+    torch.cuda.empty_cache()
+    out["card_vs_cpu"] = small_models_card_vs_cpu(torch)
+    run_examples(torch)
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"model: no kernel of the port runs on this path; phase 12 took "
+          f"{out['seconds']:.1f} s")
+    print(f"model summary: {json.dumps(out)}")
+    return out
+
+
 def main() -> int:
-    """Phases 1-11."""
+    """Phases 1-12."""
     t_start = time.perf_counter()
     import torch
 
@@ -3291,7 +3685,9 @@ def main() -> int:
         ln["phase11_launches"] = sliced[ln["name"]]
         ln["phase11_shapes"] = sorted({c["shape"] for c in calls
                                        if c["kernel"] == ln["name"]})
-    print(f"chip_smoke: phases 1-11 took {time.perf_counter() - t_start:.1f} s")
+    # --- phase 12: the model stack and the examples -------------------------
+    model_phase(torch)
+    print(f"chip_smoke: phases 1-12 took {time.perf_counter() - t_start:.1f} s")
 
     print(json.dumps({"kernels": lines}))
     print(json.dumps({"ok": True, "device": {

@@ -1,0 +1,115 @@
+"""Whisper-small encoder-decoder (the [audio] arch): the port of the JAX
+package's ``models/encdec.py``.
+
+The conv frontend is a STUB: precomputed mel frames [B, n_frames, d_input]
+come in; a linear projection stands in for the two convs.  Positions are
+sinusoidal for both stacks (whisper uses learned decoder positions; the
+reference's deviation, kept).  Norms are LayerNorm (with bias), pre-norm
+arrangement, GELU MLP.
+
+Encoder: bidirectional attention over frames.  Decoder: causal
+self-attention + cross-attention to encoder output; decode caches self-KV
+per layer, cross-KV precomputed once at prefill.  Both stacks are
+``nn.ModuleList``s run by a loop (the reference scans them).
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+from torch import nn
+
+from repro_torch.models import layers as L
+
+
+def init_enc_block(init, cfg) -> L.Params:
+    return L.Params(pre_attn=L.layernorm_init(init, cfg.d_model),
+                    attn=L.init_attention(init, cfg),
+                    pre_mlp=L.layernorm_init(init, cfg.d_model),
+                    mlp=L.init_mlp(init, cfg))
+
+
+def init_dec_block(init, cfg) -> L.Params:
+    return L.Params(pre_self=L.layernorm_init(init, cfg.d_model),
+                    self_attn=L.init_attention(init, cfg),
+                    pre_cross=L.layernorm_init(init, cfg.d_model),
+                    cross_attn=L.init_attention(init, cfg),
+                    pre_mlp=L.layernorm_init(init, cfg.d_model),
+                    mlp=L.init_mlp(init, cfg))
+
+
+def init_encdec(init, cfg) -> L.Params:
+    enc = cfg.encoder
+    return L.Params(
+        frame_proj=init.dense((enc.d_input, cfg.d_model)),
+        enc_blocks=nn.ModuleList([init_enc_block(init, cfg)
+                                  for _ in range(enc.n_layers)]),
+        enc_norm=L.layernorm_init(init, cfg.d_model),
+        dec_blocks=nn.ModuleList([init_dec_block(init, cfg)
+                                  for _ in range(cfg.n_layers)]),
+    )
+
+
+def encode(p, frames, cfg) -> torch.Tensor:
+    """frames [B, F, d_input] -> encoder states [B, F, d]."""
+    B, F, _ = frames.shape
+    x = frames.to(L.COMPUTE_DTYPE) @ p["frame_proj"].to(L.COMPUTE_DTYPE)
+    x = x + L.sinusoidal_embedding(
+        torch.arange(F, dtype=torch.int32, device=frames.device),
+        cfg.d_model).to(x.dtype)
+    for bp in p["enc_blocks"]:
+        h = L.layernorm(bp["pre_attn"], x, cfg.norm_eps)
+        x = x + L.attention_train(bp["attn"], h, cfg, kind="full")
+        h = L.layernorm(bp["pre_mlp"], x, cfg.norm_eps)
+        x = x + L.mlp(bp["mlp"], h, cfg)
+    return L.layernorm(p["enc_norm"], x, cfg.norm_eps)
+
+
+def decode_train(p, x, enc_out, cfg, positions) -> torch.Tensor:
+    """Teacher-forced decoder pass: x [B, T, d] token embeddings."""
+    for bp in p["dec_blocks"]:
+        h = L.layernorm(bp["pre_self"], x, cfg.norm_eps)
+        x = x + L.attention_train(bp["self_attn"], h, cfg, kind="causal",
+                                  positions=positions)
+        h = L.layernorm(bp["pre_cross"], x, cfg.norm_eps)
+        kv = L.cross_kv(bp["cross_attn"], enc_out, cfg)
+        x = x + L.attention_train(bp["cross_attn"], h, cfg, kind="cross",
+                                  kv=kv)
+        h = L.layernorm(bp["pre_mlp"], x, cfg.norm_eps)
+        x = x + L.mlp(bp["mlp"], h, cfg)
+    return x
+
+
+class EncDecCache(NamedTuple):
+    self_kv: list            # one L.KVCache a decoder layer
+    cross_k: list            # one [B, F, Hk, hd] a decoder layer
+    cross_v: list
+
+
+def init_encdec_cache(p, enc_out, cfg, batch: int, max_seq: int):
+    """Precompute cross-KV from encoder output; allocate self cache."""
+    ck, cv = zip(*[L.cross_kv(bp["cross_attn"], enc_out, cfg)
+                   for bp in p["dec_blocks"]])
+    self_kv = [L.init_kv_cache(cfg, batch, max_seq, "causal",
+                               device=enc_out.device)
+               for _ in range(cfg.n_layers)]
+    return EncDecCache(self_kv, list(ck), list(cv))
+
+
+def decode_step(p, x, cfg, cache: EncDecCache) -> tuple:
+    """One-token decoder step: x [B, 1, d] -> (x, new cache)."""
+    new_self = []
+    for bp, skv, ck, cv in zip(p["dec_blocks"], cache.self_kv,
+                               cache.cross_k, cache.cross_v):
+        h = L.layernorm(bp["pre_self"], x, cfg.norm_eps)
+        mx, nkv = L.attention_decode(bp["self_attn"], h, cfg, skv,
+                                     kind="causal")
+        x = x + mx
+        h = L.layernorm(bp["pre_cross"], x, cfg.norm_eps)
+        x = x + L.attention_train(bp["cross_attn"], h, cfg, kind="cross",
+                                  kv=(ck, cv))
+        h = L.layernorm(bp["pre_mlp"], x, cfg.norm_eps)
+        x = x + L.mlp(bp["mlp"], h, cfg)
+        new_self.append(nkv)
+    return x, EncDecCache(new_self, cache.cross_k, cache.cross_v)

@@ -1,0 +1,344 @@
+"""Shared neural layers: norms, rotary embedding, attention (GQA/MQA with
+every assigned-arch option), dense MLP variants.  The port of the JAX
+package's ``models/layers.py``, function for function.
+
+Parameters live in :class:`Params` modules whose attributes carry the
+reference's pytree names (``p["wq"]``), so a layer's code reads as the
+reference's.  Compute dtype is bf16 with f32 softmax/norm accumulations;
+params are f32 (cast at use — the standard mixed-precision recipe).
+Attention is plain torch (einsum, a float32 softmax and, where
+``attn_chunk`` divides a longer sequence, the chunked online softmax), as
+the reference computes it with ``jnp`` outside any Pallas kernel.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import NamedTuple, Optional
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+COMPUTE_DTYPE = torch.bfloat16
+
+
+class Params(nn.Module):
+    """One layer's parameters as a module: float32 tensors and sub-layers
+    under the reference pytree's names, read as ``p["name"]``.  Frozen: this
+    slice runs forward and decode only, so no autograd graph is kept."""
+
+    def __init__(self, **items):
+        super().__init__()
+        for name, v in items.items():
+            if not isinstance(v, nn.Module):
+                v = nn.Parameter(v, requires_grad=False)
+            setattr(self, name, v)
+
+    def __getitem__(self, name: str):
+        return getattr(self, name)
+
+    def __contains__(self, name: str) -> bool:
+        return name in self._parameters or name in self._modules
+
+
+class Init:
+    """Seeded parameter initialiser on one device (the reference's
+    ``jax.random`` keys become one ``torch.Generator``; the draws differ,
+    the distributions are the reference's)."""
+
+    def __init__(self, device, generator: torch.Generator):
+        self.device, self.gen = torch.device(device), generator
+
+    def normal(self, shape, scale: float = 1.0) -> torch.Tensor:
+        return torch.randn(shape, generator=self.gen, device=self.device,
+                           dtype=torch.float32) * scale
+
+    def uniform(self, shape, lo: float, hi: float) -> torch.Tensor:
+        u = torch.rand(shape, generator=self.gen, device=self.device,
+                       dtype=torch.float32)
+        return lo + (hi - lo) * u
+
+    def dense(self, shape, in_axis: int = 0) -> torch.Tensor:
+        return self.normal(shape, 1.0 / math.sqrt(shape[in_axis]))
+
+    def zeros(self, shape) -> torch.Tensor:
+        return torch.zeros(shape, dtype=torch.float32, device=self.device)
+
+    def full(self, shape, value: float) -> torch.Tensor:
+        return torch.full(shape, value, dtype=torch.float32,
+                          device=self.device)
+
+
+def rmsnorm_init(init: Init, d: int) -> Params:
+    return Params(scale=init.full((d,), 1.0))
+
+
+def rmsnorm(p, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    xf = x.float()
+    var = torch.mean(xf * xf, dim=-1, keepdim=True)
+    out = xf * torch.rsqrt(var + eps) * (1.0 + p["scale"])
+    return out.to(x.dtype)
+
+
+def layernorm_init(init: Init, d: int) -> Params:
+    return Params(scale=init.full((d,), 1.0), bias=init.zeros((d,)))
+
+
+def layernorm(p, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    xf = x.float()
+    mu = torch.mean(xf, dim=-1, keepdim=True)
+    var = torch.var(xf, dim=-1, keepdim=True, correction=0)
+    out = (xf - mu) * torch.rsqrt(var + eps) * p["scale"] + p["bias"]
+    return out.to(x.dtype)
+
+
+def softcap(x: torch.Tensor, cap: Optional[float]) -> torch.Tensor:
+    if cap is None:
+        return x
+    return cap * torch.tanh(x / cap)
+
+
+# --- rotary position embedding ----------------------------------------------
+
+def rope(x: torch.Tensor, positions: torch.Tensor,
+         theta: float) -> torch.Tensor:
+    """x [..., T, H, hd]; positions [..., T] (absolute).  theta==0 -> no-op
+    (whisper uses absolute sinusoidal embeddings instead)."""
+    if theta == 0.0:
+        return x
+    hd = x.shape[-1]
+    half = hd // 2
+    freqs = theta ** (-torch.arange(0, half, dtype=torch.float32,
+                                    device=x.device) / half)
+    ang = positions[..., None].float() * freqs                 # [..., T, half]
+    cos = torch.cos(ang)[..., None, :]                         # [..., T, 1, half]
+    sin = torch.sin(ang)[..., None, :]
+    x1, x2 = x[..., :half], x[..., half:]
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], -1)
+    return out.to(x.dtype)
+
+
+def sinusoidal_embedding(positions: torch.Tensor, d: int) -> torch.Tensor:
+    half = d // 2
+    freqs = 10000.0 ** (-torch.arange(half, dtype=torch.float32,
+                                      device=positions.device)
+                        / max(half - 1, 1))
+    ang = positions[..., None].float() * freqs
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
+
+
+# --- attention ----------------------------------------------------------------
+
+class KVCache(NamedTuple):
+    """Decode cache.  ``k``/``v`` are [B, S, Hk, hd]; for local attention S is
+    the window and writes wrap (ring buffer).  ``pos`` is the absolute
+    position of the next token, int32 [B]."""
+
+    k: torch.Tensor
+    v: torch.Tensor
+    pos: torch.Tensor
+
+
+def init_attention(init: Init, cfg) -> Params:
+    d, H, Hk, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    p = {
+        "wq": init.dense((d, H * hd)),
+        "wk": init.dense((d, Hk * hd)),
+        "wv": init.dense((d, Hk * hd)),
+        "wo": init.dense((H * hd, d)),
+    }
+    if cfg.qkv_bias:
+        p["bq"] = init.zeros((H * hd,))
+        p["bk"] = init.zeros((Hk * hd,))
+        p["bv"] = init.zeros((Hk * hd,))
+    if cfg.qk_norm:
+        p["q_norm"] = rmsnorm_init(init, hd)
+        p["k_norm"] = rmsnorm_init(init, hd)
+    return Params(**p)
+
+
+def _project_qkv(p, x, cfg, positions):
+    B, T, _ = x.shape
+    H, Hk, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    c = COMPUTE_DTYPE
+    q = x @ p["wq"].to(c)
+    k = x @ p["wk"].to(c)
+    v = x @ p["wv"].to(c)
+    if cfg.qkv_bias:
+        q = q + p["bq"].to(c)
+        k = k + p["bk"].to(c)
+        v = v + p["bv"].to(c)
+    q = q.reshape(B, T, H, hd)
+    k = k.reshape(B, T, Hk, hd)
+    v = v.reshape(B, T, Hk, hd)
+    if cfg.qk_norm:
+        q = rmsnorm(p["q_norm"], q, cfg.norm_eps)
+        k = rmsnorm(p["k_norm"], k, cfg.norm_eps)
+    q = rope(q, positions, cfg.rope_theta)
+    k = rope(k, positions, cfg.rope_theta)
+    return q, k, v
+
+
+def _sdpa(q, k, v, mask, cfg):
+    """q [B,T,H,hd], k/v [B,S,Hk,hd], mask [B?,T,S] bool -> [B,T,H*hd]."""
+    B, T, H, hd = q.shape
+    S, Hk = k.shape[1], k.shape[2]
+    g = H // Hk
+    qg = q.reshape(B, T, Hk, g, hd)
+    scores = torch.einsum("btkgh,bskh->bkgts", qg, k).float()
+    scores = scores / math.sqrt(hd)
+    scores = softcap(scores, cfg.attn_softcap)
+    scores = torch.where(mask[:, None, None, :, :], scores, -1e30)
+    w = torch.softmax(scores, dim=-1).to(COMPUTE_DTYPE)
+    out = torch.einsum("bkgts,bskh->btkgh", w, v)
+    return out.reshape(B, T, H * hd)
+
+
+def _chunked_sdpa(q, k, v, pos_q, pos_k, kind: str, cfg,
+                  chunk: int) -> torch.Tensor:
+    """Flash-style online-softmax attention: a loop over KV chunks (the
+    reference's ``lax.scan``).
+
+    Never materializes the [T, S] score matrix — peak extra memory is one
+    [B, Hk, g, T, chunk] tile.
+    q [B,T,H,hd]; k/v [B,S,Hk,hd]; pos_q [B,T]; pos_k [B,S]."""
+    B, T, H, hd = q.shape
+    S, Hk = k.shape[1], k.shape[2]
+    g = H // Hk
+    qg = q.reshape(B, T, Hk, g, hd)
+    neg = -1e30
+    m = torch.full((B, Hk, g, T), neg, dtype=torch.float32, device=q.device)
+    l = torch.zeros((B, Hk, g, T), dtype=torch.float32, device=q.device)
+    acc = torch.zeros((B, Hk, g, T, hd), dtype=torch.float32,
+                      device=q.device)
+    i = pos_q[:, None, None, :, None]
+    for c0 in range(0, S, chunk):
+        kci, vci = k[:, c0:c0 + chunk], v[:, c0:c0 + chunk]
+        j = pos_k[:, None, None, None, c0:c0 + chunk]
+        s = torch.einsum("btkgh,bskh->bkgts", qg, kci).float()
+        s = softcap(s / math.sqrt(hd), cfg.attn_softcap)
+        if kind == "causal":
+            s = torch.where(j <= i, s, neg)
+        elif kind == "local":
+            s = torch.where((j <= i) & (j > i - cfg.window), s, neg)
+        m_new = torch.maximum(m, torch.amax(s, dim=-1))
+        alpha = torch.exp(m - m_new)
+        pexp = torch.exp(s - m_new[..., None])
+        l = l * alpha + torch.sum(pexp, dim=-1)
+        acc = acc * alpha[..., None] + torch.einsum(
+            "bkgts,bskh->bkgth", pexp.to(COMPUTE_DTYPE), vci).float()
+        m = m_new
+    out = acc / torch.clamp(l, min=1e-30)[..., None]
+    return out.permute(0, 3, 1, 2, 4).reshape(B, T, H * hd).to(
+        COMPUTE_DTYPE)
+
+
+def attention_train(p, x, cfg, *, kind: str, positions=None,
+                    kv: Optional[tuple] = None) -> torch.Tensor:
+    """Full-sequence attention.  kind: 'causal' | 'local' | 'full' | 'cross'.
+
+    ``kv`` (pre-projected k, v) is used for cross-attention (whisper decoder
+    over encoder states)."""
+    B, T, _ = x.shape
+    if positions is None:
+        positions = torch.arange(T, dtype=torch.int32, device=x.device)[None]
+    if kind == "cross":
+        assert kv is not None
+        k, v = kv
+        q = _project_qkv(p, x, cfg, positions)[0]
+        mask = torch.ones((B, T, k.shape[1]), dtype=torch.bool,
+                          device=x.device)
+        out = _sdpa(q, k, v, mask, cfg)
+        return out @ p["wo"].to(COMPUTE_DTYPE)
+    q, k, v = _project_qkv(p, x, cfg, positions)
+    chunk = cfg.attn_chunk
+    if chunk and T % chunk == 0 and T > chunk:
+        pos = positions.expand(B, T)
+        out = _chunked_sdpa(q, k, v, pos, pos, kind, cfg, chunk)
+        return out @ p["wo"].to(COMPUTE_DTYPE)
+    i = positions[:, :, None]
+    j = positions[:, None, :]
+    if kind == "causal":
+        mask = j <= i
+    elif kind == "local":
+        mask = (j <= i) & (j > i - cfg.window)
+    elif kind == "full":
+        mask = torch.ones((B, T, T), dtype=torch.bool, device=x.device)
+    else:
+        raise ValueError(kind)
+    out = _sdpa(q, k, v, mask, cfg)
+    return out @ p["wo"].to(COMPUTE_DTYPE)
+
+
+def cross_kv(p, enc_out, cfg):
+    """Pre-project encoder states for decoder cross-attention."""
+    B, S, _ = enc_out.shape
+    c = COMPUTE_DTYPE
+    k = (enc_out @ p["wk"].to(c)).reshape(B, S, cfg.n_kv_heads, cfg.hd)
+    v = (enc_out @ p["wv"].to(c)).reshape(B, S, cfg.n_kv_heads, cfg.hd)
+    return k, v
+
+
+def attention_decode(p, x, cfg, cache: KVCache, *, kind: str) -> tuple:
+    """One-token decode with KV cache.  kind: 'causal' (S = max context) or
+    'local' (S = window, ring buffer).  x [B, 1, d].
+
+    Writes the new key and value into ``cache.k``/``cache.v`` in place (the
+    reference returns updated copies): a copy of a 4k-token cache a layer
+    and step would move more bytes than the step's weights."""
+    B = x.shape[0]
+    S = cache.k.shape[1]
+    pos = cache.pos                                          # [B]
+    q, k_new, v_new = _project_qkv(p, x, cfg, pos[:, None])
+    if kind == "local":
+        slot = pos % S
+    else:
+        slot = torch.clamp(pos, max=S - 1)
+    bidx = torch.arange(B, device=x.device)
+    k, v = cache.k, cache.v
+    k[bidx, slot] = k_new[:, 0].to(k.dtype)
+    v[bidx, slot] = v_new[:, 0].to(v.dtype)
+    sidx = torch.arange(S, dtype=torch.int32, device=x.device)[None, :]
+    if kind == "local":
+        # absolute position last written into each slot
+        p_slot = pos[:, None] - torch.remainder(pos[:, None] - sidx, S)
+        mask = (p_slot >= 0) & (p_slot <= pos[:, None])
+    else:
+        mask = sidx <= pos[:, None]
+    out = _sdpa(q, k.to(COMPUTE_DTYPE), v.to(COMPUTE_DTYPE),
+                mask[:, None, :], cfg)
+    y = out @ p["wo"].to(COMPUTE_DTYPE)
+    return y, KVCache(k, v, pos + 1)
+
+
+def init_kv_cache(cfg, batch: int, max_seq: int, kind: str,
+                  dtype=COMPUTE_DTYPE, device="cuda") -> KVCache:
+    S = cfg.window if kind == "local" else max_seq
+    shape = (batch, S, cfg.n_kv_heads, cfg.hd)
+    return KVCache(torch.zeros(shape, dtype=dtype, device=device),
+                   torch.zeros(shape, dtype=dtype, device=device),
+                   torch.zeros((batch,), dtype=torch.int32, device=device))
+
+
+# --- dense feed-forward -------------------------------------------------------
+
+def init_mlp(init: Init, cfg) -> Params:
+    d, ff = cfg.d_model, cfg.d_ff
+    if cfg.ff_kind in ("swiglu", "geglu"):
+        return Params(wg=init.dense((d, ff)), wu=init.dense((d, ff)),
+                      wd=init.dense((ff, d)))
+    return Params(wu=init.dense((d, ff)), bu=init.zeros((ff,)),
+                  wd=init.dense((ff, d)), bd=init.zeros((d,)))
+
+
+def mlp(p, x, cfg) -> torch.Tensor:
+    c = COMPUTE_DTYPE
+    if cfg.ff_kind == "swiglu":
+        return (F.silu(x @ p["wg"].to(c)) *
+                (x @ p["wu"].to(c))) @ p["wd"].to(c)
+    if cfg.ff_kind == "geglu":
+        return (F.gelu(x @ p["wg"].to(c), approximate="tanh") *
+                (x @ p["wu"].to(c))) @ p["wd"].to(c)
+    h = F.gelu(x @ p["wu"].to(c) + p["bu"].to(c), approximate="tanh")
+    return h @ p["wd"].to(c) + p["bd"].to(c)

@@ -1,0 +1,181 @@
+"""Top-level Model: forward (prefill logits), loss and decode for every arch,
+the port of the JAX package's ``models/model.py`` as an ``nn.Module``.
+
+The parameters live in the module (the reference passes a pytree ``p`` to
+pure functions); ``convert.params_from_jax`` fills them from the reference's
+pytree.  Loss is next-token cross-entropy in f32 with z-loss; the MoE aux
+loss folds in when present.  This slice runs no backward.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+from torch import nn
+
+from repro_torch.models import encdec as ED
+from repro_torch.models import layers as L
+from repro_torch.models import trunk as TR
+from repro_torch.models.config import ArchConfig
+
+Z_LOSS_WEIGHT = 1e-4
+MOE_AUX_WEIGHT = 1e-2
+CLIP_DIM = 1024  # phi-3-vision stub frontend: projected CLIP patch features
+
+
+def card_or_cpu(device) -> torch.device:
+    """``device`` as a torch.device; raises for the card when there is none
+    (an entry point never falls back to the CPU unasked)."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("no CUDA card; pass device='cpu' to build on the "
+                           "CPU")
+    return dev
+
+
+class Model(nn.Module):
+    """One arch's parameters, initialised on ``device`` (the card by
+    default) from ``generator`` (a ``torch.Generator`` on that device;
+    seeded 0 when None)."""
+
+    def __init__(self, cfg: ArchConfig, device="cuda",
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        dev = card_or_cpu(device)
+        if generator is None:
+            generator = torch.Generator(device=dev).manual_seed(0)
+        init = L.Init(dev, generator)
+        self.cfg = cfg
+        self.embed = nn.Parameter(init.normal((cfg.vocab, cfg.d_model), 0.02),
+                                  requires_grad=False)
+        if cfg.is_encdec:
+            self.encdec = ED.init_encdec(init, cfg)
+        else:
+            self.trunk = TR.init_trunk(init, cfg)
+        self.final_norm = (L.layernorm_init(init, cfg.d_model)
+                           if cfg.family == "audio"
+                           else L.rmsnorm_init(init, cfg.d_model))
+        if not cfg.tie_embeddings:
+            self.head = nn.Parameter(init.dense((cfg.d_model, cfg.vocab)),
+                                     requires_grad=False)
+        if cfg.num_img_tokens:
+            self.img_proj = nn.Parameter(init.dense((CLIP_DIM, cfg.d_model)),
+                                         requires_grad=False)
+
+    @property
+    def device(self) -> torch.device:
+        return self.embed.device
+
+    # --- shared pieces --------------------------------------------------------
+
+    def _embed(self, tokens):
+        cfg = self.cfg
+        x = self.embed[tokens].to(L.COMPUTE_DTYPE)
+        if cfg.scale_embed:
+            x = x * torch.sqrt(torch.tensor(cfg.d_model, dtype=L.COMPUTE_DTYPE,
+                                            device=x.device))
+        return x
+
+    def _final_norm(self, x):
+        cfg = self.cfg
+        return (L.layernorm(self.final_norm, x, cfg.norm_eps)
+                if cfg.family == "audio"
+                else L.rmsnorm(self.final_norm, x, cfg.norm_eps))
+
+    def _logits(self, x):
+        cfg = self.cfg
+        head = self.embed.T if cfg.tie_embeddings else self.head
+        logits = x @ head.to(L.COMPUTE_DTYPE)
+        return L.softcap(logits.float(), cfg.logit_softcap)
+
+    # --- forward (train / prefill) -------------------------------------------
+
+    def forward(self, batch: dict) -> tuple:
+        """-> (logits over token positions [B, T, V], aux dict)."""
+        cfg = self.cfg
+        tokens = batch["tokens"]
+        B, T = tokens.shape
+        dev = tokens.device
+        x = self._embed(tokens)
+        aux: dict = {}
+        if cfg.is_encdec:
+            enc_out = ED.encode(self.encdec, batch["frames"], cfg)
+            pos = torch.arange(T, dtype=torch.int32, device=dev)[None, :]
+            x = x + L.sinusoidal_embedding(pos[0], cfg.d_model
+                                           ).to(x.dtype)[None]
+            x = ED.decode_train(self.encdec, x, enc_out, cfg, pos)
+        else:
+            P_img = 0
+            if cfg.num_img_tokens:
+                img = batch["img_embeds"].to(L.COMPUTE_DTYPE)
+                x = torch.cat(
+                    [img @ self.img_proj.to(L.COMPUTE_DTYPE), x], dim=1)
+                P_img = cfg.num_img_tokens
+            pos = torch.arange(x.shape[1], dtype=torch.int32, device=dev)
+            pos = pos[None, :].expand(B, x.shape[1])
+            x, aux = TR.trunk_train(self.trunk, x, cfg, pos)
+            if P_img:
+                x = x[:, P_img:]
+        x = self._final_norm(x)
+        return self._logits(x), aux
+
+    def loss(self, batch: dict) -> tuple:
+        """-> (scalar loss, metrics dict)."""
+        logits, aux = self.forward(batch)
+        targets = batch["targets"]
+        logz = torch.logsumexp(logits, dim=-1)                # [B, T] f32
+        gold = torch.gather(logits, -1, targets[..., None].long())[..., 0]
+        nll = torch.mean(logz - gold)
+        zloss = Z_LOSS_WEIGHT * torch.mean(logz ** 2)
+        total = nll + zloss
+        metrics = {"nll": nll, "z_loss": zloss}
+        if "moe_aux_loss" in aux:
+            total = total + MOE_AUX_WEIGHT * aux["moe_aux_loss"]
+            metrics["moe_aux_loss"] = aux["moe_aux_loss"]
+            metrics["moe_overflow"] = aux["moe_overflow"]
+        metrics["loss"] = total
+        return total, metrics
+
+    # --- serving --------------------------------------------------------------
+
+    def init_cache(self, batch: int, max_seq: int,
+                   frames: Optional[torch.Tensor] = None, device=None):
+        """Decode cache on the model's device (or ``device``).  Whisper
+        needs ``frames`` for cross-KV."""
+        cfg = self.cfg
+        if cfg.is_encdec:
+            assert frames is not None
+            enc_out = ED.encode(self.encdec, frames, cfg)
+            return ED.init_encdec_cache(self.encdec, enc_out, cfg, batch,
+                                        max_seq)
+        return TR.init_trunk_cache(cfg, batch, max_seq + cfg.num_img_tokens,
+                                   device or self.device)
+
+    def cache_shape(self, batch: int, max_seq: int):
+        """The cache as meta tensors: its shapes and dtypes, no memory."""
+        cfg = self.cfg
+        if cfg.is_encdec:
+            enc = cfg.encoder
+            kv = L.init_kv_cache(cfg, batch, max_seq, "causal", device="meta")
+            cross = torch.empty((batch, enc.n_frames, cfg.n_kv_heads, cfg.hd),
+                                dtype=L.COMPUTE_DTYPE, device="meta")
+            n = cfg.n_layers
+            return ED.EncDecCache([kv] * n, [cross] * n, [cross] * n)
+        return self.init_cache(batch, max_seq, device="meta")
+
+    def decode_step(self, tokens, cache) -> tuple:
+        """tokens int [B] -> (logits f32 [B, V], new cache).  Attention
+        caches are updated in place (``layers.attention_decode``)."""
+        cfg = self.cfg
+        x = self._embed(tokens[:, None])                      # [B, 1, d]
+        if cfg.is_encdec:
+            pos = cache.self_kv[0].pos                        # [B]
+            x = x + L.sinusoidal_embedding(pos[:, None],
+                                           cfg.d_model).to(x.dtype)
+            x, cache = ED.decode_step(self.encdec, x, cfg, cache)
+        else:
+            x, cache = TR.trunk_decode(self.trunk, x, cfg, cache)
+        x = self._final_norm(x)
+        logits = self._logits(x)[:, 0]
+        return logits, cache

@@ -8,6 +8,9 @@ nor ``repro``, so they run where only PyTorch is installed:
 
 Filter words, membership masks and draw counts must be equal; the float sums
 within rtol 1e-5 (atol 1e-3), because the kernel adds them in another order.
+The model stack's cases (which run no kernel of the port) hold a reduced
+config of each family on the card against the CPU and its decode against
+its forward.
 """
 
 import numpy as np
@@ -745,3 +748,90 @@ def test_mesh_drill_on_card(card, tmp_path, world, backend):
     assert got["failovers"] == 1 and got["shed"] == 0
     assert got["out"] == got["baseline"] and len(got["out"]) == 3
     assert got["dead_stopped"]
+
+
+# --- the model stack (forward and decode; no kernel of the port) -----------
+
+FAMILY_ARCHS = {"dense": "qwen3-1.7b", "moe": "qwen2-moe-a2.7b",
+                "ssm": "falcon-mamba-7b", "hybrid": "recurrentgemma-2b",
+                "audio": "whisper-small", "vlm": "phi-3-vision-4.2b"}
+
+
+def _model_batch(cfg, B=2, T=16, seed=0):
+    from repro_torch.models.model import CLIP_DIM
+    g = torch.Generator().manual_seed(seed)
+    b = {"tokens": torch.randint(0, cfg.vocab, (B, T), generator=g)}
+    if cfg.num_img_tokens:
+        b["img_embeds"] = torch.randn((B, cfg.num_img_tokens, CLIP_DIM),
+                                      generator=g)
+    if cfg.is_encdec:
+        e = cfg.encoder
+        b["frames"] = torch.randn((B, e.n_frames, e.d_input), generator=g)
+    return b
+
+
+def _forward_and_decode(model, b, steps):
+    logits, _ = model.forward(b)
+    cache = model.init_cache(b["tokens"].shape[0], steps, b.get("frames"))
+    dec = []
+    for t in range(steps):
+        step, cache = model.decode_step(b["tokens"][:, t], cache)
+        dec.append(step)
+    return logits.cpu().double(), torch.stack(dec, 1).cpu().double()
+
+
+@pytest.mark.parametrize("family", sorted(FAMILY_ARCHS))
+def test_reduced_model_on_card_matches_cpu(card, family, monkeypatch):
+    """One ``reduced()`` config of each family, the same weights carried
+    to the card through the JAX package's pytree layout: forward and 16
+    decode steps against the CPU's, in float32 within 1e-4 of the logits'
+    scale (1e-3 for the scans) and, but for the MoE (whose top-k choice a
+    bf16 rounding step can flip), in bf16 within a mean of 2e-2 and a
+    largest difference of 0.08 (tests/torch_models_parity.py)."""
+    from repro_torch.models import ARCHS, Model
+    from repro_torch.models import layers, moe, rglru, ssm
+    from repro_torch.models.convert import params_from_jax, params_to_jax
+    cfg = ARCHS[FAMILY_ARCHS[family]].reduced()
+    cpu = Model(cfg, device="cpu", generator=torch.Generator().manual_seed(1))
+    gpu = params_from_jax(cfg, params_to_jax(cpu), device=card)
+    assert gpu.device.type == torch.device(card).type
+    b = _model_batch(cfg)
+    for dtype in (torch.float32, torch.bfloat16):
+        if dtype == torch.bfloat16 and cfg.moe:
+            continue
+        with monkeypatch.context() as m:
+            for mod in (layers, moe, ssm, rglru):
+                m.setattr(mod, "COMPUTE_DTYPE", dtype)
+            m.setattr(layers.init_kv_cache, "__defaults__", (dtype, "cuda"))
+            want = _forward_and_decode(cpu, b, 16)
+            got = _forward_and_decode(
+                gpu, {k: v.to(card) for k, v in b.items()}, 16)
+        for w, g in zip(want, got):
+            d = (g - w).abs() / w.abs().max()
+            if dtype == torch.float32:
+                assert float(d.max()) <= (1e-3 if family in ("ssm", "hybrid")
+                                          else 1e-4)
+            else:
+                assert float(d.max()) <= 0.08 and float(d.mean()) <= 2e-2
+
+
+@pytest.mark.parametrize("family", sorted(FAMILY_ARCHS))
+def test_decode_matches_forward_on_card(card, family):
+    """At the default bf16, every one of 24 decode steps from an empty cache
+    within the reference's 0.08 of the teacher-forced forward's logits at
+    that position (a VLM decodes without its image prefix, so against the
+    text-only forward of the same weights)."""
+    import dataclasses
+
+    from repro_torch.models import ARCHS, Model
+    cfg = ARCHS[FAMILY_ARCHS[family]].reduced()
+    model = Model(cfg, device=card)
+    b = {k: v.to(card) for k, v in _model_batch(cfg, T=24).items()}
+    model.cfg = dataclasses.replace(cfg, num_img_tokens=0)
+    want, _ = model.forward(b)
+    model.cfg = cfg
+    cache = model.init_cache(2, 24, b.get("frames"))
+    for t in range(24):
+        got, cache = model.decode_step(b["tokens"][:, t], cache)
+        w = want[:, t]
+        assert float((got - w).abs().max() / w.abs().max()) < 0.08, t

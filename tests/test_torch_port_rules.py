@@ -1,8 +1,10 @@
 """Rules of the PyTorch port that no parity test would catch.
 
-* ``repro_torch`` and ``chip_smoke.py`` import neither JAX nor ``repro``;
-* the card is the default device: without CUDA, building a relation with the
-  default device raises instead of landing on the CPU, and so do the
+* ``repro_torch`` (its model stack too), ``chip_smoke.py`` and the port's
+  examples import neither JAX nor ``repro``;
+* the card is the default device: without CUDA, building a relation or a
+  ``Model`` with the default device raises instead of landing on the CPU,
+  and so do the examples (unless ``--device cpu`` asks for the CPU), the
   serving launcher (sync, ``--async``, ``--mesh`` and both together) and
   the streaming launcher (with and without ``--mesh``) unless ``--device
   cpu`` asks for the CPU;
@@ -53,7 +55,14 @@ def test_port_modules_import_no_jax_and_no_reference():
               "repro_torch.launch.join_stream", "repro_torch.core.plan",
               "repro_torch.runtime.checkpoint", "repro_torch.runtime.fault",
               "repro_torch.runtime.async_serve",
-              "repro_torch.core.distributed", "repro_torch.launch.mesh"):
+              "repro_torch.core.distributed", "repro_torch.launch.mesh",
+              "repro_torch.models.config", "repro_torch.models.layers",
+              "repro_torch.models.trunk", "repro_torch.models.model",
+              "repro_torch.models.moe", "repro_torch.models.ssm",
+              "repro_torch.models.rglru", "repro_torch.models.encdec",
+              "repro_torch.models.convert", "repro_torch.configs",
+              "repro_torch.configs.shapes",
+              "repro_torch.configs.qwen3_1_7b"):
         assert m in mods, m
     code = ("import importlib, json, sys\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
@@ -67,7 +76,11 @@ def test_port_modules_import_no_jax_and_no_reference():
 
 
 def test_port_sources_name_no_jax_and_no_reference():
-    files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    examples = sorted((ROOT / "examples").glob("torch_*.py"))
+    assert [f.name for f in examples] == [
+        "torch_network_flows.py", "torch_quickstart.py",
+        "torch_tpch_budget.py"]
+    files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"] + examples
     assert len(files) > 10
     bad = [f"{f}: {m.group(0).strip()}" for f in files
            for m in FORBIDDEN.finditer(f.read_text())]
@@ -80,6 +93,40 @@ def test_default_device_is_the_card():
     else:
         with pytest.raises((AssertionError, RuntimeError)):
             relation([1, 2, 3])
+
+
+def test_model_defaults_to_the_card_and_never_falls_back():
+    """``Model(cfg)`` and ``params_from_jax`` build on the card unless asked
+    for the CPU; without a card they raise."""
+    import inspect
+
+    from repro_torch.models import ARCHS, Model
+    from repro_torch.models.convert import params_from_jax
+    assert inspect.signature(Model).parameters["device"].default == "cuda"
+    assert inspect.signature(params_from_jax).parameters[
+        "device"].default == "cuda"
+    cfg = ARCHS["qwen3-1.7b"].reduced()
+    if torch.cuda.is_available():
+        assert Model(cfg).embed.is_cuda
+    else:
+        with pytest.raises(RuntimeError, match="no CUDA card"):
+            Model(cfg)
+    assert not Model(cfg, device="cpu").embed.is_cuda
+
+
+@pytest.mark.parametrize("example", ["torch_quickstart.py",
+                                     "torch_network_flows.py",
+                                     "torch_tpch_budget.py"])
+def test_example_without_a_card_fails_and_joins_nothing(example):
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run(
+        [sys.executable, str(ROOT / "examples" / example)],
+        capture_output=True, text=True, timeout=300, cwd=ROOT,
+        env={**env, "PYTHONPATH": str(ROOT / "src"),
+             "CUDA_VISIBLE_DEVICES": ""})
+    assert out.returncode != 0
+    assert "no CUDA card" in out.stderr
+    assert "exact" not in out.stdout
 
 
 def _launch_without_a_card(module, *args):
