@@ -175,7 +175,26 @@ Phases, each of which fails the run (non-zero exit, no result line):
    card against the CPU in float32 (within 1e-4 of the scale, 1e-3 for the
    scans) and in bf16 (mean within 2e-2, largest 0.08; not the MoE); (d)
    the three join examples (``examples/torch_*.py``), each a process on
-   the card, each exiting 0 with its own check.
+   the card, each exiting 0 with its own check;
+13. training (``repro_torch.runtime.train``; no kernel of the port): (a)
+   ``qwen3-1.7b`` whole, 8 AdamW steps on structured ``lm_batch`` of
+   [2, 4096] under block remat: step times, tokens/s of the warm steps,
+   the AdamW update alone (CUDA events) against its least traffic, the
+   peak against params + grads + m + v, a profiled step's busy share and
+   top device ops; every loss finite, the last 3 below the first 3; (b)
+   the other nine configs at phase 12's cut depths, 2 steps of [2, 512],
+   every loss and grad norm finite, ``recurrentgemma-2b`` a nonzero grad
+   on every leaf; (c) one ``reduced()`` config a family on the card
+   against the CPU from the same weights in float32: the loss within rtol
+   1e-5, every grad within 1e-4 of its leaf's scale; (d) 2 gloo ranks
+   sharing the card, ``qwen2-0.5b`` at full width cut to 2 layers: plain
+   DP against one process on the whole batch (rtol 5e-3, atol 5e-4),
+   int8-EF DP lowering the loss with live residuals, and each mode's
+   all_reduce bytes (float16 half of float32); (e) the train launcher
+   killed (``--kill-after 6``) and rerun: "resumed from step 6", its
+   step-12 checkpoint against an uninterrupted run's (bit for bit, or
+   within 1e-5 of the scale); (f) ``examples/torch_train_lm.py`` (~100M
+   parameters, 300 steps) exiting 0 on the card with its check.
 
 It then prints one line ``{"kernels": [...]}`` and, last,
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -3267,7 +3286,8 @@ def decode_errors(torch, model, b, steps, max_seq):
     toks = b["tokens"][:, :steps]
     model.cfg = dataclasses.replace(cfg, num_img_tokens=0)
     try:
-        want, _ = model.forward({**b, "tokens": toks})
+        with torch.inference_mode():
+            want, _ = model.forward({**b, "tokens": toks})
     finally:
         model.cfg = cfg
     cache = model.init_cache(toks.shape[0], max_seq, b.get("frames"))
@@ -3306,7 +3326,8 @@ def main_model(torch, gen):
         base = torch.cuda.memory_allocated()
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
-        logits, _ = model.forward(b)
+        with torch.inference_mode():
+            logits, _ = model.forward(b)
         torch.cuda.synchronize()
         dt = time.perf_counter() - t0
         peak = torch.cuda.max_memory_allocated()
@@ -3396,11 +3417,13 @@ def other_models(torch, gen):
         weights = tensor_bytes(list(model.parameters()))
         B, T = OTHER_PREFILL
         b = model_inputs(torch, cfg, B, T, gen)
-        model.forward(b)                    # warm
+        with torch.inference_mode():
+            model.forward(b)                # warm
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
-        logits, aux = model.forward(b)
+        with torch.inference_mode():
+            logits, aux = model.forward(b)
         torch.cuda.synchronize()
         dt = time.perf_counter() - t0
         peak = torch.cuda.max_memory_allocated()
@@ -3507,7 +3530,8 @@ def small_models_card_vs_cpu(torch):
 
 def run_small(torch, model, b, steps):
     """(forward logits, ``steps`` decode steps' logits) of ``model``."""
-    logits, _ = model.forward(b)
+    with torch.inference_mode():
+        logits, _ = model.forward(b)
     cache = model.init_cache(b["tokens"].shape[0], steps, b.get("frames"))
     dec = []
     for t in range(steps):
@@ -3566,8 +3590,468 @@ def model_phase(torch):
     return out
 
 
+# phase 13: training (``repro_torch.runtime.train``; no kernel of the port).
+# (a) qwen3-1.7b whole, 8 AdamW steps on structured ``lm_batch`` of
+# [2, 4096] (phase 12's prefill shape) under block remat; (b) the other
+# nine configs at phase 12's cut depths, 2 steps of [2, 512]; (c) one
+# ``reduced()`` config a family on the card against the CPU in float32;
+# (d) data parallelism, 2 gloo ranks sharing the card, plain and int8-EF;
+# (e) the train launcher killed after its step-6 checkpoint and resumed;
+# (f) ``examples/torch_train_lm.py`` (~100M parameters, 300 steps).
+TRAIN_MAIN = "qwen3-1.7b"
+TRAIN_BATCH = (2, 4096)
+TRAIN_STEPS = 8
+TRAIN_WARM = slice(2, None)       # steps 3-8: the warm step time
+TRAIN_LR, TRAIN_WARMUP, TRAIN_TOTAL = 3e-4, 2, 10
+TRAIN_OTHER = (2, 512)
+TRAIN_OTHER_STEPS = 2
+TRAIN_FAMILIES = {"dense": "qwen3-1.7b", "moe": "qwen2-moe-a2.7b",
+                  "ssm": "falcon-mamba-7b", "hybrid": "recurrentgemma-2b",
+                  "vlm": "phi-3-vision-4.2b", "audio": "whisper-small"}
+TRAIN_SMALL = (2, 16)
+TRAIN_GRAD_TOL = 1e-4             # card against CPU, of a leaf's scale
+DP_ARCH = "qwen2-0.5b"
+DP_BATCH = (4, 512)               # global [B, T]; 2 rows a rank
+DP_PLAIN_STEPS, DP_EF_STEPS = 3, 10
+DP_RTOL, DP_ATOL = 5e-3, 5e-4     # tests/test_torch_train_distributed.py
+DP_EF_LR = 1e-3
+DP_TIMEOUT_S = 300
+RESUME_ARGS = ("--arch", "qwen2-0.5b", "--reduced", "--steps", "12",
+               "--ckpt-every", "6")
+TRAIN_EXAMPLE_TIMEOUT_S = 300
+
+
+def lm_inputs(torch, cfg, B, T, step, gen):
+    """Structured ``lm_batch`` tokens and targets of ``step``, with the
+    stub frontends' random inputs, on the generator's device."""
+    from repro_torch.data.pipeline import lm_batch
+    b = model_inputs(torch, cfg, B, T, gen)
+    b.update(lm_batch(step, 0, batch=B, seq=T, vocab=cfg.vocab,
+                      structured=True, device=gen.device))
+    return b
+
+
+def train_main(torch, gen):
+    """Phase 13 (a): qwen3-1.7b whole, trained on the card."""
+    from repro_torch.models import ARCHS, Model
+    from repro_torch.optim.adamw import adamw_update, cosine_schedule
+    from repro_torch.runtime.train import make_train_step, train_state_init
+    cfg = ARCHS[TRAIN_MAIN]
+    check(cfg.remat == "block", f"train: {TRAIN_MAIN} remat {cfg.remat}")
+    torch.cuda.empty_cache()
+    model = Model(cfg, device="cuda", generator=gen)
+    n_params = sum(p.numel() for p in model.parameters())
+    weights = tensor_bytes(list(model.parameters()))
+    state_bytes = 4 * weights          # params, grads, m, v
+    step = make_train_step(model, lr=TRAIN_LR, warmup=TRAIN_WARMUP,
+                           total_steps=TRAIN_TOTAL)
+    state = train_state_init(model)
+    B, T = TRAIN_BATCH
+    batches = [lm_inputs(torch, cfg, B, T, i, gen)
+               for i in range(TRAIN_STEPS)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    times, losses, gnorms = [], [], []
+    for b in batches:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = step(state, b)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        losses.append(float(m["loss"]))
+        gnorms.append(float(m["grad_norm"]))
+    peak = torch.cuda.max_memory_allocated()
+    check(all(np.isfinite(losses)) and all(np.isfinite(gnorms)),
+          f"train {TRAIN_MAIN}: losses {losses}, grad norms {gnorms}")
+    check(np.mean(losses[-3:]) < np.mean(losses[:3]),
+          f"train {TRAIN_MAIN}: the loss did not fall: {losses}")
+    warm = statistics.median(times[TRAIN_WARM])
+    print(f"train {TRAIN_MAIN}: {cfg.n_layers} layers, {n_params} float32 "
+          f"parameters, remat {cfg.remat}; {TRAIN_STEPS} steps of [{B}, {T}]"
+          f" (lr {TRAIN_LR}, warmup {TRAIN_WARMUP}, total {TRAIN_TOTAL}): "
+          f"step times {[round(t, 4) for t in times]} s, warm (median of "
+          f"steps 3-{TRAIN_STEPS}) {warm:.4f} s = {B * T / warm:.1f} "
+          f"tokens/s; losses {[round(x, 4) for x in losses]}, grad norms "
+          f"{[round(x, 4) for x in gnorms]}; peak device memory "
+          f"{peak / 1e9:.3f} GB against params + grads + m + v "
+          f"{state_bytes / 1e9:.3f} GB")
+    # the AdamW update alone, on this step's grads (CUDA events, 3 calls)
+    for p in model.parameters():
+        p.grad = None
+    loss, _ = model.loss(batches[0])
+    loss.backward()
+    grads = {k: p.grad for k, p in state.params.items()}
+    lr_fn = cosine_schedule(TRAIN_LR, TRAIN_WARMUP, TRAIN_TOTAL)
+    opt_ms = []
+    for _ in range(3):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        _, opt, _ = adamw_update(state.params, grads, state.opt,
+                                 lr_fn=lr_fn)
+        ev[1].record()
+        torch.cuda.synchronize()
+        opt_ms.append(ev[0].elapsed_time(ev[1]))
+        state = state._replace(opt=opt)
+    del grads
+    for p in model.parameters():
+        p.grad = None
+    opt_bytes = 12 * weights           # read p, g, m, v; write p, m, v
+    print(f"train {TRAIN_MAIN} AdamW update alone: {[round(t, 4) for t in opt_ms]}"
+          f" ms over {len(state.params)} leaves; its least traffic "
+          f"{opt_bytes / 1e9:.3f} GB = {opt_bytes / HBM_BYTES_PER_S * 1e3:.3f}"
+          f" ms at {HBM_BYTES_PER_S / 1e12:.2f} TB/s; "
+          f"{100 * statistics.median(opt_ms) / 1e3 / warm:.2f}% of a warm "
+          f"step")
+    # one profiled step: the device's busy share and its top ops
+    b = batches[-1]
+
+    def one():
+        nonlocal state
+        state, _ = step(state, b)
+        torch.cuda.synchronize()
+    wall_us, by_name = device_profile(torch, one)
+    busy = sum(us for us, _ in by_name.values())
+    if by_name:
+        print(f"train {TRAIN_MAIN} profile (1 step): wall {wall_us / 1e3:.3f}"
+              f" ms under the profiler, device busy {busy / 1e3:.3f} ms "
+              f"({100 * busy / wall_us:.1f}%), "
+              f"{sum(n for _, n in by_name.values())} device events")
+        for name, (us, n) in sorted(by_name.items(),
+                                    key=lambda kv: -kv[1][0])[:10]:
+            print(f"  {us / 1e3:9.3f} ms {n:6d}x  {name[:90]}")
+    else:
+        print(f"train {TRAIN_MAIN} profile: the profiler recorded no device "
+              f"time (not measured)")
+    by_op = op_profile(torch, one)
+    if by_op:
+        print(f"train {TRAIN_MAIN} profile (1 more step) by PyTorch op, "
+              f"self device time:")
+        for name, (us, n) in list(by_op.items())[:12]:
+            print(f"  {us / 1e3:9.3f} ms {n:6d}x  {name}")
+    out = {"arch": TRAIN_MAIN, "params": n_params, "step_s": times,
+           "warm_step_s": warm, "tokens_per_s": B * T / warm,
+           "losses": losses, "grad_norms": gnorms, "peak_bytes": peak,
+           "state_bytes": state_bytes, "adamw_ms": opt_ms,
+           "busy_share": busy / wall_us if by_name else None}
+    del state, step, model, batches
+    return out
+
+
+def op_profile(torch, run) -> dict:
+    """{PyTorch op: (self device microseconds, calls)} of one ``run()``
+    from torch.profiler's ``key_averages``, largest first; empty when the
+    profiler saw no device."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        run()
+    ops = [(e.key, getattr(e, "self_device_time_total", 0.0), e.count)
+           for e in prof.key_averages()]
+    return {k: (us, n) for k, us, n in sorted(ops, key=lambda o: -o[1])
+            if us > 0}
+
+
+def train_others(torch, gen):
+    """Phase 13 (b): the other nine configs at phase 12's cut depths."""
+    from repro_torch.models import ARCHS, Model
+    from repro_torch.runtime.train import make_train_step, train_state_init
+    out = {}
+    B, T = TRAIN_OTHER
+    for name, full in ARCHS.items():
+        if name == TRAIN_MAIN:
+            continue
+        cfg, cut = model_cut(full)
+        torch.cuda.empty_cache()
+        model = Model(cfg, device="cuda", generator=gen)
+        step = make_train_step(model, lr=TRAIN_LR, warmup=TRAIN_WARMUP,
+                               total_steps=TRAIN_TOTAL)
+        state = train_state_init(model)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        times, losses, gnorms = [], [], []
+        for i in range(TRAIN_OTHER_STEPS):
+            b = lm_inputs(torch, cfg, B, T, i, gen)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, m = step(state, b)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            losses.append(float(m["loss"]))
+            gnorms.append(float(m["grad_norm"]))
+        peak = torch.cuda.max_memory_allocated()
+        # a non-finite grad anywhere makes the global norm non-finite
+        check(all(np.isfinite(losses)) and all(np.isfinite(gnorms)),
+              f"train {name}: losses {losses}, grad norms {gnorms}")
+        zero = None
+        if name == "recurrentgemma-2b":
+            loss, _ = model.loss(lm_inputs(torch, cfg, B, T, 0, gen))
+            loss.backward()
+            zero = [k for k, p in model.named_parameters()
+                    if not bool(torch.isfinite(p.grad).all())
+                    or float(p.grad.abs().max()) == 0.0]
+            check(zero == [], f"train {name}: leaves with a zero or "
+                  f"non-finite grad: {zero}")
+        print(f"train {name} ({cut}): {TRAIN_OTHER_STEPS} steps of [{B}, {T}]"
+              f" in {[round(t, 4) for t in times]} s, losses "
+              f"{[round(x, 4) for x in losses]}, grad norms "
+              f"{[round(x, 4) for x in gnorms]}, peak {peak / 1e9:.3f} GB"
+              + ("; every leaf's grad nonzero and finite"
+                 if zero == [] else ""))
+        out[name] = {"cut": cut, "step_s": times, "losses": losses,
+                     "peak_bytes": peak}
+        del state, step, model
+    return out
+
+
+def train_card_vs_cpu(torch):
+    """Phase 13 (c): one ``reduced()`` config a family, the same weights
+    on the card and the CPU, one step's loss and grads in float32."""
+    from repro_torch.models import ARCHS, Model
+    from repro_torch.models.convert import params_from_jax, params_to_jax
+    worst = {}
+    B, T = TRAIN_SMALL
+    for i, (family, name) in enumerate(TRAIN_FAMILIES.items()):
+        cfg = ARCHS[name].reduced()
+        gen = torch.Generator().manual_seed(SEED + i)
+        cpu = Model(cfg, device="cpu", generator=gen)
+        card = params_from_jax(cfg, params_to_jax(cpu), device="cuda")
+        b = lm_inputs(torch, cfg, B, T, i, gen)
+        res = []
+        with compute_dtype(torch.float32):
+            for model, batch in ((cpu, b), (card, {k: v.cuda()
+                                                   for k, v in b.items()})):
+                loss, _ = model.loss(batch)
+                loss.backward()
+                res.append((float(loss.detach()), {k: p.grad.double().cpu()
+                                          for k, p in
+                                          model.named_parameters()}))
+        (lc, gc), (lg, gg) = res
+        loss_err = abs(lg - lc) / abs(lc)
+        grad_err = max(float((gg[k] - w).abs().max())
+                       / (float(w.abs().max()) or 1.0)
+                       for k, w in gc.items())
+        check(loss_err <= 1e-5, f"train {name} reduced: loss on the card "
+              f"{lg!r} against the CPU's {lc!r}")
+        check(grad_err <= TRAIN_GRAD_TOL, f"train {name} reduced: a grad "
+              f"{grad_err} of its leaf's scale from the CPU's")
+        worst[f"{family}/{name}"] = {"loss": loss_err, "grads": grad_err}
+    print(f"train reduced configs, card against CPU in float32 (loss "
+          f"relative error; largest grad error over its leaf's scale, "
+          f"bound {TRAIN_GRAD_TOL}): {json.dumps(worst)}")
+    return worst
+
+
+def train_rank(mesh, dev, runs):
+    """One rank of phase 13 (d): each run of ``runs`` in turn (``(cfg,
+    steps, lr, compress, B, T)``: ``steps`` steps of ``cfg`` on this rank's
+    rows of the global [B, T] batch, in float32 compute); with ``mesh``
+    None, one process on the whole batch.  Returns, a run, the losses, the
+    params, the residuals' sum, the ``COMM`` meters and the seconds."""
+    import torch
+    from repro_torch.core.distributed import COMM
+    from repro_torch.launch.train import make_batch_fn
+    from repro_torch.models import Model
+    from repro_torch.runtime.train import make_train_step, train_state_init
+    group = None if mesh is None else mesh.get_group("data")
+    rank = 0 if group is None else group.rank()
+    world = 1 if group is None else group.size()
+    out = []
+    for cfg, steps, lr, compress, B, T in runs:
+        with compute_dtype(torch.float32):
+            model = Model(cfg, device=dev, generator=torch.Generator(
+                device=dev).manual_seed(SEED))
+            kw = {} if group is None else {
+                "compress_group" if compress else "data_group": group}
+            step = make_train_step(model, lr=lr, warmup=TRAIN_WARMUP,
+                                   total_steps=steps, **kw)
+            state = train_state_init(model, compress=compress)
+            batch_fn = make_batch_fn(cfg, B, T, SEED, device=dev, rank=rank,
+                                     world=world)
+            COMM.reset()
+            losses = []
+            t0 = time.perf_counter()
+            for i in range(steps):
+                state, m = step(state, batch_fn(i))
+                losses.append(float(m["loss"]))
+            seconds = time.perf_counter() - t0
+        ef = state.ef_error or {}
+        out.append({"losses": losses, "seconds": seconds,
+                    "params": {k: p.detach().cpu().numpy()
+                               for k, p in state.params.items()},
+                    "ef_abs": float(sum(float(e.abs().sum())
+                                        for e in ef.values())),
+                    "comm": COMM.snapshot()})
+        del state, step, model
+    return out
+
+
+def train_dp(torch, dev="cuda"):
+    """Phase 13 (d): 2 gloo ranks sharing the card (``dev``), plain DP
+    against one process on the whole batch, and int8-EF DP; each mode's
+    all_reduce bytes per rank and step."""
+    from repro_torch.launch.mesh import run_ranks, stop_rank_server
+    from repro_torch.models import ARCHS
+    cfg, cut = model_cut(ARCHS[DP_ARCH])
+    B, T = DP_BATCH
+    plain_run = (cfg, DP_PLAIN_STEPS, TRAIN_LR, False, B, T)
+    ef_run = (cfg, DP_EF_STEPS, DP_EF_LR, True, B, T)
+    torch.cuda.empty_cache()
+    one, = train_rank(None, torch.device(dev), [plain_run])
+    try:
+        ranks = run_ranks(train_rank, 2, ([plain_run, ef_run],),
+                          backend="gloo", device=dev,
+                          timeout_s=DP_TIMEOUT_S)
+    finally:
+        stop_rank_server()
+    plain, ef = ([r[i] for r in ranks] for i in range(2))
+    n = sum(v.size for v in one["params"].values())
+    worst = 0.0
+    for k, want in one["params"].items():
+        got = plain[0]["params"][k]
+        check(np.array_equal(got, plain[1]["params"][k]),
+              f"train dp: the ranks' {k} differ")
+        check(np.allclose(got, want, rtol=DP_RTOL, atol=DP_ATOL),
+              f"train dp: {k} off the one-process run's by "
+              f"{float(np.abs(got - want).max())}")
+        worst = max(worst, float(np.abs(got - want).max()))
+    check(np.allclose(plain[0]["losses"], one["losses"], rtol=DP_RTOL,
+                      atol=DP_ATOL), f"train dp: losses {plain[0]['losses']}"
+          f" against one process's {one['losses']}")
+    losses = ef[0]["losses"]
+    check(all(np.isfinite(losses)) and np.mean(losses[-3:])
+          < np.mean(losses[:3]), f"train dp int8-EF: losses {losses}")
+    check(all(r["ef_abs"] > 0 for r in ef), "train dp int8-EF: a rank's "
+          "residuals are all zero")
+    per_step = {
+        "plain": plain[0]["comm"]["all_reduce"]["bytes"] / DP_PLAIN_STEPS,
+        "int8-EF": ef[0]["comm"]["all_reduce"]["bytes"] / DP_EF_STEPS}
+    check(per_step["int8-EF"] * 2 == per_step["plain"],
+          f"train dp: all_reduce bytes a step {per_step}")
+    print(f"train dp {DP_ARCH} ({cut}, {n} parameters), global [{B}, {T}] "
+          f"over 2 gloo ranks on one card, float32 compute: plain "
+          f"{DP_PLAIN_STEPS} steps, losses {plain[0]['losses']} against one "
+          f"process's {one['losses']}, params within {worst:.3g} (rtol "
+          f"{DP_RTOL}, atol {DP_ATOL}), ranks equal; int8-EF {DP_EF_STEPS} "
+          f"steps (lr {DP_EF_LR}), losses {[round(x, 4) for x in losses]}, "
+          f"residuals {[round(r['ef_abs'], 4) for r in ef]}; all_reduce "
+          f"bytes per rank and step {per_step} (float16 at half the "
+          f"float32); step time plain "
+          f"{plain[0]['seconds'] / DP_PLAIN_STEPS:.3f} s, int8-EF "
+          f"{ef[0]['seconds'] / DP_EF_STEPS:.3f} s, one process "
+          f"{one['seconds'] / DP_PLAIN_STEPS:.3f} s")
+    return {"plain_losses": plain[0]["losses"], "one_losses": one["losses"],
+            "max_abs_err": worst, "ef_losses": losses,
+            "allreduce_bytes_per_step": per_step}
+
+
+def _train_launch(args, ckpt_dir, *extra):
+    env = {**os.environ, "PYTHONPATH": os.path.join(ROOT, "src")}
+    return subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.train", *args,
+         "--ckpt-dir", ckpt_dir, *extra], stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True, cwd=ROOT, env=env)
+
+
+def train_resume_and_example(torch):
+    """Phase 13 (e) and (f): the train launcher killed after its step-6
+    checkpoint and rerun, against an uninterrupted run; and the training
+    example, which runs beside them."""
+    from repro_torch.runtime.checkpoint import latest_step, load_checkpoint
+    kind = torch.cuda.get_device_name(0)
+    t0 = time.perf_counter()
+    env = {**os.environ, "PYTHONPATH": os.path.join(ROOT, "src")}
+    with tempfile.TemporaryDirectory(prefix="train13-") as tmp:
+        straight, killed = (os.path.join(tmp, d) for d in ("a", "b"))
+        procs = {
+            "example": subprocess.Popen(
+                [sys.executable, os.path.join(ROOT, "examples",
+                                              "torch_train_lm.py")],
+                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+                cwd=ROOT, env=env),
+            "straight": _train_launch(RESUME_ARGS, straight),
+            "killed": _train_launch(RESUME_ARGS, killed, "--kill-after",
+                                    "6")}
+        try:
+            outs = {k: _wait(procs[k]) for k in ("straight", "killed")}
+            rc, out, err = outs["straight"]
+            check(rc == 0, f"train resume: the uninterrupted run exited "
+                  f"{rc}: {err[-2000:]}")
+            rc, out, err = outs["killed"]
+            check(rc == -9 and latest_step(killed) == 6,
+                  f"train resume: the drill exited {rc} with checkpoint "
+                  f"{latest_step(killed)}: {err[-2000:]}")
+            procs["resumed"] = _train_launch(RESUME_ARGS, killed)
+            rc, out, err = _wait(procs["resumed"])
+            resume_s = time.perf_counter() - t0
+            check(rc == 0 and "[train] resumed from step 6" in out,
+                  f"train resume: the rerun exited {rc}: {out[-1000:]} "
+                  f"{err[-2000:]}")
+            outs["example"] = _wait(procs["example"])
+            example_s = time.perf_counter() - t0
+        finally:
+            for p in procs.values():
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        want, _ = load_checkpoint(straight, 12)
+        got, _ = load_checkpoint(killed, 12)
+        check(set(got) == set(want), "train resume: the checkpoints' leaves "
+              "differ")
+        exact = all(np.array_equal(got[k], w) for k, w in want.items())
+        rel = max(float(np.abs(got[k].astype(np.float64) - w).max())
+                  / (float(np.abs(w).max()) or 1.0)
+                  for k, w in want.items())
+        check(rel <= 1e-5, f"train resume: step 12 {rel} of the scale from "
+              f"the uninterrupted run")
+        print(f"train resume: killed (SIGKILL) after its step-6 checkpoint, "
+              f"rerun resumed from step 6; its step-12 params, moments and "
+              f"step {'equal bit for bit' if exact else 'within '}"
+              f"{'' if exact else f'{rel:.3g} of the scale'} to the "
+              f"uninterrupted run's; the three runs done after "
+              f"{resume_s:.1f} s")
+    rc, out, err = outs["example"]
+    check(rc == 0, f"example torch_train_lm exited {rc}: {err[-2000:]}")
+    check(out.startswith(f"on {kind}"),
+          f"example torch_train_lm did not run on the card: {out[:200]}")
+    check("[OK]" in out, "example torch_train_lm printed no check")
+    lines = out.strip().splitlines()
+    steps = [ln for ln in lines if ln.startswith("[train] step")]
+    for line in [ln for ln in lines if ln not in steps] + steps[-2:]:
+        print(f"  torch_train_lm: {line}")
+    print(f"train example: exited 0 after {example_s:.1f} s")
+    return {"resume_exact": exact, "resume_rel": rel,
+            "example_s": example_s}
+
+
+def _wait(p) -> tuple:
+    """(returncode, stdout, stderr) of ``p``, waiting at most
+    ``TRAIN_EXAMPLE_TIMEOUT_S``."""
+    out, err = p.communicate(timeout=TRAIN_EXAMPLE_TIMEOUT_S)
+    return p.returncode, out, err
+
+
+def train_phase(torch):
+    """Phase 13: training on the card.  Returns the numbers it printed."""
+    t_phase = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    out = {"main": train_main(torch, gen)}
+    torch.cuda.empty_cache()
+    out["others"] = train_others(torch, gen)
+    torch.cuda.empty_cache()
+    out["card_vs_cpu"] = train_card_vs_cpu(torch)
+    out["dp"] = train_dp(torch)
+    torch.cuda.empty_cache()
+    out.update(train_resume_and_example(torch))
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"train: no kernel of the port runs on this path; phase 13 took "
+          f"{out['seconds']:.1f} s")
+    print(f"train summary: {json.dumps(out)}")
+    return out
+
+
 def main() -> int:
-    """Phases 1-12."""
+    """Phases 1-13."""
     t_start = time.perf_counter()
     import torch
 
@@ -3687,7 +4171,13 @@ def main() -> int:
                                        if c["kernel"] == ln["name"]})
     # --- phase 12: the model stack and the examples -------------------------
     model_phase(torch)
-    print(f"chip_smoke: phases 1-12 took {time.perf_counter() - t_start:.1f} s")
+    # --- phase 13: training -------------------------------------------------
+    for w in wrappers.values():
+        w.launches = 0
+    train_phase(torch)
+    for ln in lines:
+        ln["phase13_launches"] = wrappers[ln["name"]].launches
+    print(f"chip_smoke: phases 1-13 took {time.perf_counter() - t_start:.1f} s")
 
     print(json.dumps({"kernels": lines}))
     print(json.dumps({"ok": True, "device": {

@@ -222,20 +222,26 @@ def all_to_all(x: torch.Tensor, mesh, axis: str) -> torch.Tensor:
 def psum(x: torch.Tensor, mesh, axes: Sequence[str]) -> torch.Tensor:
     """Sum of ``x`` over the ranks of ``axes`` (one all_reduce an axis)."""
     for a in axes:
-        group = mesh.get_group(a)
-        k = dist.get_world_size(group)
-        if k == 1:
-            continue
-
-        def body(x=x, group=group):
-            w = _wire(x, group)
-            if w is x:                    # all_reduce sums in place
-                w = w.clone()
-            dist.all_reduce(w, group=group)
-            return w.to(x.device)
-        x = _metered("all_reduce", x.device,
-                     2 * x.numel() * x.element_size() * (k - 1) // k, body)
+        x = all_reduce(x, mesh.get_group(a))
     return x
+
+
+def all_reduce(x: torch.Tensor, group, op: str = "all_reduce"
+               ) -> torch.Tensor:
+    """Sum of ``x`` over the ranks of ``group``, metered under ``op`` (a
+    ring's bytes: each rank sends 2 (k - 1) / k of ``x``)."""
+    k = dist.get_world_size(group)
+    if k == 1:
+        return x
+
+    def body():
+        w = _wire(x, group)
+        if w is x:                        # all_reduce sums in place
+            w = w.clone()
+        dist.all_reduce(w, group=group)
+        return w.to(x.device)
+    return _metered(op, x.device,
+                    2 * x.numel() * x.element_size() * (k - 1) // k, body)
 
 
 def _to_wire32(x: torch.Tensor) -> torch.Tensor:

@@ -1,1 +1,2 @@
-"""Workload generators (numpy, placed on a torch device)."""
+"""Workload generators (numpy, placed on a torch device) and the LM
+training data pipeline (``pipeline.py``)."""

@@ -1,6 +1,7 @@
 """Model zoo: the 10 assigned architectures as one composable trunk, the
-port of the JAX package's ``models`` (forward, loss and decode; training,
-sharding and the shard_map MoE dispatch come in a later slice).
+port of the JAX package's ``models`` (forward, loss, its backward under
+block remat, and decode; the shard_map MoE dispatch and the tensor-parallel
+layouts come in a later slice).
 
 Every arch is a configuration of the same decoder trunk (``trunk.py``) —
 mixer pattern (attention / local attention / Mamba / RG-LRU) x feed-forward

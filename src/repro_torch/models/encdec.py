@@ -10,7 +10,9 @@ arrangement, GELU MLP.
 Encoder: bidirectional attention over frames.  Decoder: causal
 self-attention + cross-attention to encoder output; decode caches self-KV
 per layer, cross-KV precomputed once at prefill.  Both stacks are
-``nn.ModuleList``s run by a loop (the reference scans them).
+``nn.ModuleList``s run by a loop (the reference scans them), each layer
+under block remat (``layers.remat``), as the reference checkpoints its scan
+step.
 """
 
 from __future__ import annotations
@@ -59,26 +61,33 @@ def encode(p, frames, cfg) -> torch.Tensor:
         torch.arange(F, dtype=torch.int32, device=frames.device),
         cfg.d_model).to(x.dtype)
     for bp in p["enc_blocks"]:
-        h = L.layernorm(bp["pre_attn"], x, cfg.norm_eps)
-        x = x + L.attention_train(bp["attn"], h, cfg, kind="full")
-        h = L.layernorm(bp["pre_mlp"], x, cfg.norm_eps)
-        x = x + L.mlp(bp["mlp"], h, cfg)
+        x = L.remat(cfg, _enc_layer, bp, x, cfg)
     return L.layernorm(p["enc_norm"], x, cfg.norm_eps)
+
+
+def _enc_layer(bp, x, cfg):
+    h = L.layernorm(bp["pre_attn"], x, cfg.norm_eps)
+    x = x + L.attention_train(bp["attn"], h, cfg, kind="full")
+    h = L.layernorm(bp["pre_mlp"], x, cfg.norm_eps)
+    return x + L.mlp(bp["mlp"], h, cfg)
 
 
 def decode_train(p, x, enc_out, cfg, positions) -> torch.Tensor:
     """Teacher-forced decoder pass: x [B, T, d] token embeddings."""
     for bp in p["dec_blocks"]:
-        h = L.layernorm(bp["pre_self"], x, cfg.norm_eps)
-        x = x + L.attention_train(bp["self_attn"], h, cfg, kind="causal",
-                                  positions=positions)
-        h = L.layernorm(bp["pre_cross"], x, cfg.norm_eps)
-        kv = L.cross_kv(bp["cross_attn"], enc_out, cfg)
-        x = x + L.attention_train(bp["cross_attn"], h, cfg, kind="cross",
-                                  kv=kv)
-        h = L.layernorm(bp["pre_mlp"], x, cfg.norm_eps)
-        x = x + L.mlp(bp["mlp"], h, cfg)
+        x = L.remat(cfg, _dec_layer, bp, x, enc_out, cfg, positions)
     return x
+
+
+def _dec_layer(bp, x, enc_out, cfg, positions):
+    h = L.layernorm(bp["pre_self"], x, cfg.norm_eps)
+    x = x + L.attention_train(bp["self_attn"], h, cfg, kind="causal",
+                              positions=positions)
+    h = L.layernorm(bp["pre_cross"], x, cfg.norm_eps)
+    kv = L.cross_kv(bp["cross_attn"], enc_out, cfg)
+    x = x + L.attention_train(bp["cross_attn"], h, cfg, kind="cross", kv=kv)
+    h = L.layernorm(bp["pre_mlp"], x, cfg.norm_eps)
+    return x + L.mlp(bp["mlp"], h, cfg)
 
 
 class EncDecCache(NamedTuple):

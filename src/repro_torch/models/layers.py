@@ -8,7 +8,9 @@ reference's.  Compute dtype is bf16 with f32 softmax/norm accumulations;
 params are f32 (cast at use — the standard mixed-precision recipe).
 Attention is plain torch (einsum, a float32 softmax and, where
 ``attn_chunk`` divides a longer sequence, the chunked online softmax), as
-the reference computes it with ``jnp`` outside any Pallas kernel.
+the reference computes it with ``jnp`` outside any Pallas kernel.  Every
+function is differentiated by autograd; ``remat`` is the block
+rematerialisation the trunk and whisper's stacks apply.
 """
 
 from __future__ import annotations
@@ -19,20 +21,20 @@ from typing import NamedTuple, Optional
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 COMPUTE_DTYPE = torch.bfloat16
 
 
 class Params(nn.Module):
-    """One layer's parameters as a module: float32 tensors and sub-layers
-    under the reference pytree's names, read as ``p["name"]``.  Frozen: this
-    slice runs forward and decode only, so no autograd graph is kept."""
+    """One layer's parameters as a module: trainable float32 tensors and
+    sub-layers under the reference pytree's names, read as ``p["name"]``."""
 
     def __init__(self, **items):
         super().__init__()
         for name, v in items.items():
             if not isinstance(v, nn.Module):
-                v = nn.Parameter(v, requires_grad=False)
+                v = nn.Parameter(v)
             setattr(self, name, v)
 
     def __getitem__(self, name: str):
@@ -45,9 +47,10 @@ class Params(nn.Module):
 class Init:
     """Seeded parameter initialiser on one device (the reference's
     ``jax.random`` keys become one ``torch.Generator``; the draws differ,
-    the distributions are the reference's)."""
+    the distributions are the reference's).  On the ``meta`` device the
+    generator is None: shapes only, no memory."""
 
-    def __init__(self, device, generator: torch.Generator):
+    def __init__(self, device, generator: Optional[torch.Generator]):
         self.device, self.gen = torch.device(device), generator
 
     def normal(self, shape, scale: float = 1.0) -> torch.Tensor:
@@ -68,6 +71,17 @@ class Init:
     def full(self, shape, value: float) -> torch.Tensor:
         return torch.full(shape, value, dtype=torch.float32,
                           device=self.device)
+
+
+def remat(cfg, fn, *args):
+    """``fn(*args)``; under ``cfg.remat == "block"`` (the reference's
+    ``jax.checkpoint`` of a block) and while autograd records, its
+    activations are dropped and recomputed in the backward.  The forward
+    draws no random numbers, so no RNG state is kept for the recompute."""
+    if cfg.remat == "block" and torch.is_grad_enabled():
+        return checkpoint(fn, *args, use_reentrant=False,
+                          preserve_rng_state=False)
+    return fn(*args)
 
 
 def rmsnorm_init(init: Init, d: int) -> Params:

@@ -4,7 +4,9 @@ the port of the JAX package's ``models/model.py`` as an ``nn.Module``.
 The parameters live in the module (the reference passes a pytree ``p`` to
 pure functions); ``convert.params_from_jax`` fills them from the reference's
 pytree.  Loss is next-token cross-entropy in f32 with z-loss; the MoE aux
-loss folds in when present.  This slice runs no backward.
+loss folds in when present.  The parameters are trainable
+(``runtime/train.py`` differentiates ``loss``); the serving calls
+(``init_cache``, ``decode_step``) record no graph.
 """
 
 from __future__ import annotations
@@ -26,7 +28,8 @@ CLIP_DIM = 1024  # phi-3-vision stub frontend: projected CLIP patch features
 
 def card_or_cpu(device) -> torch.device:
     """``device`` as a torch.device; raises for the card when there is none
-    (an entry point never falls back to the CPU unasked)."""
+    (an entry point never falls back to the CPU unasked).  ``meta`` gives
+    shapes without memory."""
     dev = torch.device(device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("no CUDA card; pass device='cpu' to build on the "
@@ -37,18 +40,17 @@ def card_or_cpu(device) -> torch.device:
 class Model(nn.Module):
     """One arch's parameters, initialised on ``device`` (the card by
     default) from ``generator`` (a ``torch.Generator`` on that device;
-    seeded 0 when None)."""
+    seeded 0 when None; none on ``meta``)."""
 
     def __init__(self, cfg: ArchConfig, device="cuda",
                  generator: Optional[torch.Generator] = None):
         super().__init__()
         dev = card_or_cpu(device)
-        if generator is None:
+        if generator is None and dev.type != "meta":
             generator = torch.Generator(device=dev).manual_seed(0)
         init = L.Init(dev, generator)
         self.cfg = cfg
-        self.embed = nn.Parameter(init.normal((cfg.vocab, cfg.d_model), 0.02),
-                                  requires_grad=False)
+        self.embed = nn.Parameter(init.normal((cfg.vocab, cfg.d_model), 0.02))
         if cfg.is_encdec:
             self.encdec = ED.init_encdec(init, cfg)
         else:
@@ -57,11 +59,9 @@ class Model(nn.Module):
                            if cfg.family == "audio"
                            else L.rmsnorm_init(init, cfg.d_model))
         if not cfg.tie_embeddings:
-            self.head = nn.Parameter(init.dense((cfg.d_model, cfg.vocab)),
-                                     requires_grad=False)
+            self.head = nn.Parameter(init.dense((cfg.d_model, cfg.vocab)))
         if cfg.num_img_tokens:
-            self.img_proj = nn.Parameter(init.dense((CLIP_DIM, cfg.d_model)),
-                                         requires_grad=False)
+            self.img_proj = nn.Parameter(init.dense((CLIP_DIM, cfg.d_model)))
 
     @property
     def device(self) -> torch.device:
@@ -139,6 +139,7 @@ class Model(nn.Module):
 
     # --- serving --------------------------------------------------------------
 
+    @torch.no_grad()
     def init_cache(self, batch: int, max_seq: int,
                    frames: Optional[torch.Tensor] = None, device=None):
         """Decode cache on the model's device (or ``device``).  Whisper
@@ -164,6 +165,7 @@ class Model(nn.Module):
             return ED.EncDecCache([kv] * n, [cross] * n, [cross] * n)
         return self.init_cache(batch, max_seq, device="meta")
 
+    @torch.no_grad()
     def decode_step(self, tokens, cache) -> tuple:
         """tokens int [B] -> (logits f32 [B, V], new cache).  Attention
         caches are updated in place (``layers.attention_decode``)."""

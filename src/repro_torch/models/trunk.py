@@ -5,9 +5,10 @@ A *block* is one period of ``cfg.mixer_pattern`` (e.g. gemma2's
 (local, attn), recurrentgemma's (rglru, rglru, local)); the trunk is
 ``n_layers / period`` blocks in an ``nn.ModuleList``, run by a Python loop
 where the reference scans stacked parameters, plus an unscanned tail block
-when the period does not divide the depth.  The reference's block remat
-(``jax.checkpoint``) and ``shard_hint`` layout hints are left out: this
-slice runs forward and decode on one card.
+when the period does not divide the depth.  Each full block runs under the
+reference's block remat (``layers.remat``: ``torch.utils.checkpoint`` where
+the reference has ``jax.checkpoint``), the tail without, as there.  The
+``shard_hint`` layout hints wait for the tensor-parallel layouts.
 
 Decode carries one cache dict per block, ``{"blocks": [...], "tail": ...}``.
 """
@@ -114,13 +115,14 @@ def block_train(bp, x, cfg, positions, pattern=None) -> tuple:
 
 
 def trunk_train(tp, x, cfg, positions) -> tuple:
-    """x [B, T, d] -> (x, aux).  One block after another."""
+    """x [B, T, d] -> (x, aux).  One block after another, each under block
+    remat."""
     dev = x.device
     aux = {"moe_aux_loss": torch.zeros((), dtype=torch.float32, device=dev),
            "moe_overflow": torch.zeros((), dtype=torch.float32, device=dev)} \
         if cfg.ff_kind == "moe" else {}
     for bp in tp["blocks"]:
-        x, a = block_train(bp, x, cfg, positions)
+        x, a = L.remat(cfg, block_train, bp, x, cfg, positions)
         aux = {k: aux[k] + a.get(k, 0) for k in aux}
     if "tail" in tp:
         _, tail_len = n_blocks(cfg)

@@ -2,8 +2,8 @@
 plans and snapshot/restore (``join_serve.py``), the windowed
 ``StreamJoinServer`` built on it (``stream_join.py``), the always-on async
 tier and its crash-safe fleet (``async_serve.py``), atomic checkpoints
-(``checkpoint.py``), fault handling (``fault.py``) and the telemetry they
-report through (``telemetry.py``)."""
+(``checkpoint.py``), fault handling (``fault.py``), the telemetry they
+report through (``telemetry.py``) and the train step (``train.py``)."""
 
 from repro_torch.runtime.async_serve import AsyncJoinFrontDoor, AsyncJoinServer
 from repro_torch.runtime.checkpoint import (CheckpointCorruptError,

@@ -835,3 +835,76 @@ def test_decode_matches_forward_on_card(card, family):
         got, cache = model.decode_step(b["tokens"][:, t], cache)
         w = want[:, t]
         assert float((got - w).abs().max() / w.abs().max()) < 0.08, t
+
+
+# --- training (no kernel of the port) --------------------------------------
+
+def _grads_and_loss(model, b):
+    for p in model.parameters():
+        p.grad = None
+    loss, _ = model.loss(b)
+    loss.backward()
+    return float(loss.detach()), {k: p.grad.double().cpu()
+                                  for k, p in model.named_parameters()}
+
+
+@pytest.mark.parametrize("family", sorted(FAMILY_ARCHS))
+def test_train_step_on_card_matches_cpu(card, family, monkeypatch):
+    """One ``reduced()`` config of each family, the same weights on the
+    card and the CPU, in float32 compute: the loss within rtol 1e-5 and
+    every grad within 1e-4 of its leaf's largest (1e-3 for the scans); then
+    a train step's loss and grad norm within rtol 1e-5 and 1e-4.  (Its
+    params are not compared: AdamW moves an element by about lr whatever
+    its grad's size, so a grad within rounding of 0 steps either way.)"""
+    from repro_torch.data.pipeline import lm_batch
+    from repro_torch.models import ARCHS, Model
+    from repro_torch.models import layers, moe, rglru, ssm
+    from repro_torch.models.convert import params_from_jax, params_to_jax
+    from repro_torch.runtime.train import make_train_step, train_state_init
+    cfg = ARCHS[FAMILY_ARCHS[family]].reduced()
+    cpu = Model(cfg, device="cpu", generator=torch.Generator().manual_seed(1))
+    gpu = params_from_jax(cfg, params_to_jax(cpu), device=card)
+    b = _model_batch(cfg)
+    b.update(lm_batch(0, 0, batch=2, seq=16, vocab=cfg.vocab,
+                      structured=True, device="cpu"))
+    bg = {k: v.to(card) for k, v in b.items()}
+    tol = 1e-3 if family in ("ssm", "hybrid") else 1e-4
+    with monkeypatch.context() as m:
+        for mod in (layers, moe, ssm, rglru):
+            m.setattr(mod, "COMPUTE_DTYPE", torch.float32)
+        lc, gc = _grads_and_loss(cpu, b)
+        lg, gg = _grads_and_loss(gpu, bg)
+        assert abs(lg - lc) <= 1e-5 * abs(lc)
+        for k, w in gc.items():
+            scale = float(w.abs().max()) or 1.0
+            assert float((gg[k] - w).abs().max()) <= tol * scale, k
+        mets = [make_train_step(model, total_steps=10, warmup=2)(
+            train_state_init(model), batch)[1]
+            for model, batch in ((cpu, b), (gpu, bg))]
+    want, got = ({k: float(v) for k, v in x.items()} for x in mets)
+    assert abs(got["loss"] - want["loss"]) <= 1e-5 * abs(want["loss"])
+    assert abs(got["grad_norm"] - want["grad_norm"]) <= \
+        1e-4 * want["grad_norm"]
+
+
+def test_nccl_dp_on_two_cards_matches_one(card, tmp_path):
+    """Plain DP over NCCL, a card a rank, against one card on the whole
+    batch in float32 compute: losses and params within rtol 5e-3, atol
+    5e-4 (``tests/test_torch_train_distributed.py``)."""
+    import torch_dist
+    from torch_train_ranks import train_span
+
+    from repro_torch.models import ARCHS
+    _mesh_cards(2, "nccl")
+    cfg = ARCHS["qwen2-0.5b"].reduced(vocab=128)
+    ranks = torch_dist.spawn(train_span, 2,
+                             (cfg, 0, 4, 4, 8, 32, False, None, True),
+                             tmp_path, device="cuda", backend="nccl")
+    one = train_span(None, card, cfg, 0, 4, 4, 8, 32, float32=True)
+    for k, v in one["params"].items():
+        np.testing.assert_allclose(ranks[0]["params"][k], v, rtol=5e-3,
+                                   atol=5e-4, err_msg=k)
+        np.testing.assert_array_equal(ranks[1]["params"][k],
+                                      ranks[0]["params"][k])
+    np.testing.assert_allclose(ranks[0]["losses"], one["losses"], rtol=5e-3,
+                               atol=5e-4)

@@ -1,11 +1,13 @@
-"""The port's three join examples against the JAX package's.
+"""The port's examples against the JAX package's.
 
-Each ``examples/torch_*.py`` runs whole with ``--device cpu`` in its own
-process and must print its own check; its exact SUM and join size must
-equal, within rtol 1e-5, what the JAX example it ports computes for them:
-the same exact query, with the example's arguments, through the JAX
-package here (the JAX examples' sampled runs are not needed for it and take
-half a minute on the CPU).
+Each join example ``examples/torch_*.py`` runs whole with ``--device cpu``
+in its own process and must print its own check; its exact SUM and join
+size must equal, within rtol 1e-5, what the JAX example it ports computes
+for them: the same exact query, with the example's arguments, through the
+JAX package here (the JAX examples' sampled runs are not needed for it and
+take half a minute on the CPU).  ``torch_train_lm.py --small`` (60 steps
+here) must print the JAX example's batch mixture, the same per-batch counts
+and its estimate and bound within rtol 1e-5, and a falling loss.
 """
 
 import os
@@ -21,6 +23,7 @@ from repro.core import QueryBudget, approx_join
 from repro.core.relation import relation
 from repro.data import tpch
 from repro.data.flows import flow_tables
+from repro.data.pipeline import mixture_shard_counts, plan_batch_mixture
 
 ROOT = Path(__file__).resolve().parents[1]
 
@@ -76,3 +79,38 @@ def test_port_example_equals_the_jax_example(name):
     assert int(m.group(2)) == int(want.count)
     got, exact = float(m.group(1)), float(want.estimate)
     assert abs(got - exact) <= 1e-5 * abs(exact), (got, exact)
+
+
+def test_train_example_mixture_equals_the_jax_examples_and_loss_falls():
+    """examples/train_lm.py's mixture (its tables, budget and batch)
+    through the JAX package, against the port's example run with --small
+    --device cpu for 60 steps."""
+    rng = np.random.default_rng(0)
+    docs = relation(rng.integers(0, 16, 8192).astype(np.uint32),
+                    rng.random(8192).astype(np.float32))
+    domains = relation(np.arange(16, dtype=np.uint32),
+                       np.ones(16, np.float32))
+    plan = plan_batch_mixture(docs, domains, QueryBudget(error=0.05))
+    counts = mixture_shard_counts(plan, batch=8).tolist()
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src"),
+           "OMP_NUM_THREADS": "4"}
+    out = subprocess.run(
+        [sys.executable, str(ROOT / "examples" / "torch_train_lm.py"),
+         "--small", "--steps", "60", "--device", "cpu"],
+        capture_output=True, text=True, timeout=300, cwd=ROOT, env=env)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.startswith("on cpu")
+    m = re.search(r"\[mixture\] (\d+) domains via ApproxJoin \(estimate "
+                  r"(\S+) \+/- (\S+)\); per-batch seq counts = (\[.*\])",
+                  out.stdout)
+    assert m, out.stdout
+    assert int(m.group(1)) == len(plan.weights)
+    assert m.group(4) == str(counts)
+    for got, want in ((m.group(2), plan.estimate), (m.group(3),
+                                                     plan.error_bound)):
+        assert abs(float(got) - want) <= max(1e-5 * abs(want), 0.05)
+    m = re.search(r"\[train_lm\] loss (\S+) -> (\S+) over 60 steps",
+                  out.stdout)
+    assert m and float(m.group(2)) < float(m.group(1)), out.stdout
+    assert "[OK]" in out.stdout
+

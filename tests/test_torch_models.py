@@ -19,6 +19,7 @@ from repro.models import Model as JModel
 from repro_torch.models import ARCHS, Model
 from repro_torch.models.convert import params_from_jax, params_to_jax
 from torch_accuracy import one_torch_thread  # noqa: F401  (autouse)
+from torch_models_parity import no_grad  # noqa: F401  (autouse)
 from torch_models_parity import (batch, float32_compute, models, rel,
                                  run_both)
 

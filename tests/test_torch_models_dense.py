@@ -6,6 +6,7 @@ loss and a step-by-step decode from an empty cache, in float32 and in bf16
 import pytest
 
 from torch_accuracy import one_torch_thread  # noqa: F401  (autouse)
+from torch_models_parity import no_grad  # noqa: F401  (autouse)
 from torch_models_parity import check_arch
 
 DENSE = ["qwen3-1.7b", "qwen2-0.5b", "granite-20b", "gemma2-9b",

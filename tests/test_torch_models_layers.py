@@ -28,6 +28,7 @@ from repro_torch.models import moe as TMoE
 from repro_torch.models import rglru as TR
 from repro_torch.models import ssm as TS
 from torch_accuracy import one_torch_thread  # noqa: F401  (autouse)
+from torch_models_parity import no_grad  # noqa: F401  (autouse)
 from torch_models_parity import float32_compute, rel
 
 

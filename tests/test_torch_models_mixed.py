@@ -8,6 +8,7 @@ which the two packages route a token to different experts."""
 import pytest
 
 from torch_accuracy import one_torch_thread  # noqa: F401  (autouse)
+from torch_models_parity import no_grad  # noqa: F401  (autouse)
 from torch_models_parity import check_arch
 
 MIXED = ["falcon-mamba-7b", "recurrentgemma-2b", "whisper-small"]

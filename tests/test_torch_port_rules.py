@@ -5,9 +5,10 @@
 * the card is the default device: without CUDA, building a relation or a
   ``Model`` with the default device raises instead of landing on the CPU,
   and so do the examples (unless ``--device cpu`` asks for the CPU), the
-  serving launcher (sync, ``--async``, ``--mesh`` and both together) and
-  the streaming launcher (with and without ``--mesh``) unless ``--device
-  cpu`` asks for the CPU;
+  serving launcher (sync, ``--async``, ``--mesh`` and both together), the
+  streaming launcher (with and without ``--mesh``) and the train launcher
+  (with and without ``--dp``) unless ``--device cpu`` asks for the CPU; the
+  train launcher's ``--tp 2`` raises;
 * no mesh server refuses what a meshless one serves;
 * a CPU tensor takes a kernel's plain version and launches nothing;
 * ``chip_smoke.py`` fails, printing no result, without a card or without the
@@ -62,7 +63,10 @@ def test_port_modules_import_no_jax_and_no_reference():
               "repro_torch.models.rglru", "repro_torch.models.encdec",
               "repro_torch.models.convert", "repro_torch.configs",
               "repro_torch.configs.shapes",
-              "repro_torch.configs.qwen3_1_7b"):
+              "repro_torch.configs.qwen3_1_7b", "repro_torch.optim.adamw",
+              "repro_torch.optim.compress", "repro_torch.data.pipeline",
+              "repro_torch.runtime.train", "repro_torch.sharding.specs",
+              "repro_torch.sharding.axes", "repro_torch.launch.train"):
         assert m in mods, m
     code = ("import importlib, json, sys\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
@@ -79,7 +83,7 @@ def test_port_sources_name_no_jax_and_no_reference():
     examples = sorted((ROOT / "examples").glob("torch_*.py"))
     assert [f.name for f in examples] == [
         "torch_network_flows.py", "torch_quickstart.py",
-        "torch_tpch_budget.py"]
+        "torch_tpch_budget.py", "torch_train_lm.py"]
     files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"] + examples
     assert len(files) > 10
     bad = [f"{f}: {m.group(0).strip()}" for f in files
@@ -116,7 +120,8 @@ def test_model_defaults_to_the_card_and_never_falls_back():
 
 @pytest.mark.parametrize("example", ["torch_quickstart.py",
                                      "torch_network_flows.py",
-                                     "torch_tpch_budget.py"])
+                                     "torch_tpch_budget.py",
+                                     "torch_train_lm.py"])
 def test_example_without_a_card_fails_and_joins_nothing(example):
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     out = subprocess.run(
@@ -127,6 +132,7 @@ def test_example_without_a_card_fails_and_joins_nothing(example):
     assert out.returncode != 0
     assert "no CUDA card" in out.stderr
     assert "exact" not in out.stdout
+    assert "[mixture]" not in out.stdout and "[train" not in out.stdout
 
 
 def _launch_without_a_card(module, *args):
@@ -240,6 +246,26 @@ def test_mesh_servers_refuse_nothing_the_meshless_ones_serve():
            for i, line in enumerate(f.read_text().splitlines())
            if pat.search(line)]
     assert bad == []
+
+
+def test_train_launcher_without_a_card_fails_and_trains_nothing(tmp_path):
+    """The train launcher hidden from every card raises before it builds a
+    model, with ``--dp 2`` before it starts a rank; ``--tp 2`` raises,
+    naming the roadmap item, instead of training on one rank a row."""
+    small = ("--arch", "qwen2-0.5b", "--reduced", "--steps", "2",
+             "--ckpt-dir", str(tmp_path / "ck"))
+    for extra in ((), ("--dp", "2")):
+        out = _launch_without_a_card("repro_torch.launch.train", *small,
+                                     *extra)
+        assert out.returncode != 0
+        assert "no CUDA card" in out.stderr
+        assert "[train]" not in out.stdout
+    out = _launch_without_a_card("repro_torch.launch.train", *small,
+                                 "--device", "cpu", "--tp", "2")
+    assert out.returncode != 0
+    assert "NotImplementedError" in out.stderr and "A7c" in out.stderr
+    assert "[train]" not in out.stdout
+    assert not (tmp_path / "ck").exists()
 
 
 def test_stream_launcher_without_a_card_fails_and_streams_nothing():

@@ -27,6 +27,7 @@ import contextlib
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 
 from repro.models import ARCHS as JARCHS
@@ -58,6 +59,15 @@ def float32_compute(monkeypatch):
             m.setattr(mod, "COMPUTE_DTYPE", torch.float32)
         m.setattr(JL.init_kv_cache, "__defaults__", (jnp.float32,))
         m.setattr(TL.init_kv_cache, "__defaults__", (torch.float32, "cuda"))
+        yield
+
+
+@pytest.fixture(autouse=True)
+def no_grad():
+    """Forward and decode parity records no autograd graph: the parameters
+    are trainable, and a graph would keep every activation and refuse
+    ``.numpy()``.  Autouse in a module that imports it."""
+    with torch.no_grad():
         yield
 
 
@@ -157,4 +167,33 @@ def check_arch(arch: str, dtype: str, monkeypatch, T: int = 16) -> dict:
         assert tmet["moe_overflow"] == jmet["moe_overflow"]
         errs["aux"] = abs(tmet["moe_aux_loss"] - jmet["moe_aux_loss"])
         assert errs["aux"] <= 1e-5 * abs(jmet["moe_aux_loss"]), errs
+    return errs
+
+
+def check_grads(arch: str, monkeypatch, T: int = 16) -> dict:
+    """The loss's grads of ``arch`` at ``reduced()`` in both packages from
+    the same weights and batch, in float32 compute: every leaf (in the
+    reference's layout) within ``tight_tol`` of its own largest absolute
+    grad in the JAX package.  Returns each leaf's error over that scale."""
+    from repro_torch.models.convert import flatten, stack_tree
+    with float32_compute(monkeypatch):
+        jm, p, tm = models(arch)
+        nb = batch(jm.cfg, T=T)
+        jb = {k: jnp.asarray(v) for k, v in nb.items()}
+        jg = jax.jit(jax.grad(lambda p, b: jm.loss(p, b)[0]))(p, jb)
+        with torch.enable_grad():
+            loss, _ = tm.loss({k: torch.from_numpy(v) for k, v in nb.items()})
+            loss.backward()
+    tg = stack_tree({k: q.grad for k, q in tm.named_parameters()})
+    want = {".".join(str(k.key) for k in path): np.asarray(leaf)
+            for path, leaf in jax.tree_util.tree_flatten_with_path(jg)[0]}
+    got = dict(flatten(tg))
+    assert set(got) == set(want)
+    tol = tight_tol(jm.cfg)
+    errs = {}
+    for k, w in want.items():
+        scale = float(np.abs(w).max())
+        d = float(np.abs(got[k].numpy().astype(np.float64) - w).max())
+        errs[k] = d / scale if scale else d
+        assert errs[k] <= tol, (k, errs[k], scale)
     return errs
