@@ -194,7 +194,20 @@ Phases, each of which fails the run (non-zero exit, no result line):
    killed (``--kill-after 6``) and rerun: "resumed from step 6", its
    step-12 checkpoint against an uninterrupted run's (bit for bit, or
    within 1e-5 of the scale); (f) ``examples/torch_train_lm.py`` (~100M
-   parameters, 300 steps) exiting 0 on the card with its check.
+   parameters, 300 steps) exiting 0 on the card with its check;
+14. tensor and expert parallelism (``sharding.specs``; no kernel of the
+   port), the model ranks sharing the card over gloo: (a)
+   ``qwen2-moe-a2.7b`` at full width cut to 2 layers, a forward of
+   [2, 1024] at tp 2 (block-EP) and tp 8 (ffe-TP), ``moe_impl`` "ep" and
+   "gspmd": float32 logits within 1e-4 of the scale of one process's on
+   the card, the overflow equal (bf16 printed), each rank's all_reduce
+   calls and bytes equal to the model's; its time and a rank's peak
+   printed; (b) 2 train steps at tp 2: loss and grad norm within rtol
+   1e-4 of one process's; (c) the train launcher at dp 2 x tp 2 with
+   checkpoints, resumed at dp 1 x tp 1: its last loss and the next loss
+   under its step-4 checkpoint within rtol 5e-3, atol 5e-4 of an
+   uninterrupted run's; (d) 2 data ranks of a reduced MoE at a global
+   N * K over 4096: the overflow equal to one process's, nonzero.
 
 It then prints one line ``{"kernels": [...]}`` and, last,
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -4050,8 +4063,374 @@ def train_phase(torch):
     return out
 
 
+# phase 14: tensor and expert parallelism of the model stack over a
+# (data, model) mesh (``sharding.specs``; no kernel of the port).  The model
+# ranks share the one card over gloo (NCCL refuses two ranks on one card):
+# (a) qwen2-moe-a2.7b at full width, depth 24 -> 2, a forward of [2, 1024]
+# at model 2 (block-EP, 30 experts a rank) and 8 (ffe-TP, 176 of ffe a
+# rank), moe_impl "ep" and "gspmd", against one process on the card; (b) 2
+# train steps at model 2 against one process; (c) the train launcher at
+# dp 2 x tp 2 with a checkpoint, resumed at dp 1 x tp 1; (d) 2 data ranks
+# of a reduced MoE at a global N * K over 4096 against one process.
+TP_ARCH = "qwen2-moe-a2.7b"
+TP_BATCH = (2, 1024)           # N * K = 8192: meshless and EP capacity 170
+TP_SIZES = (2, 8)
+TP_IMPLS = ("ep", "gspmd")
+TP_TOL = 1e-4                  # float32 logits, of the one-process scale
+TP_TRAIN_STEPS = 2
+TP_C6_BATCH = (4, 1024)        # global N * K = 8192, 4096 a data rank
+TP_TIMEOUT_S = 600
+TP_LAUNCH = ("--arch", TP_ARCH, "--reduced", "--batch", "4", "--seq", "32",
+             "--ckpt-every", "2", "--dist-backend", "gloo")
+
+
+def tp_config():
+    """(a)'s config and its cut; (d)'s reduced MoE at capacity factor 1."""
+    import dataclasses
+    from repro_torch.models import ARCHS
+    cfg, cut = model_cut(ARCHS[TP_ARCH])
+    small = ARCHS[TP_ARCH].reduced(vocab=128)
+    small = dataclasses.replace(small, moe=dataclasses.replace(
+        small.moe, capacity_factor=1.0))
+    return cfg, cut, small
+
+
+def tp_build(torch, cfg, mesh, dev):
+    """``cfg``'s model from the seeded generator, cut to this rank's shards
+    (``shard_params``); the ranks build in turns, so that one whole model
+    at a time is on the card."""
+    import torch.distributed as dist
+    from repro_torch.models import Model
+    from repro_torch.sharding.specs import shard_params
+    model = None
+    for turn in range(dist.get_world_size()):
+        if turn == dist.get_rank():
+            model = Model(cfg, device=dev, generator=torch.Generator(
+                device=dev).manual_seed(SEED))
+            shard_params(model, mesh)
+            if dev.type == "cuda":
+                torch.cuda.empty_cache()
+        dist.barrier()
+    return model
+
+
+def tp_forward(torch, model, cfg, b, dtype):
+    """One timed forward (after one untimed) of ``cfg`` in ``dtype``:
+    (logits, moe_overflow, seconds, peak bytes, COMM meters).  On the card
+    the meters time each collective, waiting for the card before and
+    after it (those waits are in the forward's time)."""
+    from repro_torch.core.cost import sync
+    from repro_torch.core.distributed import COMM
+    dev = model.device
+    card = dev.type == "cuda"
+    model.cfg = cfg
+    with compute_dtype(dtype), torch.inference_mode():
+        model.forward(b)
+        sync(dev)
+        if card:
+            torch.cuda.reset_peak_memory_stats(dev)
+        COMM.reset()
+        COMM.timed = card     # each collective's time, between syncs
+        t0 = time.perf_counter()
+        try:
+            logits, aux = model.forward(b)
+            sync(dev)
+        finally:
+            COMM.timed = False
+        seconds = time.perf_counter() - t0
+    return (logits, float(aux["moe_overflow"]), seconds,
+            torch.cuda.max_memory_allocated(dev) if card else 0,
+            COMM.snapshot())
+
+
+def tp_rank(mesh, dev, cfg, small, tokens, refs, train, c6):
+    """One rank of phase 14 (a) at model ``mesh``'s size: each impl's
+    forward of ``cfg`` in float32 and bf16, this rank's logits slice
+    against the one-process logits' (``refs``, files by dtype); on 2 ranks
+    also (b) the train steps of ``train`` (the batches, CPU) and (d) the
+    forward of ``small`` on ``c6`` (the global batch) on a (2, 1) mesh of
+    the ranks."""
+    import dataclasses
+
+    import torch
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.runtime.train import make_train_step, train_state_init
+    from repro_torch.sharding.specs import logical_rules
+    model = tp_build(torch, cfg, mesh, dev)
+    weights = tensor_bytes(list(model.parameters()))
+    V_l = model.embed.shape[0]
+    lo = mesh.get_local_rank("model") * V_l
+    b = {"tokens": tokens.to(dev)}
+    out = {"weights": weights, "forward": {}}
+    with logical_rules(mesh):
+        for impl in TP_IMPLS:
+            for name, dtype in (("float32", torch.float32),
+                                ("bf16", torch.bfloat16)):
+                logits, ovf, s, peak, comm = tp_forward(
+                    torch, model, dataclasses.replace(cfg, moe_impl=impl), b,
+                    dtype)
+                want = torch.load(refs[name], mmap=True)[..., lo:lo + V_l]
+                err = float((logits - want.to(dev)).abs().max())
+                out["forward"][f"{impl}/{name}"] = {
+                    "max_abs_err": err, "overflow": ovf, "seconds": s,
+                    "peak": peak, "comm": comm}
+                del logits, want
+        if train is not None:
+            model.cfg = cfg
+            step = make_train_step(model, lr=TRAIN_LR, warmup=TRAIN_WARMUP,
+                                   total_steps=TRAIN_TOTAL,
+                                   model_group=mesh.get_group("model"))
+            state = train_state_init(model)
+            losses, gnorms = [], []
+            with compute_dtype(torch.float32):
+                for batch in train:
+                    state, m = step(state, {k: v.to(dev)
+                                            for k, v in batch.items()})
+                    losses.append(float(m["loss"]))
+                    gnorms.append(float(m["grad_norm"]))
+            out["train"] = {"losses": losses, "grad_norms": gnorms}
+            del state, step
+    del model
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    if c6 is not None:
+        data = make_host_mesh(2, 1)
+        r = data.get_local_rank("data")
+        n = c6.shape[0] // 2
+        with logical_rules(data):
+            _, ovf, *_ = tp_forward(torch, tp_build(torch, small, data, dev),
+                                    small, {"tokens": c6[r * n:(r + 1) * n]
+                                            .to(dev)}, torch.float32)
+        out["c6_overflow"] = ovf
+    return out
+
+
+def tp_reference(torch, cfg, tokens, train, tmp):
+    """One process on the card: the forward's float32 and bf16 logits
+    (saved under ``tmp`` for the ranks), their overflow and time, and
+    (b)'s train steps."""
+    from repro_torch.models import Model
+    from repro_torch.runtime.train import make_train_step, train_state_init
+    torch.cuda.empty_cache()
+    model = Model(cfg, device="cuda", generator=torch.Generator(
+        device="cuda").manual_seed(SEED))
+    b = {"tokens": tokens.cuda()}
+    out = {"weights": tensor_bytes(list(model.parameters())), "forward": {},
+           "refs": {}}
+    for name, dtype in (("float32", torch.float32), ("bf16", torch.bfloat16)):
+        logits, ovf, s, peak, _ = tp_forward(torch, model, cfg, b, dtype)
+        out["refs"][name] = os.path.join(tmp, f"logits_{name}.pt")
+        torch.save(logits.cpu(), out["refs"][name])
+        out["forward"][name] = {"overflow": ovf, "seconds": s, "peak": peak,
+                                "scale": float(logits.abs().max())}
+        del logits
+    step = make_train_step(model, lr=TRAIN_LR, warmup=TRAIN_WARMUP,
+                           total_steps=TRAIN_TOTAL)
+    state = train_state_init(model)
+    losses, gnorms = [], []
+    with compute_dtype(torch.float32):
+        for batch in train:
+            state, m = step(state, {k: v.cuda() for k, v in batch.items()})
+            losses.append(float(m["loss"]))
+            gnorms.append(float(m["grad_norm"]))
+    out["train"] = {"losses": losses, "grad_norms": gnorms}
+    del state, step, model
+    torch.cuda.empty_cache()
+    return out
+
+
+def tp_c6_reference(torch, small, c6):
+    """(d) on one process: the reduced MoE's forward overflow on the whole
+    global batch."""
+    from repro_torch.models import Model
+    model = Model(small, device="cuda", generator=torch.Generator(
+        device="cuda").manual_seed(SEED))
+    return tp_forward(torch, model, small, {"tokens": c6.cuda()},
+                      torch.float32)[1]
+
+
+def tp_launcher(torch):
+    """Phase 14 (c): the train launcher at dp 2 x tp 2 (gloo ranks on the
+    card) with checkpoints every 2 steps, stopped after 4, resumed at dp 1
+    x tp 1 to step 6; an uninterrupted run at dp 1 x tp 1 beside it.  The
+    resumed run's last loss and step 4's loss under each step-4
+    checkpoint, against the uninterrupted run's, within the DP
+    tolerances."""
+    from repro_torch.launch.train import arch_config, make_batch_fn
+    from repro_torch.models import Model
+    from repro_torch.runtime.checkpoint import latest_step, restore_checkpoint
+    from repro_torch.runtime.train import (load_train_state,
+                                           train_state_init,
+                                           train_state_tree)
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="tp14-") as tmp:
+        tp, one = (os.path.join(tmp, d) for d in ("tp", "one"))
+        procs = {"tp": _train_launch(TP_LAUNCH + ("--steps", "4", "--dp",
+                                                  "2", "--tp", "2"), tp),
+                 "one": _train_launch(TP_LAUNCH + ("--steps", "6"), one)}
+        try:
+            outs = {k: _wait(p) for k, p in procs.items()}
+            for k, (rc, out, err) in outs.items():
+                check(rc == 0, f"tp launcher {k}: exited {rc}: "
+                      f"{err[-2000:]}")
+            check("dp 2 x tp 2" in outs["tp"][1] and latest_step(tp) == 4,
+                  f"tp launcher: {outs['tp'][1][-500:]}")
+            procs["resumed"] = _train_launch(TP_LAUNCH + ("--steps", "6"), tp)
+            rc, out, err = _wait(procs["resumed"])
+            check(rc == 0 and "[train] resumed from step 4" in out,
+                  f"tp launcher resumed: exited {rc}: {out[-500:]} "
+                  f"{err[-2000:]}")
+        finally:
+            for p in procs.values():
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        last = {k: float([ln for ln in o.splitlines()
+                          if ln.startswith("[train] step")][-1]
+                         .split("loss=")[1].split()[0])
+                for k, o in (("resumed", out), ("one", outs["one"][1]))}
+        cfg = arch_config(TP_ARCH, True)
+        nxt = {}
+        for k, d in (("tp", tp), ("one", one)):
+            model = Model(cfg, device="cuda")
+            like = train_state_tree(train_state_init(model))
+            tree, _ = restore_checkpoint(d, 4, like, device="cpu")
+            load_train_state(tree, model)
+            with torch.no_grad():
+                nxt[k] = float(model.loss(make_batch_fn(
+                    cfg, 4, 32, device="cuda")(4))[0])
+    for what, got, want in (("last", last["resumed"], last["one"]),
+                            ("next", nxt["tp"], nxt["one"])):
+        check(np.isclose(got, want, rtol=DP_RTOL, atol=DP_ATOL),
+              f"tp launcher: the {what} loss {got!r} against the "
+              f"uninterrupted run's {want!r}")
+    s = time.perf_counter() - t0
+    print(f"tp launcher: {TP_ARCH} reduced at dp 2 x tp 2 over gloo on the "
+          f"card, 4 steps with checkpoints, resumed at dp 1 x tp 1 to step "
+          f"6: step 4's loss under the dp 2 x tp 2 checkpoint {nxt['tp']!r} "
+          f"against the uninterrupted run's {nxt['one']!r}, the last loss "
+          f"{last['resumed']!r} against {last['one']!r} (rtol {DP_RTOL}, "
+          f"atol {DP_ATOL}); the three runs {s:.1f} s")
+    return {"next_loss": nxt, "last_loss": last, "seconds": s}
+
+
+def tp_phase(torch):
+    """Phase 14: tensor and expert parallelism on the card.  Returns the
+    numbers it printed."""
+    from repro_torch.launch.mesh import run_ranks, stop_rank_server
+    t_phase = time.perf_counter()
+    cfg, cut, small = tp_config()
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    B, T = TP_BATCH
+    tokens = model_inputs(torch, cfg, B, T, gen)["tokens"].cpu()
+    train = [{k: v.cpu() for k, v in lm_inputs(torch, cfg, B, T, i,
+                                               gen).items()}
+             for i in range(TP_TRAIN_STEPS)]
+    c6 = model_inputs(torch, small, *TP_C6_BATCH, gen)["tokens"].cpu()
+    out = {"arch": TP_ARCH, "cut": cut, "tp": {}}
+    with tempfile.TemporaryDirectory(prefix="tp14-") as tmp:
+        ref = tp_reference(torch, cfg, tokens, train, tmp)
+        c6_one = tp_c6_reference(torch, small, c6)
+        out["one"] = {k: ref[k] for k in ("weights", "forward", "train")}
+        f32 = ref["forward"]["float32"]
+        print(f"tp {TP_ARCH} ({cut}), [{B}, {T}], one process on the card: "
+              f"{ref['weights']} bytes of float32 weights; forward float32 "
+              f"{f32['seconds']:.4f} s, peak {f32['peak'] / 1e9:.3f} GB, "
+              f"overflow {f32['overflow']}; bf16 "
+              f"{ref['forward']['bf16']['seconds']:.4f} s; train "
+              f"{TP_TRAIN_STEPS} steps: losses {ref['train']['losses']}, "
+              f"grad norms {ref['train']['grad_norms']}")
+        try:
+            for tp in TP_SIZES:
+                t0 = time.perf_counter()
+                extra = (train, c6) if tp == 2 else (None, None)
+                ranks = run_ranks(tp_rank, tp, (cfg, small, tokens,
+                                                ref["refs"], *extra),
+                                  backend="gloo", device="cuda",
+                                  mesh_shape=(1, tp), timeout_s=TP_TIMEOUT_S)
+                out["tp"][tp] = tp_check(tp, ranks, ref, cfg,
+                                         time.perf_counter() - t0)
+                if tp == 2:
+                    out["c6"] = tp_check_c6(ranks, c6_one)
+        finally:
+            stop_rank_server()
+    out["launcher"] = tp_launcher(torch)
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"tp: no kernel of the port runs on this path; phase 14 took "
+          f"{out['seconds']:.1f} s")
+    print(f"tp summary: {json.dumps(out)}")
+    return out
+
+
+def tp_check(tp, ranks, ref, cfg, spawn_s):
+    """Hold (a) (and (b) on 2 ranks) of ``ranks`` against the one-process
+    run; print the forward times, peaks and all_reduce meters."""
+    N, d = TP_BATCH[0] * TP_BATCH[1], cfg.d_model
+    # a layer's attention (where its heads shard) and MoE, the embedding
+    # (where the vocabulary shards)
+    calls = cfg.n_layers * (1 + (cfg.n_heads % tp == 0)) \
+        + (cfg.vocab % tp == 0)
+    out = {}
+    for key in ranks[0]["forward"]:
+        impl, name = key.split("/")
+        want = ref["forward"][name]
+        rel = max(r["forward"][key]["max_abs_err"] for r in ranks) \
+            / want["scale"]
+        ovf = {r["forward"][key]["overflow"] for r in ranks}
+        comm = ranks[0]["forward"][key]["comm"].get("all_reduce", {})
+        nbytes = calls * 2 * N * d * 4 * (tp - 1) // tp
+        if name == "float32":
+            check(rel <= TP_TOL, f"tp {tp} {impl}: logits {rel} of the "
+                  f"scale from one process's")
+            check(ovf == {want["overflow"]}, f"tp {tp} {impl}: overflow "
+                  f"{ovf} against one process's {want['overflow']}")
+        check(comm.get("calls") == calls and comm.get("bytes") == nbytes,
+              f"tp {tp} {impl} {name}: all_reduce {comm}, the model "
+              f"{calls} calls, {nbytes} bytes")
+        peaks = [r["forward"][key]["peak"] for r in ranks]
+        secs = [r["forward"][key]["seconds"] for r in ranks]
+        out[key] = {"rel_err": rel, "overflow": sorted(ovf),
+                    "seconds": max(secs), "peaks": peaks,
+                    "all_reduce": comm}
+        print(f"tp {tp} {impl} {name}: logits {rel:.3g} of the scale from "
+              f"one process's ({'held to ' + str(TP_TOL) if name == 'float32' else 'printed, not held'}), "
+              f"overflow {sorted(ovf)} (one process {want['overflow']}); "
+              f"forward {max(secs):.4f} s (one process {want['seconds']:.4f}"
+              f"); peak a rank {max(peaks) / 1e9:.3f} GB against weights/tp "
+              f"{ranks[0]['weights'] / 1e9:.3f} GB; all_reduce a rank "
+              f"{comm.get('calls')} calls, {comm.get('bytes')} bytes (the "
+              f"model: {calls} of [{N}, {d}] float32, {nbytes} bytes), "
+              f"{max(r['forward'][key]['comm']['all_reduce']['ms'] for r in ranks):.3f}"
+              f" ms of it at most a rank")
+    if "train" in ranks[0]:
+        want = ref["train"]
+        for r in ranks:
+            for k in ("losses", "grad_norms"):
+                check(np.allclose(r["train"][k], want[k], rtol=TP_TOL,
+                                  atol=0.0), f"tp {tp} train: {k} "
+                      f"{r['train'][k]} against one process's {want[k]}")
+        out["train"] = ranks[0]["train"]
+        print(f"tp {tp} train, float32, {TP_TRAIN_STEPS} steps: losses "
+              f"{ranks[0]['train']['losses']}, grad norms "
+              f"{ranks[0]['train']['grad_norms']} against one process's "
+              f"{want['losses']}, {want['grad_norms']} (rtol {TP_TOL})")
+    print(f"tp {tp}: the ranks' spawn, builds and phases {spawn_s:.1f} s")
+    return out
+
+
+def tp_check_c6(ranks, one):
+    """Hold (d): the data ranks' global overflow equals one process's."""
+    got = [r["c6_overflow"] for r in ranks]
+    check(one > 0 and all(g == one for g in got), f"tp C6: overflow "
+          f"{got} on 2 data ranks against one process's {one}")
+    print(f"tp C6: {TP_ARCH} reduced (capacity factor 1.0), global "
+          f"{list(TP_C6_BATCH)} over 2 data ranks on the card: overflow "
+          f"{got} equal to one process's {one}")
+    return {"overflow": got, "one": one}
+
+
 def main() -> int:
-    """Phases 1-13."""
+    """Phases 1-14."""
     t_start = time.perf_counter()
     import torch
 
@@ -4177,7 +4556,13 @@ def main() -> int:
     train_phase(torch)
     for ln in lines:
         ln["phase13_launches"] = wrappers[ln["name"]].launches
-    print(f"chip_smoke: phases 1-13 took {time.perf_counter() - t_start:.1f} s")
+    # --- phase 14: tensor and expert parallelism ---------------------------
+    for w in wrappers.values():
+        w.launches = 0
+    tp_phase(torch)
+    for ln in lines:
+        ln["phase14_launches"] = wrappers[ln["name"]].launches
+    print(f"chip_smoke: phases 1-14 took {time.perf_counter() - t_start:.1f} s")
 
     print(json.dumps({"kernels": lines}))
     print(json.dumps({"ok": True, "device": {

@@ -226,22 +226,80 @@ def psum(x: torch.Tensor, mesh, axes: Sequence[str]) -> torch.Tensor:
     return x
 
 
-def all_reduce(x: torch.Tensor, group, op: str = "all_reduce"
-               ) -> torch.Tensor:
-    """Sum of ``x`` over the ranks of ``group``, metered under ``op`` (a
-    ring's bytes: each rank sends 2 (k - 1) / k of ``x``)."""
+def all_reduce(x: torch.Tensor, group, op: str = "all_reduce",
+               reduce=dist.ReduceOp.SUM) -> torch.Tensor:
+    """Sum (or ``reduce``) of ``x`` over the ranks of ``group``, metered
+    under ``op`` (a ring's bytes: each rank sends 2 (k - 1) / k of what
+    goes on the wire).  On gloo a bf16 tensor crosses as float32 (gloo
+    reduces no bf16), so it is summed there in float32 and rounded once."""
     k = dist.get_world_size(group)
     if k == 1:
         return x
+    wide = x.dtype == torch.bfloat16 and dist.get_backend(group) == "gloo"
 
     def body():
-        w = _wire(x, group)
+        w = _wire(x.float() if wide else x, group)
         if w is x:                        # all_reduce sums in place
             w = w.clone()
-        dist.all_reduce(w, group=group)
-        return w.to(x.device)
+        dist.all_reduce(w, op=reduce, group=group)
+        return w.to(x.device, x.dtype)
     return _metered(op, x.device,
-                    2 * x.numel() * x.element_size() * (k - 1) // k, body)
+                    2 * x.numel() * (4 if wide else x.element_size())
+                    * (k - 1) // k, body)
+
+
+class _ReduceFromGroup(torch.autograd.Function):
+    """Forward: the sum over the group; backward: the identity."""
+
+    @staticmethod
+    def forward(ctx, x, group, op):
+        return all_reduce(x, group, op)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None, None
+
+
+class _CopyToGroup(torch.autograd.Function):
+    """Forward: the identity; backward: the sum of the grads over the
+    group."""
+
+    @staticmethod
+    def forward(ctx, x, group, op):
+        ctx.group, ctx.op = group, op
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_reduce(g.contiguous(), ctx.group, ctx.op), None, None
+
+
+def reduce_from_group(x: torch.Tensor, group,
+                      op: str = "all_reduce") -> torch.Tensor:
+    """Megatron's g: the sum of the ranks' partial ``x`` (a row-parallel
+    product's), whose grad every rank takes whole.  Identity without a
+    group or over one rank."""
+    if group is None or dist.get_world_size(group) == 1:
+        return x
+    return _ReduceFromGroup.apply(x, group, op)
+
+
+def copy_to_group(x: torch.Tensor, group,
+                  op: str = "all_reduce_grad") -> torch.Tensor:
+    """Megatron's f: ``x``, the same on every rank, enters a region whose
+    ranks each use a part of it; its grad is the sum of theirs.  Identity
+    without a group or over one rank."""
+    if group is None or dist.get_world_size(group) == 1:
+        return x
+    return _CopyToGroup.apply(x, group, op)
+
+
+def all_reduce_both_ways(x: torch.Tensor, group,
+                         op: str = "all_reduce") -> torch.Tensor:
+    """The sum over ``group`` whose backward also sums over it: a global
+    statistic (the MoE load-balance loss's) that every rank puts into its
+    own loss, whose grads the ranks then average."""
+    return copy_to_group(reduce_from_group(x, group, op), group, op + "_grad")
 
 
 def _to_wire32(x: torch.Tensor) -> torch.Tensor:

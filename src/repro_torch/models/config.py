@@ -5,10 +5,11 @@ per entry in ``repro_torch/configs/<id>.py``; stub modality frontends for
 
 The trunk consumes a *layer pattern*: a cycle of mixer kinds applied
 round-robin over the depth, one block per full pattern period.  The JAX
-package scans the blocks; the port loops over them.  ``rules``, ``remat``
-and ``moe_impl`` are kept as data: they steer the reference's sharding,
-remat and shard_map dispatch, which the port's one-card forward and decode
-do not have yet.
+package scans the blocks; the port loops over them.  ``remat`` steers the
+block remat and ``moe_impl`` the MoE dispatch under a mesh binding (the
+reference's shard_map rule for "ep"); ``rules`` are kept as data (the
+per-arch overrides the reference's dry runs read; the launchers bind the
+default rules).
 """
 
 from __future__ import annotations

@@ -16,11 +16,13 @@ nested, stacked layout and back; train checkpoints are written in it.
 from __future__ import annotations
 
 import re
+from typing import TYPE_CHECKING
 
 import numpy as np
 import torch
 
-from repro_torch.models.model import Model
+if TYPE_CHECKING:  # the model imports the sharding rules, which import this
+    from repro_torch.models.model import Model
 
 STACKS = ("trunk.blocks", "encdec.enc_blocks", "encdec.dec_blocks")
 _UNSTACKED = re.compile(r"^(%s)\.(\d+)\.(.+)$" % "|".join(
@@ -85,15 +87,21 @@ def unstack_tree(tree: dict) -> dict:
     return named
 
 
-def params_from_jax(cfg, tree: dict, device="cuda") -> Model:
+def params_from_jax(cfg, tree: dict, device="cuda", mesh=None) -> Model:
     """A :class:`Model` on ``device`` (the card by default) holding the JAX
     package's parameters ``tree`` (nested dicts of numpy arrays, as
     ``jax.tree.map(np.asarray, repro.models.Model(cfg).init(key))`` gives).
-    Every leaf must land on a parameter and every parameter be filled."""
+    Every leaf must land on a parameter and every parameter be filled.
+    With ``mesh`` (a ``DeviceMesh`` of this rank) the model holds this
+    rank's shards (``sharding.specs.shard_params``)."""
+    from repro_torch.models.model import Model
     model = Model(cfg, device=device)
     state = {name: torch.from_numpy(np.array(leaf, np.float32))
              for name, leaf in unstack_tree(tree).items()}
     model.load_state_dict(state, strict=True)
+    if mesh is not None:
+        from repro_torch.sharding.specs import shard_params
+        shard_params(model, mesh)
     return model
 
 

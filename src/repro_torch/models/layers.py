@@ -11,6 +11,16 @@ Attention is plain torch (einsum, a float32 softmax and, where
 the reference computes it with ``jnp`` outside any Pallas kernel.  Every
 function is differentiated by autograd; ``remat`` is the block
 rematerialisation the trunk and whisper's stacks apply.
+
+Tensor parallelism (under ``sharding.specs.logical_rules``, over the
+``model`` dim) is read off the shards ``shard_params`` cut: ``wq``/``wk``/
+``wv`` (and their biases) are column-parallel by heads and kv heads where
+``spec_for`` shards them, ``wo`` row-parallel; ``wg``/``wu`` column-parallel
+by ff, ``wd`` row-parallel.  The input enters through ``copy_to_group``
+(Megatron's f), a replicated parameter used on the local heads through it
+too, and a row-parallel product ends in one ``reduce_from_group`` (g), a
+row-parallel bias added after it.  The attention itself runs unchanged on
+the local heads.
 """
 
 from __future__ import annotations
@@ -22,6 +32,9 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
+
+from repro_torch.core.distributed import copy_to_group, reduce_from_group
+from repro_torch.sharding.specs import current_binding, model_axis, rebind
 
 COMPUTE_DTYPE = torch.bfloat16
 
@@ -79,7 +92,13 @@ def remat(cfg, fn, *args):
     activations are dropped and recomputed in the backward.  The forward
     draws no random numbers, so no RNG state is kept for the recompute."""
     if cfg.remat == "block" and torch.is_grad_enabled():
-        return checkpoint(fn, *args, use_reentrant=False,
+        # the recompute may run on autograd's thread: bind what is bound
+        binding = current_binding()
+
+        def run(*a):
+            with rebind(binding):
+                return fn(*a)
+        return checkpoint(run, *args, use_reentrant=False,
                           preserve_rng_state=False)
     return fn(*args)
 
@@ -172,26 +191,55 @@ def init_attention(init: Init, cfg) -> Params:
     return Params(**p)
 
 
+def _tp_heads(p, cfg):
+    """(model dim or None, local heads, local kv heads): the dim when
+    ``wq`` holds a shard of the heads."""
+    hd = cfg.hd
+    H_l, Hk_l = p["wq"].shape[1] // hd, p["wk"].shape[1] // hd
+    return (model_axis() if H_l < cfg.n_heads else None), H_l, Hk_l
+
+
 def _project_qkv(p, x, cfg, positions):
     B, T, _ = x.shape
     H, Hk, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
     c = COMPUTE_DTYPE
+    tp, H_l, Hk_l = _tp_heads(p, cfg)
+    group = None if tp is None else tp.group
+    x = copy_to_group(x, group)
+    kv_rep = tp is not None and Hk_l == Hk   # kv heads whole, heads split
+
+    def kv(name):       # a replicated kv leaf, used on the local heads
+        return copy_to_group(p[name], group) if kv_rep else p[name]
     q = x @ p["wq"].to(c)
-    k = x @ p["wk"].to(c)
-    v = x @ p["wv"].to(c)
+    k = x @ kv("wk").to(c)
+    v = x @ kv("wv").to(c)
     if cfg.qkv_bias:
         q = q + p["bq"].to(c)
-        k = k + p["bk"].to(c)
-        v = v + p["bv"].to(c)
-    q = q.reshape(B, T, H, hd)
-    k = k.reshape(B, T, Hk, hd)
-    v = v.reshape(B, T, Hk, hd)
+        k = k + kv("bk").to(c)
+        v = v + kv("bv").to(c)
+    q = q.reshape(B, T, H_l, hd)
+    k = k.reshape(B, T, Hk_l, hd)
+    v = v.reshape(B, T, Hk_l, hd)
+    if kv_rep:          # each local head's own kv group
+        idx = (tp.rank * H_l + torch.arange(H_l, device=x.device)) \
+            // (H // Hk)
+        k, v = k[:, :, idx], v[:, :, idx]
     if cfg.qk_norm:
-        q = rmsnorm(p["q_norm"], q, cfg.norm_eps)
-        k = rmsnorm(p["k_norm"], k, cfg.norm_eps)
+        q = rmsnorm({"scale": copy_to_group(p["q_norm"]["scale"], group)},
+                    q, cfg.norm_eps)
+        k = rmsnorm({"scale": copy_to_group(p["k_norm"]["scale"], group)},
+                    k, cfg.norm_eps)
     q = rope(q, positions, cfg.rope_theta)
     k = rope(k, positions, cfg.rope_theta)
     return q, k, v
+
+
+def _out_proj(p, out, cfg):
+    """``out @ wo``; summed over the model dim when ``wo`` holds a shard of
+    the heads."""
+    tp = _tp_heads(p, cfg)[0]
+    y = out @ p["wo"].to(COMPUTE_DTYPE)
+    return reduce_from_group(y, None if tp is None else tp.group)
 
 
 def _sdpa(q, k, v, mask, cfg):
@@ -263,14 +311,13 @@ def attention_train(p, x, cfg, *, kind: str, positions=None,
         q = _project_qkv(p, x, cfg, positions)[0]
         mask = torch.ones((B, T, k.shape[1]), dtype=torch.bool,
                           device=x.device)
-        out = _sdpa(q, k, v, mask, cfg)
-        return out @ p["wo"].to(COMPUTE_DTYPE)
+        return _out_proj(p, _sdpa(q, k, v, mask, cfg), cfg)
     q, k, v = _project_qkv(p, x, cfg, positions)
     chunk = cfg.attn_chunk
     if chunk and T % chunk == 0 and T > chunk:
         pos = positions.expand(B, T)
         out = _chunked_sdpa(q, k, v, pos, pos, kind, cfg, chunk)
-        return out @ p["wo"].to(COMPUTE_DTYPE)
+        return _out_proj(p, out, cfg)
     i = positions[:, :, None]
     j = positions[:, None, :]
     if kind == "causal":
@@ -281,8 +328,7 @@ def attention_train(p, x, cfg, *, kind: str, positions=None,
         mask = torch.ones((B, T, T), dtype=torch.bool, device=x.device)
     else:
         raise ValueError(kind)
-    out = _sdpa(q, k, v, mask, cfg)
-    return out @ p["wo"].to(COMPUTE_DTYPE)
+    return _out_proj(p, _sdpa(q, k, v, mask, cfg), cfg)
 
 
 def cross_kv(p, enc_out, cfg):
@@ -347,12 +393,18 @@ def init_mlp(init: Init, cfg) -> Params:
 
 
 def mlp(p, x, cfg) -> torch.Tensor:
+    """The dense feed-forward; column- then row-parallel over the model dim
+    when ``wd`` holds a shard of ``ff``."""
     c = COMPUTE_DTYPE
+    tp = model_axis() if p["wd"].shape[0] < cfg.d_ff else None
+    group = None if tp is None else tp.group
+    x = copy_to_group(x, group)
     if cfg.ff_kind == "swiglu":
-        return (F.silu(x @ p["wg"].to(c)) *
-                (x @ p["wu"].to(c))) @ p["wd"].to(c)
+        return reduce_from_group((F.silu(x @ p["wg"].to(c)) *
+                                  (x @ p["wu"].to(c))) @ p["wd"].to(c), group)
     if cfg.ff_kind == "geglu":
-        return (F.gelu(x @ p["wg"].to(c), approximate="tanh") *
-                (x @ p["wu"].to(c))) @ p["wd"].to(c)
+        return reduce_from_group((F.gelu(x @ p["wg"].to(c), approximate="tanh")
+                                  * (x @ p["wu"].to(c))) @ p["wd"].to(c),
+                                 group)
     h = F.gelu(x @ p["wu"].to(c) + p["bu"].to(c), approximate="tanh")
-    return h @ p["wd"].to(c) + p["bd"].to(c)
+    return reduce_from_group(h @ p["wd"].to(c), group) + p["bd"].to(c)

@@ -7,6 +7,15 @@ pytree.  Loss is next-token cross-entropy in f32 with z-loss; the MoE aux
 loss folds in when present.  The parameters are trainable
 (``runtime/train.py`` differentiates ``loss``); the serving calls
 (``init_cache``, ``decode_step``) record no graph.
+
+Sharded over a mesh's ``model`` dim (``sharding.specs.shard_params``, run
+under ``logical_rules``), the embedding and the unembedding are
+vocab-parallel where ``vocab % tp == 0``: a rank looks up the tokens of its
+rows of the table and one ``reduce_from_group`` sums the lookups; it
+computes its slice of the logits, and the loss is a vocab-parallel
+cross-entropy (an all_reduce of the max, of the sum of exps and of the gold
+logit) that never gathers ``[B, T, V]``.  ``forward`` gathers the logits
+only when asked.  Decode on a sharded model waits for ROADMAP A7d.
 """
 
 from __future__ import annotations
@@ -16,10 +25,14 @@ from typing import Optional
 import torch
 from torch import nn
 
+from repro_torch.core.distributed import (all_gather, all_reduce,
+                                          copy_to_group, reduce_from_group)
 from repro_torch.models import encdec as ED
 from repro_torch.models import layers as L
 from repro_torch.models import trunk as TR
 from repro_torch.models.config import ArchConfig
+from repro_torch.sharding.specs import (bound_axis, current_binding,
+                                        model_axis, shard_hint)
 
 Z_LOSS_WEIGHT = 1e-4
 MOE_AUX_WEIGHT = 1e-2
@@ -69,9 +82,23 @@ class Model(nn.Module):
 
     # --- shared pieces --------------------------------------------------------
 
+    def _vocab_axis(self):
+        """The model dim when the table holds a shard of the vocabulary
+        (else None), and its local rows."""
+        V_l = self.embed.shape[0]
+        return (model_axis() if V_l < self.cfg.vocab else None), V_l
+
     def _embed(self, tokens):
         cfg = self.cfg
-        x = self.embed[tokens].to(L.COMPUTE_DTYPE)
+        tp, V_l = self._vocab_axis()
+        if tp is None:
+            x = self.embed[tokens].to(L.COMPUTE_DTYPE)
+        else:
+            t = tokens.long() - tp.rank * V_l
+            mine = (t >= 0) & (t < V_l)
+            x = (self.embed[t.clamp(0, V_l - 1)] * mine[..., None]).to(
+                L.COMPUTE_DTYPE)
+            x = reduce_from_group(x, tp.group)
         if cfg.scale_embed:
             x = x * torch.sqrt(torch.tensor(cfg.d_model, dtype=L.COMPUTE_DTYPE,
                                             device=x.device))
@@ -84,15 +111,23 @@ class Model(nn.Module):
                 else L.rmsnorm(self.final_norm, x, cfg.norm_eps))
 
     def _logits(self, x):
+        """float32 logits: this rank's vocabulary slice when the table is
+        sharded."""
         cfg = self.cfg
+        tp = self._vocab_axis()[0]
         head = self.embed.T if cfg.tie_embeddings else self.head
+        x = copy_to_group(x, None if tp is None else tp.group)
         logits = x @ head.to(L.COMPUTE_DTYPE)
-        return L.softcap(logits.float(), cfg.logit_softcap)
+        logits = L.softcap(logits.float(), cfg.logit_softcap)
+        return shard_hint(logits, ("batch", "seq", "vocab"),
+                          (*logits.shape[:-1], cfg.vocab))
 
     # --- forward (train / prefill) -------------------------------------------
 
-    def forward(self, batch: dict) -> tuple:
-        """-> (logits over token positions [B, T, V], aux dict)."""
+    def forward(self, batch: dict, gather: bool = False) -> tuple:
+        """-> (logits over token positions [B, T, V], aux dict).  On a
+        vocab-sharded model the logits are this rank's [B, T, V / tp] slice
+        unless ``gather`` asks for all of them (which carry no grad)."""
         cfg = self.cfg
         tokens = batch["tokens"]
         B, T = tokens.shape
@@ -118,14 +153,16 @@ class Model(nn.Module):
             if P_img:
                 x = x[:, P_img:]
         x = self._final_norm(x)
-        return self._logits(x), aux
+        logits = self._logits(x)
+        if gather and logits.shape[-1] < cfg.vocab:
+            parts = all_gather(logits.detach(), current_binding()[0], "model")
+            logits = torch.cat(list(parts), dim=-1)
+        return logits, aux
 
     def loss(self, batch: dict) -> tuple:
         """-> (scalar loss, metrics dict)."""
         logits, aux = self.forward(batch)
-        targets = batch["targets"]
-        logz = torch.logsumexp(logits, dim=-1)                # [B, T] f32
-        gold = torch.gather(logits, -1, targets[..., None].long())[..., 0]
+        logz, gold = self._logz_gold(logits, batch["targets"])
         nll = torch.mean(logz - gold)
         zloss = Z_LOSS_WEIGHT * torch.mean(logz ** 2)
         total = nll + zloss
@@ -137,6 +174,31 @@ class Model(nn.Module):
         metrics["loss"] = total
         return total, metrics
 
+    def _logz_gold(self, logits, targets) -> tuple:
+        """(log of the partition function, the target's logit) [B, T] in
+        float32: over a vocabulary slice, an all_reduce of the max, of the
+        sum of exps and of the gold logit (the latter two summing grads
+        back to each rank's slice unchanged)."""
+        tp, V_l = self._vocab_axis()
+        if tp is None:
+            return (torch.logsumexp(logits, dim=-1),
+                    torch.gather(logits, -1, targets[..., None].long())[..., 0])
+        m = all_reduce(logits.detach().amax(dim=-1), tp.group,
+                       "all_reduce_loss", torch.distributed.ReduceOp.MAX)
+        se = torch.exp(logits - m[..., None]).sum(dim=-1)
+        logz = torch.log(reduce_from_group(se, tp.group, "all_reduce_loss")) + m
+        t = targets.long() - tp.rank * V_l
+        mine = (t >= 0) & (t < V_l)
+        gold = torch.gather(logits, -1, t.clamp(0, V_l - 1)[..., None])[..., 0]
+        gold = reduce_from_group(gold * mine, tp.group, "all_reduce_loss")
+        return logz, gold
+
+    def _check_decode(self) -> None:
+        if bound_axis("model") is not None:
+            raise NotImplementedError("decode on a tensor-parallel model (the "
+                                      "kv_seq-sharded cache) waits for "
+                                      "ROADMAP A7d")
+
     # --- serving --------------------------------------------------------------
 
     @torch.no_grad()
@@ -144,6 +206,7 @@ class Model(nn.Module):
                    frames: Optional[torch.Tensor] = None, device=None):
         """Decode cache on the model's device (or ``device``).  Whisper
         needs ``frames`` for cross-KV."""
+        self._check_decode()
         cfg = self.cfg
         if cfg.is_encdec:
             assert frames is not None
@@ -169,6 +232,7 @@ class Model(nn.Module):
     def decode_step(self, tokens, cache) -> tuple:
         """tokens int [B] -> (logits f32 [B, V], new cache).  Attention
         caches are updated in place (``layers.attention_decode``)."""
+        self._check_decode()
         cfg = self.cfg
         x = self._embed(tokens[:, None])                      # [B, 1, d]
         if cfg.is_encdec:

@@ -8,7 +8,7 @@ where the reference scans stacked parameters, plus an unscanned tail block
 when the period does not divide the depth.  Each full block runs under the
 reference's block remat (``layers.remat``: ``torch.utils.checkpoint`` where
 the reference has ``jax.checkpoint``), the tail without, as there.  The
-``shard_hint`` layout hints wait for the tensor-parallel layouts.
+reference's layout hint on each mixer's input is a ``shard_hint`` check.
 
 Decode carries one cache dict per block, ``{"blocks": [...], "tail": ...}``.
 """
@@ -22,6 +22,7 @@ from repro_torch.models import layers as L
 from repro_torch.models import moe as M
 from repro_torch.models import rglru as R
 from repro_torch.models import ssm as S
+from repro_torch.sharding.specs import shard_hint
 
 
 def _norm_init(init, cfg):
@@ -80,9 +81,8 @@ def init_trunk(init, cfg) -> L.Params:
 def _apply_ff(bp, i, x, cfg, aux):
     h = _norm(bp[f"ffpre_{i}"], x, cfg)
     if cfg.ff_kind == "moe":
-        # moe_impl "ep" dispatches over a mesh in the reference, which runs
-        # moe_ffn where there is none, as on the port's one card
-        ff, a = M.moe_ffn(bp[f"ff_{i}"], h, cfg)
+        moe_fn = M.moe_ffn_ep if cfg.moe_impl == "ep" else M.moe_ffn
+        ff, a = moe_fn(bp[f"ff_{i}"], h, cfg)
         aux = {k: aux.get(k, 0.0) + v for k, v in a.items()}
     else:
         ff = L.mlp(bp[f"ff_{i}"], h, cfg)
@@ -96,6 +96,7 @@ def block_train(bp, x, cfg, positions, pattern=None) -> tuple:
     pattern = pattern or cfg.mixer_pattern
     for i, kind in enumerate(pattern):
         h = _norm(bp[f"pre_{i}"], x, cfg)
+        h = shard_hint(h, ("batch", "seq", "embed"))
         if kind == "attn":
             mx = L.attention_train(bp[f"mix_{i}"], h, cfg, kind="causal",
                                    positions=positions)

@@ -8,6 +8,10 @@ three times its 6.9 GB), with ``torch._foreach_*`` over all leaves, and in
 chunks of at most ``CHUNK_ELEMENTS`` elements where it needs temporaries.
 ``step`` is an int32 0-d tensor on the CPU, so lr and the bias corrections
 are the reference's float32 0-d arithmetic without a wait for the card.
+
+On a model sharded over a ``model`` group, the global norm that clips the
+grads is the whole model's: a sharded leaf's squares are summed over the
+group, a replicated leaf (the same on every rank) counts once.
 """
 
 from __future__ import annotations
@@ -16,6 +20,8 @@ import math
 from typing import NamedTuple
 
 import torch
+
+from repro_torch.core.distributed import all_reduce
 
 # elements of the update's temporaries at once (two float32 buffers)
 CHUNK_ELEMENTS = 1 << 28
@@ -35,10 +41,17 @@ def adamw_init(params: dict) -> AdamWState:
                        for k, p in params.items()})
 
 
-def global_norm(tensors) -> torch.Tensor:
-    """sqrt of the sum of squares over every element of ``tensors``."""
+def global_norm(tensors, split=(), group=None) -> torch.Tensor:
+    """sqrt of the sum of squares over every element of ``tensors``; the
+    tensors whose flag in ``split`` is set are shards, their squares summed
+    over ``group`` too."""
     norms = torch._foreach_norm([t.float() for t in tensors])
-    return torch.linalg.vector_norm(torch.stack(norms))
+    if not any(split):
+        return torch.linalg.vector_norm(torch.stack(norms))
+    sq = torch.stack(norms) ** 2
+    mask = torch.tensor(split, device=sq.device)
+    part = all_reduce(torch.where(mask, sq, 0.0).sum(), group, "grad_norm")
+    return torch.sqrt(part + torch.where(mask, 0.0, sq).sum())
 
 
 def cosine_schedule(base_lr: float, warmup: int, total: int):
@@ -57,16 +70,18 @@ def cosine_schedule(base_lr: float, warmup: int, total: int):
 def adamw_update(params: dict, grads: dict, state: AdamWState, *, lr_fn,
                  b1: float = 0.9, b2: float = 0.95, eps: float = 1e-8,
                  weight_decay: float = 0.1,
-                 clip_norm: float = 1.0) -> tuple:
+                 clip_norm: float = 1.0, sharded=frozenset(),
+                 model_group=None) -> tuple:
     """-> (params, new_state, metrics).  Clips ``grads`` to the global norm
     ``clip_norm`` (scaling them in place), then updates ``params`` and the
-    moments in place; weight decay applies to every leaf."""
+    moments in place; weight decay applies to every leaf.  The leaves
+    named in ``sharded`` are shards over ``model_group``."""
     names = list(params)
     p = [params[k] for k in names]
     g = [grads[k].float() for k in names]
     m = [state.m[k] for k in names]
     v = [state.v[k] for k in names]
-    gnorm = global_norm(g)
+    gnorm = global_norm(g, [k in sharded for k in names], model_group)
     scale = torch.clamp(clip_norm / (gnorm + 1e-9), max=1.0)
     torch._foreach_mul_(g, scale)
     step = state.step + 1

@@ -12,9 +12,21 @@ package restores the other's files.
 
 Data parallelism: each rank computes the loss of its rows of the global
 batch, and the step all-reduces the mean of the float32 grads (or of their
-int8-EF payload) and of the metrics over the group.  For an MoE config a
-rank's expert capacity and load-balance loss come from its own tokens,
-where the reference's one program over the mesh sees the global batch.
+int8-EF payload) and of the metrics over the group.  An MoE config's
+capacity, load-balance loss and overflow are the global batch's, as in the
+reference's one program over the mesh: its step runs under a
+``logical_rules`` binding whose ``data`` dim is the group
+(``models/moe.py``).
+
+Tensor and expert parallelism: a model cut by ``sharding.specs.
+shard_params`` over a mesh's ``model`` dim keeps each sharded leaf's grad
+local (the f/g collectives of the layers already made it this rank's
+part of the whole grad) and each replicated leaf's as it is (equal on
+every model rank, never reduced over ``model``); the clipping norm sums
+the shards' squares over ``model_group``.  Checkpoints gather the shards
+to the reference's unsharded layout (``train_state_tree``), and
+``load_train_state`` cuts a restored tree to this rank's shards, so a
+checkpoint resumes at any (dp, tp).
 """
 
 from __future__ import annotations
@@ -30,6 +42,8 @@ from repro_torch.models.model import Model
 from repro_torch.optim.adamw import (AdamWState, adamw_init, adamw_update,
                                      cosine_schedule)
 from repro_torch.optim.compress import ef_compress_grads
+from repro_torch.sharding.specs import (bound_axis, gather_params, mesh_dims,
+                                        shard_of)
 
 
 class TrainState(NamedTuple):
@@ -47,7 +61,7 @@ def train_state_init(model: Model, *, compress: bool = False) -> TrainState:
 
 def make_train_step(model: Model, *, lr: float = 3e-4, warmup: int = 100,
                     total_steps: int = 10_000, microbatches: int = 1,
-                    data_group=None, compress_group=None):
+                    data_group=None, compress_group=None, model_group=None):
     """Returns step(state, batch) -> (state, metrics).
 
     ``microbatches`` > 1 splits the batch on the leading axis, accumulates
@@ -55,15 +69,21 @@ def make_train_step(model: Model, *, lr: float = 3e-4, warmup: int = 100,
     metrics.  ``data_group`` all-reduces the mean of the grads over a
     data-parallel group; ``compress_group`` does so through the int8
     error-feedback payload instead (the state then needs ``ef_error``,
-    ``train_state_init(compress=True)``).  The metrics are 0-d tensors:
-    ``loss``, ``nll``, ``z_loss`` (and the MoE's ``moe_aux_loss``,
-    ``moe_overflow``), ``grad_norm``, ``lr``.
+    ``train_state_init(compress=True)``).  A model sharded over a mesh's
+    ``model`` dim needs that dim's group as ``model_group`` and runs under
+    ``logical_rules(mesh)``, as an MoE under data parallelism does (module
+    docstring).  The metrics are 0-d tensors: ``loss``, ``nll``, ``z_loss``
+    (and the MoE's ``moe_aux_loss``, ``moe_overflow``), ``grad_norm``,
+    ``lr``.
     """
     if data_group is not None and compress_group is not None:
         raise ValueError("make_train_step: data_group or compress_group, "
                          "not both")
     lr_fn = cosine_schedule(lr, warmup, total_steps)
     group = compress_group if compress_group is not None else data_group
+    sharded = _sharded_leaves(model, model_group)
+    moe_dp = group is not None and model.cfg.ff_kind == "moe" \
+        and dist.get_world_size(group) > 1
 
     def forward_backward(batch) -> dict:
         if microbatches == 1:
@@ -85,6 +105,12 @@ def make_train_step(model: Model, *, lr: float = 3e-4, warmup: int = 100,
         return {k: v * inv for k, v in macc.items()}
 
     def step(state: TrainState, batch) -> tuple:
+        data = bound_axis("data") if moe_dp else None
+        if moe_dp and (data is None
+                       or data.size != dist.get_world_size(group)):
+            raise RuntimeError("an MoE's capacity is the global batch's: run "
+                               "its data-parallel step under logical_rules("
+                               "mesh) whose data dim is the step's group")
         params = state.params
         for p in params.values():
             p.grad = None
@@ -99,12 +125,29 @@ def make_train_step(model: Model, *, lr: float = 3e-4, warmup: int = 100,
         if group is not None:
             metrics = _mean_over(metrics, group, op="all_reduce_metrics")
         params, opt, om = adamw_update(params, grads, state.opt,
-                                       lr_fn=lr_fn)
+                                       lr_fn=lr_fn, sharded=sharded,
+                                       model_group=model_group)
         for p in params.values():
             p.grad = None
         return TrainState(params, opt, ef), {**metrics, **om}
 
     return step
+
+
+def _sharded_leaves(model: Model, model_group) -> frozenset:
+    """The names of ``model``'s sharded leaves; checks that ``model_group``
+    is the group of the mesh dim they are cut over."""
+    sharding = getattr(model, "sharding", None)
+    if sharding is None:
+        return frozenset()
+    size = mesh_dims(sharding.mesh).get("model", 1)
+    names = frozenset(n for n, spec in sharding.specs.items()
+                      if size > 1 and "model" in spec)
+    if names and (model_group is None
+                  or dist.get_world_size(model_group) != size):
+        raise ValueError("make_train_step: a sharded model needs the group "
+                         "of its mesh's model dim as model_group")
+    return names
 
 
 def _mean_over(tensors: dict, group, op: str = "all_reduce") -> dict:
@@ -119,32 +162,46 @@ def _mean_over(tensors: dict, group, op: str = "all_reduce") -> dict:
 
 # --- checkpoints in the reference's layout -------------------------------------
 
-def train_state_tree(state: TrainState) -> TrainState:
+def train_state_tree(state: TrainState, model: Optional[Model] = None
+                     ) -> TrainState:
     """``state`` in the JAX package's train-state layout: params, ``m``,
     ``v`` (and ``ef_error``) as nested dicts of float32 CPU tensors with
     the stacks stacked, ``step`` an int32 0-d tensor.  What
     ``runtime/checkpoint.save_checkpoint`` writes and ``restore_checkpoint``
-    takes as its ``like_tree``."""
-    ef = None if state.ef_error is None else stack_tree(state.ef_error)
-    return TrainState(stack_tree(state.params),
+    takes as its ``like_tree``.  For a sharded ``model`` the shards are
+    gathered first (a collective: every rank of the mesh calls it)."""
+    sharding = getattr(model, "sharding", None)
+
+    def whole(named: dict) -> dict:
+        return named if sharding is None else gather_params(named, sharding)
+    ef = None if state.ef_error is None else stack_tree(whole(state.ef_error))
+    return TrainState(stack_tree(whole(state.params)),
                       AdamWState(state.opt.step.to("cpu", torch.int32,
                                                    copy=True),
-                                 stack_tree(state.opt.m),
-                                 stack_tree(state.opt.v)), ef)
+                                 stack_tree(whole(state.opt.m)),
+                                 stack_tree(whole(state.opt.v))), ef)
 
 
 @torch.no_grad()
 def load_train_state(tree: TrainState, model: Model) -> TrainState:
     """The inverse of ``train_state_tree``: the tree's params copied into
     ``model``'s parameters, its moments (and residuals) onto their device;
-    returns the model's train state."""
+    returns the model's train state.  A sharded ``model`` takes this rank's
+    shard of every leaf."""
     params = dict(model.named_parameters())
+    sharding = getattr(model, "sharding", None)
+
+    def local(name: str, leaf):
+        leaf = torch.as_tensor(leaf)
+        return leaf if sharding is None else shard_of(
+            leaf, sharding.specs[name], sharding.mesh)
+
     for name, leaf in unstack_tree(tree.params).items():
-        params[name].copy_(leaf)
+        params[name].copy_(local(name, leaf))
 
     def place(sub: dict) -> dict:
         flat = unstack_tree(sub)
-        return {k: flat[k].to(p.device, torch.float32, copy=True)
+        return {k: local(k, flat[k]).to(p.device, torch.float32, copy=True)
                 for k, p in params.items()}
 
     ef = None if tree.ef_error is None else place(tree.ef_error)

@@ -1,17 +1,30 @@
-"""Logical-axis sharding rules: the port of the JAX package's
-``sharding/specs.py`` table and its divisibility-aware spec construction.
+"""Logical-axis sharding: the port of the JAX package's ``sharding/specs.py``
+(its rules table, divisibility-aware spec construction and thread-local
+binding) and what the reference leaves to GSPMD: cutting parameters into
+their local shards and gathering them back.
 
 ``spec_for`` maps a tensor's logical axis names to mesh axis names over a
-mesh given as ``{axis name: size}`` (a ``DeviceMesh``'s
-``dict(zip(mesh.mesh_dim_names, mesh.shape))``), and returns the tuple the
-reference's ``PartitionSpec`` holds: a mesh axis, a tuple of them, or None
-(replicated) per dim.  Applying the specs as ``DTensor`` placements, and
-the layout hints inside the model, wait for the tensor-parallel slice.
+mesh given as ``{axis name: size}`` (:func:`mesh_dims` of a ``DeviceMesh``),
+and returns the tuple the reference's ``PartitionSpec`` holds: a mesh axis,
+a tuple of them, or None (replicated) per dim.
+
+``logical_rules(mesh)`` binds a ``DeviceMesh`` (dims ``"data"`` and
+``"model"``) and the rules for this thread.  Under a binding the model
+stack runs tensor and expert parallel over the ``model`` dim with explicit
+local shards and named collectives (PyTorch has no GSPMD to propagate
+layouts): a parameter is held as the shard :func:`shard_params` cut, and an
+activation is this data rank's rows, whole over ``model`` unless a hint
+says otherwise.  ``shard_hint`` checks that layout where the reference
+constrains it.  Outside a binding everything runs on one device, as before.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Sequence
+import threading
+from contextlib import contextmanager
+from typing import NamedTuple, Optional, Sequence
+
+import torch
 
 # logical axis -> mesh axis (or tuple of mesh axes). None = replicate.
 DEFAULT_RULES: dict = {
@@ -30,6 +43,12 @@ DEFAULT_RULES: dict = {
     None: None,
 }
 
+DATA_AXES = ("pod", "data")
+# the families whose mixers have no tensor-parallel form yet
+NO_TP_FAMILIES = ("ssm", "hybrid", "audio")
+
+_ctx = threading.local()
+
 
 def _mesh_size(mesh: dict, axis) -> int:
     if axis is None:
@@ -42,7 +61,14 @@ def _mesh_size(mesh: dict, axis) -> int:
     return mesh.get(axis, 1)
 
 
-def spec_for(names: Sequence, shape: Sequence[int], mesh: dict,
+def mesh_dims(mesh) -> dict:
+    """``{axis name: size}`` of a ``DeviceMesh`` (a dict passes through)."""
+    if isinstance(mesh, dict):
+        return mesh
+    return dict(zip(mesh.mesh_dim_names, mesh.shape))
+
+
+def spec_for(names: Sequence, shape: Sequence[int], mesh,
              rules: Optional[dict] = None) -> tuple:
     """The partition of a tensor from its logical names, dropping
     indivisible shardings (``rules`` default to ``DEFAULT_RULES``).
@@ -51,6 +77,7 @@ def spec_for(names: Sequence, shape: Sequence[int], mesh: dict,
     units (attention heads, experts) and only shards when whole units land
     per shard.  A mesh axis appears once per spec: its first use wins and
     later ones replicate."""
+    mesh = mesh_dims(mesh)
     rules = DEFAULT_RULES if rules is None else rules
     parts = []
     for name, dim in zip(names, shape):
@@ -85,3 +112,194 @@ def is_axes_leaf(x) -> bool:
         isinstance(n, (str, type(None)))
         or (isinstance(n, tuple) and len(n) == 2 and isinstance(n[0], str))
         for n in x)
+
+
+# --- the binding ------------------------------------------------------------
+
+@contextmanager
+def rebind(binding):
+    """Run the block under ``binding`` (``current_binding()``'s value, None
+    for none): what ``logical_rules`` sets, for code that runs on another
+    thread, such as a remat block's recompute on autograd's thread."""
+    prev = getattr(_ctx, "bind", None)
+    _ctx.bind = binding
+    try:
+        yield
+    finally:
+        _ctx.bind = prev
+
+
+def logical_rules(mesh, rules: Optional[dict] = None):
+    """Bind (``mesh``, rules) for the model stack in this thread."""
+    return rebind((mesh, {**DEFAULT_RULES, **(rules or {})}))
+
+
+def current_binding():
+    """The bound (mesh, rules), or None."""
+    return getattr(_ctx, "bind", None)
+
+
+class Axis(NamedTuple):
+    """A bound mesh dim: its process group, this rank's index, its size."""
+    group: object
+    rank: int
+    size: int
+
+
+def bound_axis(name: str) -> Optional[Axis]:
+    """The bound mesh's ``name`` dim (``"model"`` or ``"data"``); None
+    outside a binding, or when the mesh has no such dim or it holds one
+    rank.  A ``pod`` dim of more than one rank has no model-stack layout
+    yet and raises."""
+    bind = current_binding()
+    if bind is None:
+        return None
+    mesh = bind[0]
+    dims = mesh_dims(mesh)
+    if dims.get("pod", 1) > 1:
+        raise NotImplementedError("the model stack binds (data, model) "
+                                  "meshes; a pod dim has no layout yet")
+    if dims.get(name, 1) == 1:
+        return None
+    return Axis(mesh.get_group(name), mesh.get_local_rank(name), dims[name])
+
+
+def model_axis() -> Axis:
+    """The bound ``model`` dim, for code that holds a shard: raises outside
+    a binding whose ``model`` dim has more than one rank (a shard used
+    alone would compute a part as if it were the whole)."""
+    axis = bound_axis("model")
+    if axis is None:
+        raise RuntimeError("a sharded model runs under logical_rules(mesh) "
+                           "with the mesh it was sharded over")
+    return axis
+
+
+def local_shape(spec: tuple, shape: Sequence[int], mesh) -> tuple:
+    """The shape of one rank's shard of a ``shape`` tensor laid out by
+    ``spec``."""
+    dims = mesh_dims(mesh)
+    return tuple(n // _mesh_size(dims, a) for a, n in zip(spec, shape))
+
+
+def shard_hint(x: torch.Tensor, names: Sequence[Optional[str]],
+               shape: Optional[Sequence[int]] = None) -> torch.Tensor:
+    """``x``, after checking it is the local shard over the bound mesh's
+    model dims of a tensor of ``shape`` (``x``'s own by default: whole)
+    that ``spec_for`` lays out by ``names``; the data dims do not count,
+    since every activation is already this data rank's rows.  Where the
+    reference constrains GSPMD's layout, the port checks its own.  A no-op
+    outside a binding."""
+    bind = current_binding()
+    if bind is None:
+        return x
+    mesh, rules = bind
+    dims = {a: n for a, n in mesh_dims(mesh).items() if a not in DATA_AXES}
+    shape = tuple(x.shape) if shape is None else tuple(shape)
+    want = local_shape(spec_for(names, shape, dims, rules), shape, dims)
+    if tuple(x.shape) != want:
+        raise ValueError(f"shard_hint {tuple(names)}: local shape "
+                         f"{tuple(x.shape)}, the layout of {shape} over "
+                         f"{dims} has {want}")
+    return x
+
+
+# --- parameters ---------------------------------------------------------------
+
+class Sharding(NamedTuple):
+    """How :func:`shard_params` cut a model: the mesh and each parameter's
+    spec (by the port's parameter name; None entries replicate)."""
+    mesh: object
+    specs: dict
+
+
+def param_specs(axes: dict, shapes: dict, mesh,
+                rules: Optional[dict] = None) -> dict:
+    """``{path: spec}`` from ``{path: logical axes}`` (``sharding.axes.
+    param_axes``) and ``{path: shape}``, by ``spec_for`` (rules over
+    ``DEFAULT_RULES``): the reference's ``param_specs`` without the
+    ``NamedSharding`` wrapper."""
+    rules = {**DEFAULT_RULES, **(rules or {})}
+    return {path: spec_for(names, shapes[path], mesh, rules)
+            for path, names in axes.items()}
+
+
+def model_specs(model, mesh, rules: Optional[dict] = None) -> dict:
+    """Each of ``model``'s parameters' spec, by the port's name: the spec
+    of the reference's leaf (the stacks stacked), less its stack dim.
+
+    A stack's leading dim is its layers.  The reference's ``param_axes``
+    names it so, except for a dense MLP's stacked ``wg``/``wu``/``wd``,
+    whose rank (3) matches its expert-stack pattern: it calls the layer dim
+    ``expert``, which shards it whenever the layer count divides the
+    axis (and then leaves ``ff`` whole).  The port holds a layer a tensor
+    and names that dim ``layers``, so such an MLP shards ``ff``."""
+    from repro_torch.models.convert import is_stacked, reference_groups
+    from repro_torch.sharding.axes import param_axes
+    named = dict(model.named_parameters())
+    groups = reference_groups(named)
+    shapes = {path: ((len(g),) if is_stacked(g[0]) else ())
+              + tuple(named[g[0]].shape) for path, g in groups.items()}
+    axes = {path: ("layers",) + names[1:] if is_stacked(groups[path][0])
+            else names for path, names in param_axes(model, model.cfg).items()}
+    ref = param_specs(axes, shapes, mesh, rules)
+    return {n: ref[path][1:] if is_stacked(n) else ref[path]
+            for path, g in groups.items() for n in g}
+
+
+def _index(dims: dict, mesh, axis) -> int:
+    """This rank's index over ``axis`` (a name or a tuple, major first)."""
+    idx = 0
+    for a in (axis if isinstance(axis, tuple) else (axis,)):
+        idx = idx * dims[a] + mesh.get_local_rank(a)
+    return idx
+
+
+def shard_of(t: torch.Tensor, spec: tuple, mesh) -> torch.Tensor:
+    """This rank's shard of the whole tensor ``t`` laid out by ``spec`` (a
+    view)."""
+    dims = mesh_dims(mesh)
+    for d, axis in enumerate(spec):
+        if axis is not None:
+            n = t.shape[d] // _mesh_size(dims, axis)
+            t = t.narrow(d, _index(dims, mesh, axis) * n, n)
+    return t
+
+
+def check_tp_family(cfg, mesh) -> None:
+    """Raise for a family without a tensor-parallel form on a mesh whose
+    ``model`` dim holds more than one rank."""
+    if mesh_dims(mesh).get("model", 1) > 1 and cfg.family in NO_TP_FAMILIES:
+        raise NotImplementedError(
+            f"{cfg.name} ({cfg.family}): tensor parallelism of the Mamba and "
+            f"RG-LRU mixers and of whisper's encoder-decoder waits for "
+            f"ROADMAP A7d")
+
+
+@torch.no_grad()
+def shard_params(model, mesh, rules: Optional[dict] = None):
+    """Cut each of ``model``'s parameters to this rank's shard in place (a
+    copy of the shard replaces the whole tensor), by ``model_specs``;
+    records the cut as ``model.sharding``; returns ``model``."""
+    check_tp_family(model.cfg, mesh)
+    specs = model_specs(model, mesh, rules)
+    for name, p in model.named_parameters():
+        p.data = shard_of(p.data, specs[name], mesh).clone()
+    model.sharding = Sharding(mesh, specs)
+    return model
+
+
+def gather_params(named: dict, sharding: Sharding) -> dict:
+    """``{name: whole tensor}`` of ``{name: local shard}`` (parameters, their
+    grads or moments, by the names ``sharding.specs`` holds): an all_gather
+    over each sharded dim's axis, on every rank."""
+    from repro_torch.core.distributed import all_gather
+    mesh, out = sharding.mesh, {}
+    for name, t in named.items():
+        for d, axis in enumerate(sharding.specs[name]):
+            if axis is None:
+                continue
+            for a in reversed(axis if isinstance(axis, tuple) else (axis,)):
+                t = torch.cat(list(all_gather(t.contiguous(), mesh, a)), d)
+        out[name] = t
+    return out

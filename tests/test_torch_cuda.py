@@ -908,3 +908,31 @@ def test_nccl_dp_on_two_cards_matches_one(card, tmp_path):
                                       ranks[0]["params"][k])
     np.testing.assert_allclose(ranks[0]["losses"], one["losses"], rtol=5e-3,
                                atol=5e-4)
+
+
+@pytest.mark.parametrize("shape", [(1, 2), (2, 2)])
+def test_nccl_tp_on_cards_matches_one(card, tmp_path, shape):
+    """Tensor and expert parallelism over NCCL, a card a rank, on a
+    (data, model) mesh of ``shape``: a reduced qwen2-moe (block-EP, a
+    vocab-parallel table) trained 3 steps against one card on the whole
+    batch in float32 compute: losses and the gathered params within rtol
+    5e-3, atol 5e-4, the overflow equal."""
+    import torch_dist
+    from torch_train_ranks import train_span
+
+    from repro_torch.models import ARCHS
+    world = shape[0] * shape[1]
+    _mesh_cards(world, "nccl")
+    cfg = ARCHS["qwen2-moe-a2.7b"].reduced(vocab=128)
+    ranks = torch_dist.spawn(train_span, world,
+                             (cfg, 0, 3, 3, 8, 32, False, None, True),
+                             tmp_path, mesh_shape=shape, device="cuda",
+                             backend="nccl")
+    one = train_span(None, card, cfg, 0, 3, 3, 8, 32, float32=True)
+    for r in ranks:
+        np.testing.assert_allclose(r["losses"], one["losses"], rtol=5e-3,
+                                   atol=5e-4)
+        assert r["overflow"] == one["overflow"]
+        for k, v in one["params"].items():
+            np.testing.assert_allclose(r["params"][k], v, rtol=5e-3,
+                                       atol=5e-4, err_msg=k)

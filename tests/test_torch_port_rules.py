@@ -7,8 +7,9 @@
   and so do the examples (unless ``--device cpu`` asks for the CPU), the
   serving launcher (sync, ``--async``, ``--mesh`` and both together), the
   streaming launcher (with and without ``--mesh``) and the train launcher
-  (with and without ``--dp``) unless ``--device cpu`` asks for the CPU; the
-  train launcher's ``--tp 2`` raises;
+  (with and without ``--dp``, with ``--tp``) unless ``--device cpu`` asks
+  for the CPU; the train launcher's ``--tp 2`` on a family without a
+  tensor-parallel form raises;
 * no mesh server refuses what a meshless one serves;
 * a CPU tensor takes a kernel's plain version and launches nothing;
 * ``chip_smoke.py`` fails, printing no result, without a card or without the
@@ -65,8 +66,9 @@ def test_port_modules_import_no_jax_and_no_reference():
               "repro_torch.configs.shapes",
               "repro_torch.configs.qwen3_1_7b", "repro_torch.optim.adamw",
               "repro_torch.optim.compress", "repro_torch.data.pipeline",
-              "repro_torch.runtime.train", "repro_torch.sharding.specs",
-              "repro_torch.sharding.axes", "repro_torch.launch.train"):
+              "repro_torch.runtime.train", "repro_torch.sharding",
+              "repro_torch.sharding.specs", "repro_torch.sharding.axes",
+              "repro_torch.launch.train"):
         assert m in mods, m
     code = ("import importlib, json, sys\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
@@ -84,7 +86,11 @@ def test_port_sources_name_no_jax_and_no_reference():
     assert [f.name for f in examples] == [
         "torch_network_flows.py", "torch_quickstart.py",
         "torch_tpch_budget.py", "torch_train_lm.py"]
-    files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"] + examples
+    # and the rank functions the port's mesh tests spawn
+    ranks = [ROOT / "tests" / f for f in ("torch_dist.py",
+                                          "torch_train_ranks.py")]
+    files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"] + examples \
+        + ranks
     assert len(files) > 10
     bad = [f"{f}: {m.group(0).strip()}" for f in files
            for m in FORBIDDEN.finditer(f.read_text())]
@@ -250,20 +256,22 @@ def test_mesh_servers_refuse_nothing_the_meshless_ones_serve():
 
 def test_train_launcher_without_a_card_fails_and_trains_nothing(tmp_path):
     """The train launcher hidden from every card raises before it builds a
-    model, with ``--dp 2`` before it starts a rank; ``--tp 2`` raises,
-    naming the roadmap item, instead of training on one rank a row."""
+    model, with ``--dp 2`` or ``--tp 2`` before it starts a rank; ``--tp 2``
+    of an ssm arch raises on the CPU too, naming the roadmap item, instead
+    of training replicated."""
     small = ("--arch", "qwen2-0.5b", "--reduced", "--steps", "2",
              "--ckpt-dir", str(tmp_path / "ck"))
-    for extra in ((), ("--dp", "2")):
+    for extra in ((), ("--dp", "2"), ("--tp", "2")):
         out = _launch_without_a_card("repro_torch.launch.train", *small,
                                      *extra)
         assert out.returncode != 0
         assert "no CUDA card" in out.stderr
         assert "[train]" not in out.stdout
     out = _launch_without_a_card("repro_torch.launch.train", *small,
-                                 "--device", "cpu", "--tp", "2")
+                                 "--device", "cpu", "--tp", "2", "--arch",
+                                 "falcon-mamba-7b")
     assert out.returncode != 0
-    assert "NotImplementedError" in out.stderr and "A7c" in out.stderr
+    assert "NotImplementedError" in out.stderr and "A7d" in out.stderr
     assert "[train]" not in out.stdout
     assert not (tmp_path / "ck").exists()
 

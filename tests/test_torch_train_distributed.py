@@ -12,8 +12,15 @@
   oracle: it fails in the tier-1 runs, ROADMAP C);
 * int8-EF: ``ef_compress_grads`` on 2 ranks equals a numpy emulation of
   the reference's float16 formula bit for bit; 20 steps lower the loss with
-  live residuals, and the all_reduce carries half the bytes of plain DP's.
+  live residuals, and the all_reduce carries half the bytes of plain DP's;
+* an MoE's capacity under DP is the global batch's (the reference's GSPMD
+  program sees it whole): a reduced qwen2-moe on a global [4, 1024] batch
+  (N * K = 8192 > 4096, a rank's 4096 would take the loss-free branch), at
+  capacity factor 1.0, on 2 ranks against one process: the overflow equal
+  and nonzero, losses and params at the tolerances above.
 """
+
+import dataclasses
 
 import numpy as np
 
@@ -25,6 +32,9 @@ from torch_train_ranks import ef_rank, f16_mean, train_span
 
 CFG = ARCHS["qwen2-0.5b"].reduced(vocab=128)
 RTOL, ATOL = 5e-3, 5e-4
+_MOE = ARCHS["qwen2-moe-a2.7b"].reduced(vocab=128)
+MOE = dataclasses.replace(_MOE, moe=dataclasses.replace(
+    _MOE.moe, capacity_factor=1.0))
 
 
 def _close(got: dict, want: dict) -> None:
@@ -99,3 +109,13 @@ def test_ef_dp_training_lowers_the_loss(tmp_path):
     # float16 on the wire: half the 2 n 4 (k - 1) / k bytes of plain DP
     assert comm["all_reduce"]["bytes"] == steps * (2 * n * 2 // 2)
     assert comm["all_reduce_metrics"]["calls"] == steps
+
+
+def test_moe_dp_capacity_is_the_global_batchs(tmp_path):
+    ranks = spawn(train_span, 2, (MOE, 0, 2, 2, 4, 1024, False, None, True),
+                  tmp_path)
+    one = train_span(None, "cpu", MOE, 0, 2, 2, 4, 1024, float32=True)
+    assert all(o > 0 for o in one["overflow"]), one["overflow"]
+    for r in ranks:
+        assert r["overflow"] == one["overflow"]
+    _close(ranks[0], one)

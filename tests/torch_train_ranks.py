@@ -18,6 +18,7 @@ from repro_torch.runtime.checkpoint import latest_step, save_checkpoint
 from repro_torch.runtime.fault import elastic_restore
 from repro_torch.runtime.train import (load_train_state, make_train_step,
                                        train_state_init, train_state_tree)
+from repro_torch.sharding.specs import logical_rules
 
 
 @contextlib.contextmanager
@@ -39,9 +40,12 @@ def compute_dtype(dtype):
 def train_span(mesh, dev, cfg, first: int, last: int, total: int,
                batch: int, seq: int, compress: bool = False,
                ckpt_dir=None, float32: bool = False) -> dict:
-    """As ``_train_span``, in float32 compute when ``float32``."""
+    """As ``_train_span``, in float32 compute when ``float32``, under
+    ``logical_rules(mesh)`` on a mesh (an MoE's capacity is then the global
+    batch's)."""
     with compute_dtype(torch.float32) if float32 else \
-            contextlib.nullcontext():
+            contextlib.nullcontext(), logical_rules(mesh) if mesh is not None \
+            else contextlib.nullcontext():
         return _train_span(mesh, dev, cfg, first, last, total, batch, seq,
                            compress, ckpt_dir)
 
@@ -54,35 +58,48 @@ def _train_span(mesh, dev, cfg, first: int, last: int, total: int,
     ``mesh`` None, one process on the whole batch.  From ``ckpt_dir``'s
     newest checkpoint when ``first`` > 0; rank 0 writes one at ``last``.
     Returns the losses, the final params and residuals (numpy, by name),
-    this rank's ``COMM`` meters and the step it started from."""
+    this rank's ``COMM`` meters and the step it started from.  On a mesh
+    whose ``model`` dim holds more than one rank the model is cut over it
+    (``shard_params``) and the params come back gathered."""
+    from repro_torch.sharding.specs import gather_params, shard_params
     torch.set_num_threads(1)
     group = None if mesh is None else mesh.get_group("data")
     rank = 0 if group is None else dist.get_rank(group)
     world = 1 if group is None else dist.get_world_size(group)
+    tp = 1 if mesh is None else mesh.size(mesh.mesh_dim_names.index("model"))
     model = Model(cfg, device=dev,
                   generator=torch.Generator(device=dev).manual_seed(0))
     kw = {"compress_group" if compress else "data_group": group} \
         if group is not None else {}
+    if tp > 1:
+        shard_params(model, mesh)
+        kw["model_group"] = mesh.get_group("model")
     step = make_train_step(model, total_steps=total, warmup=2, **kw)
     state = train_state_init(model, compress=compress)
     start = 0
     if first:
-        tree, start, _ = elastic_restore(ckpt_dir, train_state_tree(state),
-                                         device="cpu")
+        tree, start, _ = elastic_restore(
+            ckpt_dir, train_state_tree(state, model), device="cpu")
         state = load_train_state(tree, model)
     batch_fn = make_batch_fn(cfg, batch, seq, device=dev, rank=rank,
                              world=world)
     COMM.reset()
-    losses = []
+    losses, overflow = [], []
     for i in range(start, last):
         state, m = step(state, batch_fn(i))
         losses.append(float(m["loss"]))
-    if ckpt_dir is not None and rank == 0:
-        save_checkpoint(ckpt_dir, last, train_state_tree(state))
+        overflow.append(float(m.get("moe_overflow", 0.0)))
+    lead = mesh is None or dist.get_rank() == 0
+    if ckpt_dir is not None and (lead or tp > 1):
+        tree = train_state_tree(state, model)
+        if lead:
+            save_checkpoint(ckpt_dir, last, tree)
+    params = state.params if tp == 1 else gather_params(state.params,
+                                                         model.sharding)
     ef = state.ef_error or {}
-    return {"losses": losses, "start": start,
+    return {"losses": losses, "overflow": overflow, "start": start,
             "params": {k: p.detach().cpu().numpy()
-                       for k, p in state.params.items()},
+                       for k, p in params.items()},
             "ef_abs": float(sum(e.abs().sum() for e in ef.values())),
             "comm": COMM.snapshot(), "written": latest_step(ckpt_dir)
             if ckpt_dir is not None else None}
@@ -108,3 +125,102 @@ def f16_mean(payloads: list) -> np.ndarray:
     for p in payloads[1:]:
         acc = (acc + p).astype(np.float16)
     return acc.astype(np.float32) / np.float32(len(payloads))
+
+
+def tp_rank(mesh, dev, cases) -> list:
+    """Per case ``(cfg, tree, batch)`` (the JAX package's weights and a
+    batch, numpy), the model cut over this rank's ``model`` dim
+    (``params_from_jax(mesh=)``) in float32 compute under
+    ``logical_rules``: the gathered logits, the loss metrics, the grads
+    gathered to the reference's layout, this rank's shard shapes and its
+    replicated leaves' grads, and the grad norm of one clipped train
+    step."""
+    from repro_torch.models.convert import flatten, params_from_jax, stack_tree
+    from repro_torch.sharding.specs import gather_params
+    torch.set_num_threads(1)
+    out = []
+    with compute_dtype(torch.float32), logical_rules(mesh):
+        for cfg, tree, nb in cases:
+            model = params_from_jax(cfg, tree, device=dev, mesh=mesh)
+            specs = model.sharding.specs
+            b = {k: torch.from_numpy(v).to(dev) for k, v in nb.items()}
+            with torch.no_grad():
+                logits, _ = model.forward(b, gather=True)
+            loss, met = model.loss(b)
+            loss.backward()
+            local = {k: p.grad.detach().clone()
+                     for k, p in model.named_parameters()}
+            whole = stack_tree(gather_params(local, model.sharding))
+            step = make_train_step(model, total_steps=4, warmup=2,
+                                   model_group=mesh.get_group("model"))
+            _, m = step(train_state_init(model), b)
+            out.append({
+                "logits": logits.cpu().numpy(),
+                "metrics": {k: float(v) for k, v in met.items()},
+                "grads": {k: v.numpy() for k, v in flatten(whole)},
+                "shapes": {k: tuple(p.shape)
+                           for k, p in model.named_parameters()},
+                "replicated": {k: g.cpu().numpy() for k, g in local.items()
+                               if all(a is None for a in specs[k])},
+                "grad_norm": float(m["grad_norm"])})
+    return out
+
+
+def moe_config(experts: int, cf: float):
+    """The reduced qwen2-moe config of ``tests/torch_moe_ep_jax.py``."""
+    import dataclasses
+
+    from repro_torch.models import ARCHS
+    cfg = ARCHS["qwen2-moe-a2.7b"].reduced()
+    return dataclasses.replace(cfg, moe=dataclasses.replace(
+        cfg.moe, num_experts=experts, capacity_factor=cf))
+
+
+def moe_ep_rank(mesh, dev, cases) -> list:
+    """Per case ``(npz path, (data, model), experts, capacity factor)``:
+    the case's weights cut to this rank's shards by ``spec_for`` (the
+    reference's logical axes of an MoE layer), and ``moe_ffn_ep`` and
+    ``moe_ffn`` on this data rank's rows of its ``x``, in float32 compute
+    under ``logical_rules`` of a mesh of that shape over the same ranks."""
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import moe as M
+    from repro_torch.models.layers import Params
+    from repro_torch.sharding.specs import shard_of, spec_for
+    torch.set_num_threads(1)
+    meshes = {tuple(mesh.shape): mesh}
+    out = []
+    for path, shape, experts, cf in cases:
+        m = meshes.get(tuple(shape))
+        if m is None:
+            m = meshes[tuple(shape)] = make_host_mesh(*shape)
+        cfg = moe_config(experts, cf)
+        data = np.load(path)
+        E = ("expert", experts)
+        axes = {"router": ("embed", None), "wg": (E, None, "ff"),
+                "wu": (E, None, "ff"), "wd": (E, "ff", None),
+                "shared.wg": ("embed", "ff"), "shared.wu": ("embed", "ff"),
+                "shared.wd": ("ff", "embed")}
+        w, specs = {}, {}
+        for k, names in axes.items():
+            t = torch.from_numpy(data["w." + k])
+            specs[k] = spec_for(names, t.shape, m)
+            w[k] = shard_of(t, specs[k], m).clone().to(dev)
+        p = Params(router=w["router"], wg=w["wg"], wu=w["wu"], wd=w["wd"],
+                   shared=Params(**{k: w["shared." + k]
+                                    for k in ("wg", "wu", "wd")}))
+        x = torch.from_numpy(data["x"])
+        dp, r = shape[0], m.get_local_rank("data")
+        rows = (r * x.shape[0] // dp, (r + 1) * x.shape[0] // dp)
+        xl = x[rows[0]:rows[1]].to(dev)
+        with compute_dtype(torch.float32), logical_rules(m), \
+                torch.no_grad():
+            y_ep, a_ep = M.moe_ffn_ep(p, xl, cfg)
+            y, a = M.moe_ffn(p, xl, cfg)
+        out.append({"rows": rows, "specs": specs,
+                    "shapes": {k: tuple(v.shape) for k, v in w.items()},
+                    "y_ep": y_ep.cpu().numpy(),
+                    "aux_ep": float(a_ep["moe_aux_loss"]),
+                    "ovf_ep": int(a_ep["moe_overflow"]),
+                    "y": y.cpu().numpy(), "aux": float(a["moe_aux_loss"]),
+                    "ovf": int(a["moe_overflow"])})
+    return out
