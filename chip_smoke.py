@@ -207,7 +207,24 @@ Phases, each of which fails the run (non-zero exit, no result line):
    checkpoints, resumed at dp 1 x tp 1: its last loss and the next loss
    under its step-4 checkpoint within rtol 5e-3, atol 5e-4 of an
    uninterrupted run's; (d) 2 data ranks of a reduced MoE at a global
-   N * K over 4096: the overflow equal to one process's, nonzero.
+   N * K over 4096: the overflow equal to one process's, nonzero;
+15. tensor parallelism of the Mamba and RG-LRU mixers and of whisper, and
+   decode of a sharded model on a ``kv_seq``-sharded cache (no kernel of
+   the port), the model ranks sharing the card over gloo: (a)
+   ``falcon-mamba-7b`` cut to 2 layers, ``recurrentgemma-2b`` to one
+   pattern period and ``whisper-small`` whole (1,500 frames), at full
+   width, a float32 forward of [2, 512] at tp 2 and 8 (the RG-LRU's
+   channels whole blocks at 2, straddling them at 8): logits within 1e-4
+   of the scale of one process's (1e-3 on a scan), each rank's collective
+   calls and bytes equal to the model's (``scan_forward_comm``); (b) 2
+   train steps of each at tp 2: loss and grad norm within rtol 1e-4; (c)
+   sharded decode, 16 steps in float32 against one process (the same
+   bounds), each rank's collectives equal to the model's
+   (``scan_decode_comm``) and its cut leaves' bytes the whole's over tp:
+   ``qwen3-1.7b`` at full width cut to 2 layers, 8 sequences on a cache of
+   32,768 positions filled from the seeded generator to 32,704 and cut by
+   ``shard_cache``, and the three configs of (a) from an empty cache of 64
+   positions (2 sequences).
 
 It then prints one line ``{"kernels": [...]}`` and, last,
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -3282,8 +3299,12 @@ def model_inputs(torch, cfg, B, T, gen):
 
 
 def tensor_bytes(tree) -> int:
+    """Bytes of the tensors in ``tree`` (dicts, lists, tuples; other leaves,
+    such as a cache's flags, hold none)."""
     if hasattr(tree, "element_size"):
         return tree.numel() * tree.element_size()
+    if not isinstance(tree, (dict, list, tuple)):
+        return 0
     items = tree.values() if isinstance(tree, dict) else tree
     return sum(tensor_bytes(t) for t in items)
 
@@ -4429,8 +4450,550 @@ def tp_check_c6(ranks, one):
     return {"overflow": got, "one": one}
 
 
+SCAN_ARCHS = ("falcon-mamba-7b", "recurrentgemma-2b", "whisper-small")
+SCAN_BATCH = (2, 512)
+SCAN_SIZES = (2, 8)
+SCAN_TRAIN_STEPS = 2
+SCAN_DECODE = (2, 64, 16)              # sequences, cache positions, steps
+KV_ARCH = "qwen3-1.7b"
+KV_DECODE = (8, 32768, 32704, 16)      # sequences, positions, filled, steps
+SCAN_TIMEOUT_S = 600
+
+
+def scan_configs():
+    """(the (a) configs with their cuts, (c)'s config with its cut)."""
+    from repro_torch.models import ARCHS
+    return [model_cut(ARCHS[a]) for a in SCAN_ARCHS], \
+        model_cut(ARCHS[KV_ARCH])
+
+
+def scan_tol(cfg) -> float:
+    return F32_TOL.get(cfg.family, TP_TOL)
+
+
+def _comm_add(ops, op, calls, nbytes):
+    c = ops.setdefault(op, [0, 0])
+    c[0] += calls
+    c[1] += nbytes
+
+
+def _ar(numel, tp, elem=4):
+    """A ring all_reduce's bytes a rank (``core.distributed.all_reduce``)."""
+    return 2 * numel * elem * (tp - 1) // tp
+
+
+def _layer_kinds(cfg):
+    period = len(cfg.mixer_pattern)
+    return [cfg.mixer_pattern[i % period] for i in range(cfg.n_layers)]
+
+
+def _cuts(cfg, tp):
+    """What the model dim cuts: heads, kv heads, ff, d_inner, lru, vocab,
+    and whether a rank's RG-LRU channels straddle its gate blocks."""
+    import math
+    heads = cfg.n_heads % tp == 0
+    cut = {"heads": heads, "kv": cfg.n_kv_heads % tp == 0,
+           "ff": cfg.d_ff > 0 and cfg.d_ff % tp == 0,
+           "vocab": cfg.vocab % tp == 0}
+    if cfg.ssm:
+        d_inner = cfg.ssm.expand * cfg.d_model
+        cut["d_inner"] = d_inner % tp == 0
+        cut["x_proj"] = (cfg.ssm.dt_rank or math.ceil(cfg.d_model / 16)) \
+            + 2 * cfg.ssm.d_state
+    if cfg.rglru:
+        lru = cfg.rglru.lru_width or cfg.d_model
+        cut["lru"] = lru // tp if lru % tp == 0 else 0
+        cut["straddle"] = bool(cut["lru"] % cfg.rglru.block_width)
+    return cut
+
+
+def scan_forward_comm(cfg, tp, B, T) -> dict:
+    """The collective model of a float32 forward of [B, T] over a model dim
+    of ``tp``, a rank: {op: [calls, bytes]}.  A layer: attention one
+    all_reduce of [N, d] (``wo``) where the heads shard; an MLP one where
+    ``ff`` shards; Mamba two (``x_proj``'s [N, dt_rank + 2 d_state] and
+    ``out_proj``'s [N, d]) where ``d_inner`` shards; RG-LRU one (``out``)
+    where ``lru`` shards, and one all_gather of [N, lru / tp] where a
+    rank's channels straddle the gate blocks; whisper's encoder layers on
+    its B x 1,500 frames and its decoder's cross-attention one more each.
+    The embedding: one all_reduce of [N, d] where the vocabulary shards."""
+    N, d = B * T, cfg.d_model
+    c = _cuts(cfg, tp)
+    ops: dict = {}
+    if c["vocab"]:
+        _comm_add(ops, "all_reduce", 1, _ar(N * d, tp))
+    if cfg.is_encdec:
+        NF = B * cfg.encoder.n_frames
+        per = c["heads"] + c["ff"]
+        _comm_add(ops, "all_reduce", cfg.encoder.n_layers * per,
+                  cfg.encoder.n_layers * per * _ar(NF * d, tp))
+        per = 2 * c["heads"] + c["ff"]
+        _comm_add(ops, "all_reduce", cfg.n_layers * per,
+                  cfg.n_layers * per * _ar(N * d, tp))
+        return ops
+    for kind in _layer_kinds(cfg):
+        if kind in ("attn", "local") and c["heads"]:
+            _comm_add(ops, "all_reduce", 1, _ar(N * d, tp))
+        elif kind == "mamba" and c["d_inner"]:
+            _comm_add(ops, "all_reduce", 2,
+                      _ar(N * c["x_proj"], tp) + _ar(N * d, tp))
+        elif kind == "rglru" and c["lru"]:
+            _comm_add(ops, "all_reduce", 1, _ar(N * d, tp))
+            if c["straddle"]:
+                _comm_add(ops, "all_gather", 1, N * c["lru"] * 4 * (tp - 1))
+        if cfg.ff_kind != "none" and c["ff"]:
+            _comm_add(ops, "all_reduce", 1, _ar(N * d, tp))
+    return ops
+
+
+def scan_decode_comm(cfg, tp, B, S) -> dict:
+    """The collective model of one float32 decode step of B sequences on a
+    cache of S positions (a local layer's: its window) over a model dim of
+    ``tp``, the logits gathered, a rank: {op: [calls, bytes]}.  An
+    attention layer: one all_gather of the new token's q (and k, v where
+    the kv heads shard) of [B, (H + 2 Hk) hd / tp] where the heads shard;
+    two all_reduces of the log-sum-exp combine where the positions shard
+    (the max, [B, H], and the sum of exps with the weighted values,
+    [B, H, hd + 1]); one all_reduce of [B, d] (``wo``) where the heads
+    shard.  Whisper's cross-attention one more where the heads shard; the
+    other mixers, the MLP and the embedding as in the forward; the logits'
+    all_gather of [B, V / tp] where the vocabulary shards."""
+    d, hd, H = cfg.d_model, cfg.hd, cfg.n_heads
+    c = _cuts(cfg, tp)
+    ops: dict = {}
+    if c["vocab"]:
+        _comm_add(ops, "all_reduce", 1, _ar(B * d, tp))
+        _comm_add(ops, "all_gather", 1,
+                  B * (cfg.vocab // tp) * 4 * (tp - 1))
+
+    def attn(length):
+        if c["heads"]:
+            n = H // tp + (2 * cfg.n_kv_heads // tp if c["kv"] else 0)
+            _comm_add(ops, "all_gather", 1, B * n * hd * 4 * (tp - 1))
+            _comm_add(ops, "all_reduce", 1, _ar(B * d, tp))
+        if length % tp == 0:
+            _comm_add(ops, "all_reduce_lse", 2,
+                      _ar(B * H, tp) + _ar(B * H * (hd + 1), tp))
+
+    def ff():
+        if cfg.ff_kind != "none" and c["ff"]:
+            _comm_add(ops, "all_reduce", 1, _ar(B * d, tp))
+    if cfg.is_encdec:
+        for _ in range(cfg.n_layers):
+            attn(S)
+            if c["heads"]:
+                _comm_add(ops, "all_reduce", 1, _ar(B * d, tp))
+            ff()
+        return ops
+    for kind in _layer_kinds(cfg):
+        if kind in ("attn", "local"):
+            attn(S if kind == "attn" else cfg.window)
+        elif kind == "mamba" and c["d_inner"]:
+            _comm_add(ops, "all_reduce", 2,
+                      _ar(B * c["x_proj"], tp) + _ar(B * d, tp))
+        elif kind == "rglru" and c["lru"]:
+            _comm_add(ops, "all_reduce", 1, _ar(B * d, tp))
+            if c["straddle"]:
+                _comm_add(ops, "all_gather", 1, B * c["lru"] * 4 * (tp - 1))
+        ff()
+    return ops
+
+
+def comm_of(snapshot) -> dict:
+    """{op: [calls, bytes]} of a ``COMM.snapshot()``."""
+    return {op: [m["calls"], m["bytes"]] for op, m in snapshot.items()
+            if m["calls"]}
+
+
+def scan_inputs(torch, cfgs, kv_cfg, gen):
+    """(per (a) config: the forward batch, the train batches and the decode
+    inputs; (c)'s tokens), on the CPU."""
+    B, T = SCAN_BATCH
+    dB, _, steps = SCAN_DECODE
+    out = []
+    for cfg, _ in cfgs:
+        out.append({
+            "forward": {k: v.cpu() for k, v in
+                        model_inputs(torch, cfg, B, T, gen).items()},
+            "train": [{k: v.cpu() for k, v in
+                       lm_inputs(torch, cfg, B, T, i, gen).items()}
+                      for i in range(SCAN_TRAIN_STEPS)],
+            "decode": {k: v.cpu() for k, v in
+                       model_inputs(torch, cfg, dB, steps, gen).items()}})
+    kB, _, _, ksteps = KV_DECODE
+    kv = torch.randint(0, kv_cfg.vocab, (kB, ksteps), generator=gen,
+                       device=gen.device).cpu()
+    return out, kv
+
+
+def scan_forward(torch, model, b):
+    """One timed float32 forward (after one untimed): (logits, seconds,
+    peak bytes, COMM meters), each collective timed between syncs on the
+    card."""
+    from repro_torch.core.cost import sync
+    from repro_torch.core.distributed import COMM
+    dev = model.device
+    card = dev.type == "cuda"
+    b = {k: v.to(dev) for k, v in b.items()}
+    with compute_dtype(torch.float32), torch.inference_mode():
+        model.forward(b)
+        sync(dev)
+        if card:
+            torch.cuda.reset_peak_memory_stats(dev)
+        COMM.reset()
+        COMM.timed = card
+        t0 = time.perf_counter()
+        try:
+            logits, _ = model.forward(b)
+            sync(dev)
+        finally:
+            COMM.timed = False
+        seconds = time.perf_counter() - t0
+    return (logits, seconds,
+            torch.cuda.max_memory_allocated(dev) if card else 0,
+            COMM.snapshot())
+
+
+def scan_decode(torch, model, tokens, cache):
+    """Float32 decode of ``tokens`` [B, steps] a step at a time from
+    ``cache``, the logits gathered: (logits [B, steps, V], ms a step, COMM
+    meters of the steps)."""
+    from repro_torch.core.cost import sync
+    from repro_torch.core.distributed import COMM
+    dev = model.device
+    tokens = tokens.to(dev)
+    out = []
+    with compute_dtype(torch.float32), torch.inference_mode():
+        sync(dev)
+        COMM.reset()
+        t0 = time.perf_counter()
+        for t in range(tokens.shape[1]):
+            logits, cache = model.decode_step(tokens[:, t], cache)
+            out.append(logits)
+        sync(dev)
+        ms = 1e3 * (time.perf_counter() - t0) / tokens.shape[1]
+    return torch.stack(out, 1), ms, COMM.snapshot()
+
+
+def scan_train(torch, model, batches, **kw):
+    """(losses, grad norms) of float32 train steps on ``batches``."""
+    from repro_torch.runtime.train import make_train_step, train_state_init
+    step = make_train_step(model, lr=TRAIN_LR, warmup=TRAIN_WARMUP,
+                           total_steps=TRAIN_TOTAL, **kw)
+    state = train_state_init(model)
+    losses, gnorms = [], []
+    with compute_dtype(torch.float32):
+        for b in batches:
+            state, m = step(state, {k: v.to(model.device)
+                                    for k, v in b.items()})
+            losses.append(float(m["loss"]))
+            gnorms.append(float(m["grad_norm"]))
+    return losses, gnorms
+
+
+def kv_whole_cache(torch, model, dev, kv_decode):
+    """(c)'s whole cache (``kv_decode`` as ``KV_DECODE``), outside any
+    binding: k and v of positions below the fill drawn from the seeded
+    generator, ``pos`` the fill."""
+    from repro_torch.sharding.axes import cache_map
+    B, S, P, _ = kv_decode
+    gen = torch.Generator(device=dev).manual_seed(SEED + 15)
+    with compute_dtype(torch.float32):
+        shape = model.cache_shape(B, S)
+
+    def fill(path, t):
+        out = torch.zeros(t.shape, dtype=t.dtype, device=dev)
+        if path.endswith((".k", ".v")):
+            out[:, :P] = torch.randn((t.shape[0], P) + tuple(t.shape[2:]),
+                                     generator=gen, device=dev)
+        elif path.endswith(".pos"):
+            out.fill_(P)
+        return out
+    return cache_map(shape, fill)
+
+
+def cache_bytes(torch, cache, whole_shape, tp):
+    """(this rank's cache bytes, the whole's, the cut leaves' bytes here and
+    the whole's over tp)."""
+    from repro_torch.sharding.axes import cache_leaves
+    local, whole = cache_leaves(cache), cache_leaves(whole_shape)
+    cut = [k for k in local if local[k].numel() < whole[k].numel()]
+    return (tensor_bytes(list(local.values())),
+            tensor_bytes(list(whole.values())),
+            tensor_bytes([local[k] for k in cut]),
+            tensor_bytes([whole[k] for k in cut]) // tp)
+
+
+def scan_reference(torch, cfgs, kv_cfg, inputs, kv_tokens, tmp):
+    """One process on the card: each (a) config's forward, train steps and
+    decode, (c)'s decode; logits saved under ``tmp`` for the ranks."""
+    from repro_torch.models import Model
+    out = {"configs": [], "refs": []}
+    dB, S, _ = SCAN_DECODE
+    for (cfg, _), inp in zip(cfgs, inputs):
+        torch.cuda.empty_cache()
+        model = Model(cfg, device="cuda", generator=torch.Generator(
+            device="cuda").manual_seed(SEED))
+        logits, s, peak, _ = scan_forward(torch, model, inp["forward"])
+        refs = {"forward": os.path.join(tmp, f"{cfg.name}_fwd.pt"),
+                "decode": os.path.join(tmp, f"{cfg.name}_dec.pt")}
+        torch.save(logits.cpu(), refs["forward"])
+        res = {"weights": tensor_bytes(list(model.parameters())),
+               "seconds": s, "peak": peak,
+               "scale": float(logits.abs().max())}
+        del logits
+        frames = inp["decode"].get("frames")
+        with compute_dtype(torch.float32), torch.inference_mode():
+            cache = model.init_cache(dB, S, None if frames is None
+                                     else frames.cuda())
+        dl, ms, _ = scan_decode(torch, model, inp["decode"]["tokens"], cache)
+        torch.save(dl.cpu(), refs["decode"])
+        res.update(decode_ms=ms, decode_scale=float(dl.abs().max()))
+        del dl, cache
+        res["losses"], res["grad_norms"] = scan_train(torch, model,
+                                                      inp["train"])
+        out["configs"].append(res)
+        out["refs"].append(refs)
+        del model
+    torch.cuda.empty_cache()
+    model = Model(kv_cfg, device="cuda", generator=torch.Generator(
+        device="cuda").manual_seed(SEED))
+    cache = kv_whole_cache(torch, model, model.device, KV_DECODE)
+    dl, ms, _ = scan_decode(torch, model, kv_tokens, cache)
+    out["refs"].append({"decode": os.path.join(tmp, "kv_dec.pt")})
+    torch.save(dl.cpu(), out["refs"][-1]["decode"])
+    from repro_torch.sharding.axes import cache_leaves
+    out["kv"] = {"decode_ms": ms, "scale": float(dl.abs().max()),
+                 "cache_bytes": tensor_bytes(list(cache_leaves(cache)
+                                                  .values()))}
+    del model, cache, dl
+    torch.cuda.empty_cache()
+    return out
+
+
+def scan_rank(mesh, dev, cfgs, kv_cfg, inputs, kv_tokens, refs, train,
+              sizes):
+    """One rank of phase 15 at model ``mesh``'s size: each (a) config's
+    forward, decode (and, with ``train``, its train steps), then (c)'s
+    decode on the filled cache cut by ``shard_cache`` (the ranks fill and
+    cut in turns).  ``sizes``: (``SCAN_DECODE``, ``KV_DECODE``)."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.sharding.specs import logical_rules, shard_cache
+    tp = mesh.size(mesh.mesh_dim_names.index("model"))
+    rank = mesh.get_local_rank("model")
+    (dB, S, _), kv_decode = sizes
+    out = []
+
+    def err(got, path):
+        want = torch.load(path, mmap=True)
+        V_l = got.shape[-1]
+        want = want[..., rank * V_l:(rank + 1) * V_l] \
+            if V_l < want.shape[-1] else want
+        return float((got - want.to(got.device)).abs().max())
+    for (cfg, _), inp, ref in zip(cfgs, inputs, refs):
+        model = tp_build(torch, cfg, mesh, dev)
+        res = {"weights": tensor_bytes(list(model.parameters()))}
+        with logical_rules(mesh):
+            logits, s, peak, comm = scan_forward(torch, model,
+                                                 inp["forward"])
+            res.update(forward_err=err(logits, ref["forward"]), seconds=s,
+                       peak=peak, comm=comm)
+            del logits
+            frames = inp["decode"].get("frames")
+            with compute_dtype(torch.float32), torch.inference_mode():
+                cache = model.init_cache(dB, S, None if frames is None
+                                         else frames.to(dev))
+            dl, ms, dcomm = scan_decode(torch, model,
+                                        inp["decode"]["tokens"], cache)
+            res.update(decode_err=err(dl, ref["decode"]), decode_ms=ms,
+                       decode_comm=dcomm)
+            del dl
+        with compute_dtype(torch.float32):
+            whole = model.cache_shape(dB, S)
+        res["cache"] = cache_bytes(torch, cache, whole, tp)
+        del cache
+        if train:
+            with logical_rules(mesh):
+                res["losses"], res["grad_norms"] = scan_train(
+                    torch, model, inp["train"],
+                    model_group=mesh.get_group("model"))
+        out.append(res)
+        del model
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+    model = tp_build(torch, kv_cfg, mesh, dev)
+    cache = None
+    for turn in range(dist.get_world_size()):
+        if turn == dist.get_rank():
+            whole = kv_whole_cache(torch, model, dev, kv_decode)
+            cache = shard_cache(whole, mesh)
+            del whole
+            if dev.type == "cuda":
+                torch.cuda.empty_cache()
+        dist.barrier()
+    B, S_kv, _, _ = kv_decode
+    with compute_dtype(torch.float32):
+        whole = model.cache_shape(B, S_kv)
+    kv = {"cache": cache_bytes(torch, cache, whole, tp)}
+    with logical_rules(mesh):
+        dl, ms, dcomm = scan_decode(torch, model, kv_tokens, cache)
+    kv.update(decode_err=err(dl, refs[-1]["decode"]), decode_ms=ms,
+              decode_comm=dcomm)
+    out.append(kv)
+    del model, cache, dl
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    return out
+
+
+def scan_check(tp, ranks, ref, cfgs, kv_cfg, spawn_s):
+    """Hold (a), (c) (and (b) at tp 2) of ``ranks`` against the one-process
+    run and the collective models; print what they measured."""
+    B, T = SCAN_BATCH
+    dB, S, steps = SCAN_DECODE
+    kB, kS, _, ksteps = KV_DECODE
+    out = {}
+    for i, (cfg, cut) in enumerate(cfgs):
+        one = ref["configs"][i]
+        got = [r[i] for r in ranks]
+        bound = scan_tol(cfg)
+        rel = max(g["forward_err"] for g in got) / one["scale"]
+        drel = max(g["decode_err"] for g in got) / one["decode_scale"]
+        check(rel <= bound, f"scan tp {tp} {cfg.name}: forward logits {rel} "
+              f"of the scale from one process's")
+        check(drel <= bound, f"scan tp {tp} {cfg.name}: decode logits {drel}"
+              f" of the scale from one process's")
+        fwant = scan_forward_comm(cfg, tp, B, T)
+        dwant = {op: [c * steps, b * steps] for op, (c, b) in
+                 scan_decode_comm(cfg, tp, dB, S).items()}
+        for g in got:
+            check(comm_of(g["comm"]) == fwant, f"scan tp {tp} {cfg.name}: "
+                  f"forward collectives {comm_of(g['comm'])}, the model "
+                  f"{fwant}")
+            check(comm_of(g["decode_comm"]) == dwant, f"scan tp {tp} "
+                  f"{cfg.name}: decode collectives "
+                  f"{comm_of(g['decode_comm'])}, the model {dwant}")
+            here, _, cut_here, cut_want = g["cache"]
+            check(cut_here == cut_want, f"scan tp {tp} {cfg.name}: the cut "
+                  f"cache leaves {cut_here} bytes, the whole's / tp "
+                  f"{cut_want}")
+        ms = {op: max(g["comm"][op]["ms"] for g in got) for op in fwant}
+        res = {"forward_rel_err": rel, "decode_rel_err": drel,
+               "seconds": max(g["seconds"] for g in got),
+               "peaks": [g["peak"] for g in got],
+               "weights": got[0]["weights"], "comm": fwant,
+               "comm_ms": ms, "decode_ms": max(g["decode_ms"] for g in got),
+               "decode_comm": dwant, "cache": got[0]["cache"]}
+        print(f"scan tp {tp} {cfg.name} ({cut}): forward [{B}, {T}] float32 "
+              f"logits {rel:.3g} of the scale from one process's (held to "
+              f"{bound}); {res['seconds']:.4f} s (one process "
+              f"{one['seconds']:.4f}); peak a rank "
+              f"{max(res['peaks']) / 1e9:.3f} GB against "
+              f"{res['weights'] / 1e9:.3f} GB of shards (one process "
+              f"{one['peak'] / 1e9:.3f} GB, "
+              f"{one['weights'] / 1e9:.3f} GB of weights); collectives a rank "
+              f"{fwant} (the model), "
+              f"{', '.join(f'{k} {v:.3f} ms' for k, v in ms.items())} at "
+              f"most a rank")
+        print(f"scan tp {tp} {cfg.name} decode: {steps} steps of {dB} "
+              f"sequences on {S} positions, logits {drel:.3g} of the scale "
+              f"(held to {bound}); {res['decode_ms']:.3f} ms a step (one "
+              f"process {one['decode_ms']:.3f}); collectives a rank over the "
+              f"steps {dwant} (the model); cache a rank {res['cache'][0]} "
+              f"bytes of {res['cache'][1]} whole, its cut leaves "
+              f"{res['cache'][2]} = whole / tp {res['cache'][3]}")
+        if "losses" in got[0]:
+            for g in got:
+                for k in ("losses", "grad_norms"):
+                    check(np.allclose(g[k], one[k], rtol=TP_TOL, atol=0.0),
+                          f"scan tp {tp} {cfg.name} train: {k} {g[k]} "
+                          f"against one process's {one[k]}")
+            res["train"] = {k: got[0][k] for k in ("losses", "grad_norms")}
+            print(f"scan tp {tp} {cfg.name} train, float32, "
+                  f"{SCAN_TRAIN_STEPS} steps of [{B}, {T}]: losses "
+                  f"{got[0]['losses']}, grad norms {got[0]['grad_norms']} "
+                  f"against one process's {one['losses']}, "
+                  f"{one['grad_norms']} (rtol {TP_TOL})")
+        out[cfg.name] = res
+    got = [r[-1] for r in ranks]
+    bound = scan_tol(kv_cfg)
+    drel = max(g["decode_err"] for g in got) / ref["kv"]["scale"]
+    check(drel <= bound, f"scan tp {tp} {kv_cfg.name}: decode logits {drel} "
+          f"of the scale from one process's")
+    dwant = {op: [c * ksteps, b * ksteps] for op, (c, b) in
+             scan_decode_comm(kv_cfg, tp, kB, kS).items()}
+    for g in got:
+        check(comm_of(g["decode_comm"]) == dwant, f"scan tp {tp} "
+              f"{kv_cfg.name}: decode collectives "
+              f"{comm_of(g['decode_comm'])}, the model {dwant}")
+        here, whole, cut_here, cut_want = g["cache"]
+        check(cut_here == cut_want and whole == ref["kv"]["cache_bytes"],
+              f"scan tp {tp} {kv_cfg.name}: cache {g['cache']}")
+    lse = max(g["decode_comm"].get("all_reduce_lse", {}).get("ms", 0.0)
+              for g in got)
+    out[kv_cfg.name] = {"decode_rel_err": drel,
+                        "decode_ms": max(g["decode_ms"] for g in got),
+                        "decode_comm": dwant, "cache": got[0]["cache"]}
+    print(f"scan tp {tp} {kv_cfg.name} decode: {ksteps} steps of {kB} "
+          f"sequences on {kS} positions filled to {KV_DECODE[2]}, logits "
+          f"{drel:.3g} of the scale (held to {bound}); "
+          f"{out[kv_cfg.name]['decode_ms']:.3f} ms a step (one process "
+          f"{ref['kv']['decode_ms']:.3f}); cache a rank {got[0]['cache'][0]}"
+          f" bytes of {got[0]['cache'][1]} whole, its cut leaves "
+          f"{got[0]['cache'][2]} = whole / tp {got[0]['cache'][3]}; "
+          f"collectives a rank over the steps {dwant} (the model)"
+          + (f", all_reduce_lse {lse:.3f} ms" if lse else ""))
+    print(f"scan tp {tp}: the ranks' spawn, builds and phases {spawn_s:.1f} s")
+    return out
+
+
+def scan_phase(torch):
+    """Phase 15: tensor parallelism of the scans and whisper, and sharded
+    decode, on the card.  Returns the numbers it printed."""
+    from repro_torch.launch.mesh import run_ranks, stop_rank_server
+    t_phase = time.perf_counter()
+    cfgs, (kv_cfg, kv_cut) = scan_configs()
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    inputs, kv_tokens = scan_inputs(torch, cfgs, kv_cfg, gen)
+    out = {"configs": {c.name: cut for c, cut in cfgs},
+           "kv": {kv_cfg.name: kv_cut}, "tp": {}}
+    with tempfile.TemporaryDirectory(prefix="scan15-") as tmp:
+        ref = scan_reference(torch, cfgs, kv_cfg, inputs, kv_tokens, tmp)
+        out["one"] = {c.name: r for (c, _), r in zip(cfgs, ref["configs"])}
+        out["one"][kv_cfg.name] = ref["kv"]
+        for (cfg, cut), r in zip(cfgs, ref["configs"]):
+            print(f"scan {cfg.name} ({cut}), one process on the card: "
+                  f"{r['weights']} bytes of float32 weights; forward "
+                  f"{r['seconds']:.4f} s, peak {r['peak'] / 1e9:.3f} GB; "
+                  f"decode {r['decode_ms']:.3f} ms a step; train losses "
+                  f"{r['losses']}, grad norms {r['grad_norms']}")
+        print(f"scan {kv_cfg.name} ({kv_cut}), one process on the card: "
+              f"decode {ref['kv']['decode_ms']:.3f} ms a step on "
+              f"{ref['kv']['cache_bytes']} bytes of cache")
+        try:
+            for tp in SCAN_SIZES:
+                t0 = time.perf_counter()
+                ranks = run_ranks(scan_rank, tp, (cfgs, kv_cfg, inputs,
+                                                  kv_tokens, ref["refs"],
+                                                  tp == 2, (SCAN_DECODE,
+                                                            KV_DECODE)),
+                                  backend="gloo", device="cuda",
+                                  mesh_shape=(1, tp),
+                                  timeout_s=SCAN_TIMEOUT_S)
+                out["tp"][tp] = scan_check(tp, ranks, ref, cfgs, kv_cfg,
+                                           time.perf_counter() - t0)
+        finally:
+            stop_rank_server()
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"scan: no kernel of the port runs on this path; phase 15 took "
+          f"{out['seconds']:.1f} s")
+    print(f"scan summary: {json.dumps(out)}")
+    return out
+
+
 def main() -> int:
-    """Phases 1-14."""
+    """Phases 1-15."""
     t_start = time.perf_counter()
     import torch
 
@@ -4562,7 +5125,14 @@ def main() -> int:
     tp_phase(torch)
     for ln in lines:
         ln["phase14_launches"] = wrappers[ln["name"]].launches
-    print(f"chip_smoke: phases 1-14 took {time.perf_counter() - t_start:.1f} s")
+    # --- phase 15: the scans and whisper over the model dim, sharded decode --
+    for w in wrappers.values():
+        w.launches = 0
+    scan_phase(torch)
+    for ln in lines:
+        ln["phase15_launches"] = wrappers[ln["name"]].launches
+    print(f"chip_smoke: phases 1-15 took "
+          f"{time.perf_counter() - t_start:.1f} s")
 
     print(json.dumps({"kernels": lines}))
     print(json.dumps({"ok": True, "device": {

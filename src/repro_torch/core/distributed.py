@@ -188,18 +188,28 @@ def _metered(op: str, device, nbytes: int, body):
 def all_gather(x: torch.Tensor, mesh, axis: str) -> torch.Tensor:
     """``[k_a, *x.shape]``: every rank's ``x`` along ``axis``, in the
     axis's index order (``launch/mesh.check_group_order``)."""
-    group = mesh.get_group(axis)
+    return all_gather_group(x, mesh.get_group(axis))
+
+
+def all_gather_group(x: torch.Tensor, group,
+                     op: str = "all_gather") -> torch.Tensor:
+    """``[k, *x.shape]``: every rank's ``x`` in the group's rank order, one
+    all_gather metered under ``op``.  On gloo a bf16 tensor crosses as its
+    int16 bits."""
     k = dist.get_world_size(group)
     if k == 1:
         return x[None]
 
     def body():
         w = _wire(x, group)
+        bits = w.dtype == torch.bfloat16 and dist.get_backend(group) == "gloo"
+        w = w.view(torch.int16) if bits else w
         out = [torch.empty_like(w) for _ in range(k)]
         dist.all_gather(out, w, group=group)
-        return torch.stack(out).to(x.device)
-    return _metered("all_gather", x.device,
-                    x.numel() * x.element_size() * (k - 1), body)
+        out = torch.stack(out)
+        return (out.view(torch.bfloat16) if bits else out).to(x.device)
+    return _metered(op, x.device, x.numel() * x.element_size() * (k - 1),
+                    body)
 
 
 def all_to_all(x: torch.Tensor, mesh, axis: str) -> torch.Tensor:
@@ -292,6 +302,42 @@ def copy_to_group(x: torch.Tensor, group,
     if group is None or dist.get_world_size(group) == 1:
         return x
     return _CopyToGroup.apply(x, group, op)
+
+
+def gather_group(x: torch.Tensor, group, op: str = "all_gather"
+                 ) -> torch.Tensor:
+    """The ranks' ``x`` concatenated on its last dim in the group's rank
+    order (``all_gather_group``; no grad)."""
+    if dist.get_world_size(group) == 1:
+        return x
+    return torch.cat(list(all_gather_group(x, group, op)), -1)
+
+
+class _GatherFromGroup(torch.autograd.Function):
+    """Forward: ``gather_group``; backward: the sum of the ranks' grads of
+    the whole, this rank's slice of it."""
+
+    @staticmethod
+    def forward(ctx, x, group, op):
+        ctx.group, ctx.op, ctx.n = group, op, x.shape[-1]
+        return gather_group(x, group, op)
+
+    @staticmethod
+    def backward(ctx, g):
+        g = all_reduce(g.contiguous(), ctx.group, ctx.op + "_grad")
+        r = dist.get_rank(ctx.group)
+        return g.narrow(-1, r * ctx.n, ctx.n), None, None
+
+
+def gather_from_group(x: torch.Tensor, group,
+                      op: str = "all_gather") -> torch.Tensor:
+    """The whole of a tensor whose last dim the group's ranks hold in equal
+    slices, for a region where each rank uses all of it: its grad is the
+    sum of the ranks' grads, cut to this rank's slice.  Identity without a
+    group or over one rank."""
+    if group is None or dist.get_world_size(group) == 1:
+        return x
+    return _GatherFromGroup.apply(x.contiguous(), group, op)
 
 
 def all_reduce_both_ways(x: torch.Tensor, group,

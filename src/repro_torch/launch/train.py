@@ -8,13 +8,13 @@ on the CPU, NCCL with a card a rank, gloo over the card only when
 ``make_host_mesh(dp, tp)``, bound by ``logical_rules``: each data rank
 takes its rows of the global batch, the model is cut into tensor- and
 expert-parallel shards over ``model`` (``sharding.specs.shard_params``),
-and the step all-reduces the mean of the grads over ``data``.  The Mamba,
-RG-LRU and whisper families have no tensor-parallel form yet (ROADMAP A7d):
-``--tp`` > 1 raises for them.  Checkpoints are gathered to rank 0 in the
-JAX package's train-state layout, so either package, and any (dp, tp),
-resumes them.  ``--kill-after STEP`` is a fault drill: the process kills
-itself once the checkpoint of that step is on disk; a rerun resumes from
-it.
+and the step all-reduces the mean of the grads over ``data``.  Every arch
+takes ``--tp``, the Mamba, RG-LRU and whisper families included.
+Checkpoints are gathered to rank 0 in the JAX package's train-state
+layout (Mamba's ``in_proj`` whole, its halves put back), so either
+package, and any (dp, tp), resumes them.  ``--kill-after STEP`` is a
+fault drill: the process kills itself once the checkpoint of that step
+is on disk; a rerun resumes from it.
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.train --device cpu \\
@@ -41,8 +41,7 @@ from repro_torch.runtime.fault import (StragglerMonitor, elastic_restore,
                                        guarded_step)
 from repro_torch.runtime.train import (load_train_state, make_train_step,
                                        train_state_init, train_state_tree)
-from repro_torch.sharding.specs import (check_tp_family, logical_rules,
-                                        shard_params)
+from repro_torch.sharding.specs import logical_rules, shard_params
 
 
 def make_batch_fn(cfg, batch: int, seq: int, seed: int = 0, *,
@@ -85,10 +84,8 @@ def run(arch: str, *, steps: int = 100, batch: int = 8, seq: int = 128,
         device="cuda", dist_backend: str | None = None,
         kill_after: int | None = None) -> dict:
     """Train ``arch`` for ``steps`` steps; returns rank 0's losses and last
-    metrics.  Raises without a card unless ``device`` is the CPU, and for
-    ``tp`` > 1 on a family without a tensor-parallel form."""
+    metrics.  Raises without a card unless ``device`` is the CPU."""
     check_device(device, "train")
-    check_tp_family(arch_config(arch, reduced), {"model": tp})
     kw = dict(arch=arch, steps=steps, batch=batch, seq=seq, reduced=reduced,
               lr=lr, microbatches=microbatches, ckpt_dir=ckpt_dir,
               ckpt_every=ckpt_every, log_every=log_every, seed=seed,

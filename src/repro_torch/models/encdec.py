@@ -13,6 +13,15 @@ per layer, cross-KV precomputed once at prefill.  Both stacks are
 ``nn.ModuleList``s run by a loop (the reference scans them), each layer
 under block remat (``layers.remat``), as the reference checkpoints its scan
 step.
+
+Over a mesh's model dim (``sharding.specs.logical_rules``) both stacks'
+attention and MLP are tensor-parallel as in ``layers``; ``frame_proj`` and
+the LayerNorms stay whole.  The decoder's cross-attention takes the local
+heads' keys and values of the encoder states; the decode cache keeps
+``cross_k``/``cross_v`` whole (the reference names their heads dim None),
+built once from the gathered weights (``layers.cross_kv(whole=True)``), and
+its self-attention caches hold ``S / tp`` positions each
+(``layers.attention_decode``).
 """
 
 from __future__ import annotations
@@ -96,14 +105,12 @@ class EncDecCache(NamedTuple):
     cross_v: list
 
 
-def init_encdec_cache(p, enc_out, cfg, batch: int, max_seq: int):
-    """Precompute cross-KV from encoder output; allocate self cache."""
-    ck, cv = zip(*[L.cross_kv(bp["cross_attn"], enc_out, cfg)
+def cross_cache(p, enc_out, cfg) -> tuple:
+    """Each decoder layer's cross-attention keys and values of every kv
+    head, from the encoder output: (cross_k, cross_v) lists."""
+    ck, cv = zip(*[L.cross_kv(bp["cross_attn"], enc_out, cfg, whole=True)
                    for bp in p["dec_blocks"]])
-    self_kv = [L.init_kv_cache(cfg, batch, max_seq, "causal",
-                               device=enc_out.device)
-               for _ in range(cfg.n_layers)]
-    return EncDecCache(self_kv, list(ck), list(cv))
+    return list(ck), list(cv)
 
 
 def decode_step(p, x, cfg, cache: EncDecCache) -> tuple:
@@ -121,4 +128,4 @@ def decode_step(p, x, cfg, cache: EncDecCache) -> tuple:
         h = L.layernorm(bp["pre_mlp"], x, cfg.norm_eps)
         x = x + L.mlp(bp["mlp"], h, cfg)
         new_self.append(nkv)
-    return x, EncDecCache(new_self, cache.cross_k, cache.cross_v)
+    return x, cache._replace(self_kv=new_self)

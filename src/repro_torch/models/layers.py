@@ -20,7 +20,19 @@ by ff, ``wd`` row-parallel.  The input enters through ``copy_to_group``
 (Megatron's f), a replicated parameter used on the local heads through it
 too, and a row-parallel product ends in one ``reduce_from_group`` (g), a
 row-parallel bias added after it.  The attention itself runs unchanged on
-the local heads.
+the local heads; whisper's cross-attention takes the encoder states'
+keys and values of the local heads (``cross_kv``).
+
+Decode on a sharded model (``attention_decode``) reads a cache whose
+``k``/``v`` a rank holds ``S / tp`` positions of, for every kv head (the
+``kv_seq`` rule, flash-decode sequence parallelism; it holds where the kv
+heads do not divide the model dim).  Per attention layer and token: one
+all_gather of the new token's q (and k, v where the kv heads shard) over
+the heads; the new k and v go to the rank that owns the slot; each rank
+attends all heads over its positions; the partial softmaxes combine by
+the log-sum-exp rule (an all_reduce of the max, one of the sum of exps
+and the weighted values together); ``wo`` is row-parallel where the
+heads shard (one all_reduce).
 """
 
 from __future__ import annotations
@@ -33,7 +45,8 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch.core.distributed import copy_to_group, reduce_from_group
+from repro_torch.core.distributed import (all_reduce, copy_to_group,
+                                          gather_group, reduce_from_group)
 from repro_torch.sharding.specs import current_binding, model_axis, rebind
 
 COMPUTE_DTYPE = torch.bfloat16
@@ -166,11 +179,14 @@ def sinusoidal_embedding(positions: torch.Tensor, d: int) -> torch.Tensor:
 class KVCache(NamedTuple):
     """Decode cache.  ``k``/``v`` are [B, S, Hk, hd]; for local attention S is
     the window and writes wrap (ring buffer).  ``pos`` is the absolute
-    position of the next token, int32 [B]."""
+    position of the next token, int32 [B].  ``seq``: ``k``/``v`` hold this
+    rank's ``S / tp`` of the positions over the model dim (set where
+    ``Model.init_cache`` or ``sharding.specs.shard_cache`` cut them)."""
 
     k: torch.Tensor
     v: torch.Tensor
     pos: torch.Tensor
+    seq: bool = False
 
 
 def init_attention(init: Init, cfg) -> Params:
@@ -199,7 +215,10 @@ def _tp_heads(p, cfg):
     return (model_axis() if H_l < cfg.n_heads else None), H_l, Hk_l
 
 
-def _project_qkv(p, x, cfg, positions):
+def _project_qkv(p, x, cfg, positions, expand: bool = True):
+    """(q, k, v) of the local heads, roped.  Where the kv heads are whole
+    and the heads shard, k and v hold each local head's own kv group
+    (``expand``) or every kv head (not ``expand``, for the decode cache)."""
     B, T, _ = x.shape
     H, Hk, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
     c = COMPUTE_DTYPE
@@ -220,10 +239,8 @@ def _project_qkv(p, x, cfg, positions):
     q = q.reshape(B, T, H_l, hd)
     k = k.reshape(B, T, Hk_l, hd)
     v = v.reshape(B, T, Hk_l, hd)
-    if kv_rep:          # each local head's own kv group
-        idx = (tp.rank * H_l + torch.arange(H_l, device=x.device)) \
-            // (H // Hk)
-        k, v = k[:, :, idx], v[:, :, idx]
+    if kv_rep and expand:
+        k, v = _head_groups(k, v, tp, H_l, cfg)
     if cfg.qk_norm:
         q = rmsnorm({"scale": copy_to_group(p["q_norm"]["scale"], group)},
                     q, cfg.norm_eps)
@@ -232,6 +249,26 @@ def _project_qkv(p, x, cfg, positions):
     q = rope(q, positions, cfg.rope_theta)
     k = rope(k, positions, cfg.rope_theta)
     return q, k, v
+
+
+def _head_groups(k, v, tp, H_l, cfg):
+    """Each of this rank's ``H_l`` heads' own kv group of the whole k/v."""
+    idx = (tp.rank * H_l + torch.arange(H_l, device=k.device)) \
+        // (cfg.n_heads // cfg.n_kv_heads)
+    return k[:, :, idx], v[:, :, idx]
+
+
+def _local_kv(p, k, v, cfg):
+    """The keys and values of this rank's heads from ``k``/``v`` [B, S, n,
+    hd] that hold either this rank's kv heads or every kv head."""
+    tp, H_l, Hk_l = _tp_heads(p, cfg)
+    Hk = cfg.n_kv_heads
+    if tp is None or (Hk_l < Hk and k.shape[2] == Hk_l):
+        return k, v
+    if Hk_l < Hk:
+        return (k.narrow(2, tp.rank * Hk_l, Hk_l),
+                v.narrow(2, tp.rank * Hk_l, Hk_l))
+    return _head_groups(k, v, tp, H_l, cfg)
 
 
 def _out_proj(p, out, cfg):
@@ -307,7 +344,7 @@ def attention_train(p, x, cfg, *, kind: str, positions=None,
         positions = torch.arange(T, dtype=torch.int32, device=x.device)[None]
     if kind == "cross":
         assert kv is not None
-        k, v = kv
+        k, v = _local_kv(p, *kv, cfg)
         q = _project_qkv(p, x, cfg, positions)[0]
         mask = torch.ones((B, T, k.shape[1]), dtype=torch.bool,
                           device=x.device)
@@ -331,45 +368,108 @@ def attention_train(p, x, cfg, *, kind: str, positions=None,
     return _out_proj(p, _sdpa(q, k, v, mask, cfg), cfg)
 
 
-def cross_kv(p, enc_out, cfg):
-    """Pre-project encoder states for decoder cross-attention."""
+def cross_kv(p, enc_out, cfg, whole: bool = False):
+    """Pre-project encoder states for decoder cross-attention: the kv heads
+    ``wk``/``wv`` hold (this rank's where they shard), or every kv head
+    (``whole``, the decode cache's layout: one all_gather of the two
+    weights' shards, cheaper than one of the [B, F] products once
+    B F > 2 d)."""
     B, S, _ = enc_out.shape
     c = COMPUTE_DTYPE
-    k = (enc_out @ p["wk"].to(c)).reshape(B, S, cfg.n_kv_heads, cfg.hd)
-    v = (enc_out @ p["wv"].to(c)).reshape(B, S, cfg.n_kv_heads, cfg.hd)
+    tp, _, Hk_l = _tp_heads(p, cfg)
+    group = None if tp is None else tp.group
+    wk, wv = p["wk"], p["wv"]
+    if whole and Hk_l < cfg.n_kv_heads:
+        wk, wv = gather_group(torch.stack([wk, wv]), group)
+        Hk_l = cfg.n_kv_heads
+    elif tp is not None and Hk_l == cfg.n_kv_heads:
+        wk, wv = copy_to_group(wk, group), copy_to_group(wv, group)
+    enc = enc_out if whole else copy_to_group(enc_out, group)
+    k = (enc @ wk.to(c)).reshape(B, S, Hk_l, cfg.hd)
+    v = (enc @ wv.to(c)).reshape(B, S, Hk_l, cfg.hd)
     return k, v
+
+
+def _gather_heads(q, k, v, cfg, tp):
+    """q (and k, v where the kv heads shard) [B, 1, n, hd] of the local
+    heads -> of every head: one all_gather."""
+    B, hd = q.shape[0], cfg.hd
+    parts = [q, k, v] if k.shape[2] < cfg.n_kv_heads else [q]
+    flat = torch.cat([t.reshape(B, -1) for t in parts], -1)
+    g = gather_group(flat, tp.group).reshape(B, tp.size, -1)
+    whole = [t.reshape(B, 1, -1, hd) for t in
+             g.split([t.shape[2] * hd for t in parts], -1)]
+    return (whole + [k, v])[:3]
+
+
+def _sdpa_seq(q, k, v, mask, cfg, group):
+    """``_sdpa`` over the positions a rank holds, combined over ``group``
+    by the log-sum-exp rule: the max, then the sum of exps and the
+    weighted values, each one all_reduce."""
+    B, T, H, hd = q.shape
+    S, Hk = k.shape[1], k.shape[2]
+    qg = q.reshape(B, T, Hk, H // Hk, hd)
+    s = torch.einsum("btkgh,bskh->bkgts", qg, k).float() / math.sqrt(hd)
+    s = softcap(s, cfg.attn_softcap)
+    s = torch.where(mask[:, None, None, :, :], s, -1e30)
+    m = all_reduce(s.amax(dim=-1), group, "all_reduce_lse",
+                   torch.distributed.ReduceOp.MAX)
+    pexp = torch.exp(s - m[..., None])
+    acc = torch.einsum("bkgts,bskh->bkgth", pexp.to(COMPUTE_DTYPE), v)
+    both = all_reduce(torch.cat([pexp.sum(dim=-1)[..., None], acc.float()],
+                                -1), group, "all_reduce_lse")
+    out = both[..., 1:] / both[..., :1]
+    return out.permute(0, 3, 1, 2, 4).reshape(B, T, H * hd).to(
+        COMPUTE_DTYPE)
 
 
 def attention_decode(p, x, cfg, cache: KVCache, *, kind: str) -> tuple:
     """One-token decode with KV cache.  kind: 'causal' (S = max context) or
-    'local' (S = window, ring buffer).  x [B, 1, d].
+    'local' (S = window, ring buffer).  x [B, 1, d].  A cache whose
+    ``seq`` is set holds this rank's ``S / tp`` positions over the model
+    dim (module docstring).
 
     Writes the new key and value into ``cache.k``/``cache.v`` in place (the
     reference returns updated copies): a copy of a 4k-token cache a layer
     and step would move more bytes than the step's weights."""
     B = x.shape[0]
-    S = cache.k.shape[1]
+    S_l = cache.k.shape[1]
     pos = cache.pos                                          # [B]
-    q, k_new, v_new = _project_qkv(p, x, cfg, pos[:, None])
+    tp, H_l, _ = _tp_heads(p, cfg)
+    q, k_new, v_new = _project_qkv(p, x, cfg, pos[:, None], expand=False)
+    if tp is not None:
+        q, k_new, v_new = _gather_heads(q, k_new, v_new, cfg, tp)
+    ax = model_axis() if cache.seq else None
+    S, lo = (S_l, 0) if ax is None else (S_l * ax.size, ax.rank * S_l)
     if kind == "local":
         slot = pos % S
     else:
         slot = torch.clamp(pos, max=S - 1)
     bidx = torch.arange(B, device=x.device)
     k, v = cache.k, cache.v
-    k[bidx, slot] = k_new[:, 0].to(k.dtype)
-    v[bidx, slot] = v_new[:, 0].to(v.dtype)
-    sidx = torch.arange(S, dtype=torch.int32, device=x.device)[None, :]
+    if ax is None:
+        k[bidx, slot] = k_new[:, 0].to(k.dtype)
+        v[bidx, slot] = v_new[:, 0].to(v.dtype)
+    else:               # only the rank that holds the slot writes it
+        mine = ((slot >= lo) & (slot < lo + S_l))[:, None, None]
+        at = torch.clamp(slot - lo, 0, S_l - 1)
+        for buf, new in ((k, k_new), (v, v_new)):
+            buf[bidx, at] = torch.where(mine, new[:, 0].to(buf.dtype),
+                                        buf[bidx, at])
+    sidx = torch.arange(lo, lo + S_l, dtype=torch.int32,
+                        device=x.device)[None]
     if kind == "local":
         # absolute position last written into each slot
         p_slot = pos[:, None] - torch.remainder(pos[:, None] - sidx, S)
         mask = (p_slot >= 0) & (p_slot <= pos[:, None])
     else:
         mask = sidx <= pos[:, None]
-    out = _sdpa(q, k.to(COMPUTE_DTYPE), v.to(COMPUTE_DTYPE),
-                mask[:, None, :], cfg)
-    y = out @ p["wo"].to(COMPUTE_DTYPE)
-    return y, KVCache(k, v, pos + 1)
+    kc, vc = k.to(COMPUTE_DTYPE), v.to(COMPUTE_DTYPE)
+    out = _sdpa(q, kc, vc, mask[:, None, :], cfg) if ax is None \
+        else _sdpa_seq(q, kc, vc, mask[:, None, :], cfg, ax.group)
+    if tp is not None:
+        out = out.narrow(-1, tp.rank * H_l * cfg.hd, H_l * cfg.hd)
+    return _out_proj(p, out, cfg), cache._replace(pos=pos + 1)
 
 
 def init_kv_cache(cfg, batch: int, max_seq: int, kind: str,

@@ -15,7 +15,18 @@ rows of the table and one ``reduce_from_group`` sums the lookups; it
 computes its slice of the logits, and the loss is a vocab-parallel
 cross-entropy (an all_reduce of the max, of the sum of exps and of the gold
 logit) that never gathers ``[B, T, V]``.  ``forward`` gathers the logits
-only when asked.  Decode on a sharded model waits for ROADMAP A7d.
+only when asked, ``decode_step`` always.  Every family runs so: the
+attention and MLP layers (``layers``), the Mamba mixer over ``d_inner``
+(``ssm``), the RG-LRU mixer over ``lru`` (``rglru``), whisper's stacks
+(``encdec``).
+
+Under a binding ``init_cache`` allocates only this rank's shard of the
+decode cache (``sharding.specs.cache_specs``: ``k``/``v`` hold ``S / tp``
+positions of every kv head, the recurrent states the local channels, the
+batch this data rank's rows; ``layers.KVCache.seq`` marks a cut of the
+positions); ``cache_shape`` gives those local shapes.
+``sharding.specs.shard_cache`` cuts a whole cache the same way and
+``gather_cache`` puts it back together.
 """
 
 from __future__ import annotations
@@ -31,8 +42,9 @@ from repro_torch.models import encdec as ED
 from repro_torch.models import layers as L
 from repro_torch.models import trunk as TR
 from repro_torch.models.config import ArchConfig
-from repro_torch.sharding.specs import (bound_axis, current_binding,
-                                        model_axis, shard_hint)
+from repro_torch.sharding.specs import (cache_sharding, current_binding,
+                                        cut_cache, local_shape, model_axis,
+                                        shard_hint)
 
 Z_LOSS_WEIGHT = 1e-4
 MOE_AUX_WEIGHT = 1e-2
@@ -193,46 +205,58 @@ class Model(nn.Module):
         gold = reduce_from_group(gold * mine, tp.group, "all_reduce_loss")
         return logz, gold
 
-    def _check_decode(self) -> None:
-        if bound_axis("model") is not None:
-            raise NotImplementedError("decode on a tensor-parallel model (the "
-                                      "kv_seq-sharded cache) waits for "
-                                      "ROADMAP A7d")
-
     # --- serving --------------------------------------------------------------
 
     @torch.no_grad()
     def init_cache(self, batch: int, max_seq: int,
                    frames: Optional[torch.Tensor] = None, device=None):
-        """Decode cache on the model's device (or ``device``).  Whisper
-        needs ``frames`` for cross-KV."""
-        self._check_decode()
+        """Decode cache on the model's device (or ``device``); under a
+        binding, this rank's shard of it (module docstring).  Whisper needs
+        ``frames`` (this data rank's rows) for cross-KV."""
+        from repro_torch.sharding.axes import cache_map
         cfg = self.cfg
+        dev = device or self.device
         if cfg.is_encdec:
             assert frames is not None
             enc_out = ED.encode(self.encdec, frames, cfg)
-            return ED.init_encdec_cache(self.encdec, enc_out, cfg, batch,
-                                        max_seq)
-        return TR.init_trunk_cache(cfg, batch, max_seq + cfg.num_img_tokens,
-                                   device or self.device)
+            ck, cv = ED.cross_cache(self.encdec, enc_out, cfg)
+        cache = cache_map(self.cache_shape(batch, max_seq), lambda path, t:
+                          None if path.startswith("cross_") else
+                          torch.zeros(t.shape, dtype=t.dtype, device=dev))
+        if cfg.is_encdec:
+            cache = cache._replace(cross_k=ck, cross_v=cv)
+        return cache
 
     def cache_shape(self, batch: int, max_seq: int):
-        """The cache as meta tensors: its shapes and dtypes, no memory."""
+        """The cache as meta tensors: its shapes and dtypes, no memory.
+        Under a binding, the shapes of this rank's shard."""
         cfg = self.cfg
         if cfg.is_encdec:
             enc = cfg.encoder
-            kv = L.init_kv_cache(cfg, batch, max_seq, "causal", device="meta")
-            cross = torch.empty((batch, enc.n_frames, cfg.n_kv_heads, cfg.hd),
-                                dtype=L.COMPUTE_DTYPE, device="meta")
             n = cfg.n_layers
-            return ED.EncDecCache([kv] * n, [cross] * n, [cross] * n)
-        return self.init_cache(batch, max_seq, device="meta")
+            kv = [L.init_kv_cache(cfg, batch, max_seq, "causal",
+                                  device="meta") for _ in range(n)]
+            cross = [torch.empty((batch, enc.n_frames, cfg.n_kv_heads,
+                                  cfg.hd), dtype=L.COMPUTE_DTYPE,
+                                 device="meta") for _ in range(n)]
+            whole = ED.EncDecCache(kv, cross, list(cross))
+        else:
+            whole = TR.init_trunk_cache(cfg, batch,
+                                        max_seq + cfg.num_img_tokens, "meta")
+        bind = current_binding()
+        if bind is None:
+            return whole
+        mesh, rules = bind
+        cut = cache_sharding(whole, mesh, rules)
+        return cut_cache(whole, cut, lambda path, t: torch.empty(
+            local_shape(cut.specs[path], t.shape, mesh), dtype=t.dtype,
+            device="meta"))
 
     @torch.no_grad()
     def decode_step(self, tokens, cache) -> tuple:
         """tokens int [B] -> (logits f32 [B, V], new cache).  Attention
-        caches are updated in place (``layers.attention_decode``)."""
-        self._check_decode()
+        caches are updated in place (``layers.attention_decode``).  On a
+        vocab-sharded model one all_gather puts the logits together."""
         cfg = self.cfg
         x = self._embed(tokens[:, None])                      # [B, 1, d]
         if cfg.is_encdec:
@@ -244,4 +268,7 @@ class Model(nn.Module):
             x, cache = TR.trunk_decode(self.trunk, x, cfg, cache)
         x = self._final_norm(x)
         logits = self._logits(x)[:, 0]
+        if logits.shape[-1] < cfg.vocab:
+            parts = all_gather(logits, current_binding()[0], "model")
+            logits = torch.cat(list(parts), dim=-1)
         return logits, cache

@@ -14,6 +14,18 @@ paper's trick to keep the gate cost linear in width):
 Train: associative scan over T (``ssm.associative_scan``; the transition
 tensor is [B, T, lru] — same footprint as activations, no chunking needed).
 Decode: O(1) update.
+
+Tensor parallelism over ``lru`` (under ``sharding.specs.logical_rules``, the
+model dim, where ``shard_params`` cut the channels): ``in_y`` and ``in_x``
+are column-parallel, the conv and ``lam`` hold the local channels, ``out``
+is row-parallel (one all_reduce of ``[N, d]``).  The gates' blocks
+``wa``/``wx`` stay whole on every rank (``lru_blocks`` has no rule), as in
+the reference.  Where a rank's channels are whole blocks, its gates take
+its blocks and no collective; where they straddle blocks (320 channels a
+rank of 256-wide blocks), one all_gather of the conv's output ``xc`` a
+layer gives each rank the inputs of the blocks its channels lie in.  The
+blocks enter through ``copy_to_group``: a rank's grad of them is its
+channels' part.
 """
 
 from __future__ import annotations
@@ -23,8 +35,11 @@ from typing import NamedTuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.core.distributed import (copy_to_group, gather_from_group,
+                                          reduce_from_group)
 from repro_torch.models.layers import COMPUTE_DTYPE, Init, Params
 from repro_torch.models.ssm import associative_scan
+from repro_torch.sharding.specs import model_axis
 
 _C = 8.0
 
@@ -60,17 +75,41 @@ def init_rglru(init: Init, cfg) -> Params:
 
 
 def _block_proj(w, x, nb, bw):
-    """Block-diagonal projection: x [..., lru] @ blockdiag(w) -> [..., lru]."""
+    """Block-diagonal projection: x [..., nb * bw] @ blockdiag(w) -> same."""
     xs = x.reshape(x.shape[:-1] + (nb, bw))
     return torch.einsum("...nb,nbc->...nc", xs, w).reshape(x.shape)
 
 
-def _gates(p, xc, cfg):
+def _tp(p, cfg):
+    """The model dim when ``p`` holds a shard of the channels, else None."""
+    return model_axis() if p["lam"].shape[0] < _dims(cfg)[1] else None
+
+
+def _gates(p, xc, cfg, tp=None):
+    """(a, bx) of the channels ``xc`` holds (this rank's, over ``tp``)."""
     r, lru, nb = _dims(cfg)
     bw = r.block_width
     xf = xc.float()
-    rt = torch.sigmoid(_block_proj(p["wa"], xf, nb, bw))
-    it = torch.sigmoid(_block_proj(p["wx"], xf, nb, bw))
+    width = xc.shape[-1]
+    if tp is None:
+        ra = _block_proj(p["wa"], xf, nb, bw)
+        ix = _block_proj(p["wx"], xf, nb, bw)
+    else:
+        group = tp.group
+        lo = tp.rank * width
+        b0, b1 = lo // bw, -(-(lo + width) // bw)    # the blocks it lies in
+        if width % bw:                               # straddles blocks
+            xin = gather_from_group(xf, group)[..., b0 * bw:b1 * bw]
+        else:
+            xin = xf
+        start = lo - b0 * bw
+
+        def proj(w):
+            w = copy_to_group(w, group)[b0:b1]
+            return _block_proj(w, xin, b1 - b0, bw).narrow(-1, start, width)
+        ra, ix = proj(p["wa"]), proj(p["wx"])
+    rt = torch.sigmoid(ra)
+    it = torch.sigmoid(ix)
     log_a = -_C * F.softplus(p["lam"]) * rt                # [..., lru]
     a = torch.exp(log_a)
     # multiplier sqrt(1 - a^2), stable via log: 0.5*log1p(-exp(2 log_a))
@@ -80,10 +119,10 @@ def _gates(p, xc, cfg):
 
 
 def _conv(p, x, cfg, prefix=None):
-    r, lru, _ = _dims(cfg)
-    B, T, _ = x.shape
+    r = cfg.rglru
+    B, T, width = x.shape
     if prefix is None:
-        prefix = torch.zeros((B, r.d_conv - 1, lru), dtype=x.dtype,
+        prefix = torch.zeros((B, r.d_conv - 1, width), dtype=x.dtype,
                              device=x.device)
     xp = torch.cat([prefix, x], dim=1)
     out = torch.zeros_like(x)
@@ -95,12 +134,15 @@ def _conv(p, x, cfg, prefix=None):
 def rglru_train(p, x, cfg) -> torch.Tensor:
     """x [B, T, d_model] -> [B, T, d_model]."""
     c = COMPUTE_DTYPE
+    tp = _tp(p, cfg)
+    group = None if tp is None else tp.group
+    x = copy_to_group(x, group)
     y = F.gelu(x @ p["in_y"].to(c), approximate="tanh")
     xb = x @ p["in_x"].to(c)
     xc = _conv(p, xb, cfg)
-    a, bx = _gates(p, xc, cfg)                             # [B, T, lru] f32
+    a, bx = _gates(p, xc, cfg, tp)                         # [B, T, lru] f32
     _, hs = associative_scan(a, bx, dim=1)
-    return (hs.to(c) * y) @ p["out"].to(c)
+    return reduce_from_group((hs.to(c) * y) @ p["out"].to(c), group)
 
 
 def init_rglru_cache(cfg, batch: int, device="cuda") -> RGLRUCache:
@@ -115,12 +157,14 @@ def init_rglru_cache(cfg, batch: int, device="cuda") -> RGLRUCache:
 def rglru_decode(p, x, cfg, cache: RGLRUCache):
     """x [B, 1, d_model] -> (y [B, 1, d_model], cache)."""
     c = COMPUTE_DTYPE
+    tp = _tp(p, cfg)
     y = F.gelu(x[:, 0] @ p["in_y"].to(c), approximate="tanh")
     xb = x[:, 0] @ p["in_x"].to(c)                         # [B, lru]
     window = torch.cat([cache.conv, xb[:, None]], dim=1)
     xc = torch.einsum("btd,td->bd", window, p["conv_w"].to(c)) \
         + p["conv_b"].to(c)
-    a, bx = _gates(p, xc, cfg)                             # [B, lru]
+    a, bx = _gates(p, xc, cfg, tp)                         # [B, lru]
     h = a * cache.h + bx
-    out = ((h.to(c) * y) @ p["out"].to(c))[:, None]
+    out = reduce_from_group((h.to(c) * y) @ p["out"].to(c),
+                            None if tp is None else tp.group)[:, None]
     return out, RGLRUCache(window[:, 1:], h, cache.pos + 1)

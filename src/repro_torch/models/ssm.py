@@ -9,6 +9,18 @@ The in-chunk scan is Hillis-Steele (log2(chunk) whole-tensor steps), so it
 combines in another order than ``lax.associative_scan``.
 
 Decode path: O(1) recurrence update + conv ring buffer.
+
+Tensor parallelism over ``d_inner`` (under ``sharding.specs.logical_rules``,
+the model dim, where ``shard_params`` cut the channels): ``in_proj`` is
+column-parallel and a rank holds ``[x_r | z_r]``, the same channels of
+each half; the conv, ``dt_proj``, ``dt_bias``, ``A_log`` and ``D`` hold
+the local channels; ``x_proj`` is row-parallel, and one all_reduce of
+``[N, dt_rank + 2 d_state]`` makes ``dt``, ``B`` and ``C`` whole on every
+rank (its grad sums back over the ranks, ``all_reduce_both_ways``); the
+scan runs on the local channels with no collective; ``out_proj`` is
+row-parallel (one all_reduce of ``[N, d]``).  Two all_reduces a layer in
+the forward, train and decode alike; the decode cache holds the local
+channels.
 """
 
 from __future__ import annotations
@@ -19,7 +31,10 @@ from typing import NamedTuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.core.distributed import (all_reduce_both_ways,
+                                          copy_to_group, reduce_from_group)
 from repro_torch.models.layers import COMPUTE_DTYPE, Init, Params
+from repro_torch.sharding.specs import model_axis
 
 SCAN_CHUNK = 256
 
@@ -70,10 +85,23 @@ def associative_scan(a: torch.Tensor, b: torch.Tensor, dim: int = 1):
     return a, b
 
 
-def _ssm_inputs(p, xc, cfg):
-    """Shared discretization: xc [..., d_inner] -> (dA, dBx, C_ssm)."""
-    s, _, dt_rank = _cfgdims(cfg)
+def _group(p, cfg):
+    """The model dim's group when ``p`` holds a shard of the channels."""
+    d_inner = _cfgdims(cfg)[1]
+    return model_axis().group if p["D"].shape[0] < d_inner else None
+
+
+def _x_proj(p, xc, group):
+    """``xc @ x_proj`` [..., dt_rank + 2 d_state], summed over the model
+    dim when the channels are sharded (one all_reduce)."""
     proj = xc @ p["x_proj"].to(xc.dtype)
+    return all_reduce_both_ways(proj, group) if group is not None else proj
+
+
+def _ssm_inputs(p, xc, proj, cfg):
+    """Shared discretization: xc [..., d_inner] and its ``x_proj`` product
+    -> (dA, dBx, C_ssm)."""
+    s, _, dt_rank = _cfgdims(cfg)
     dt, B_ssm, C_ssm = torch.split(proj, [dt_rank, s.d_state, s.d_state],
                                    dim=-1)
     dt = F.softplus((dt @ p["dt_proj"].to(xc.dtype)).float()
@@ -86,14 +114,15 @@ def _ssm_inputs(p, xc, cfg):
 
 
 def _causal_conv(p, x, cfg, prefix=None):
-    """Depthwise causal conv over T.  prefix [B, d_conv-1, d_inner] or zeros."""
-    s, d_inner, _ = _cfgdims(cfg)
-    B, T, _ = x.shape
+    """Depthwise causal conv over T.  prefix [B, d_conv-1, d_inner] or zeros
+    (``d_inner`` the channels ``x`` holds)."""
+    s = cfg.ssm
+    B, T, width = x.shape
     if prefix is None:
-        prefix = torch.zeros((B, s.d_conv - 1, d_inner), dtype=x.dtype,
+        prefix = torch.zeros((B, s.d_conv - 1, width), dtype=x.dtype,
                              device=x.device)
     xp = torch.cat([prefix, x], dim=1)                       # [B, T+dc-1, di]
-    out = torch.zeros((B, T, d_inner), dtype=x.dtype, device=x.device)
+    out = torch.zeros((B, T, width), dtype=x.dtype, device=x.device)
     for i in range(s.d_conv):                                # tiny unroll (4)
         out = out + xp[:, i:i + T, :] * p["conv_w"][i].to(x.dtype)
     return out + p["conv_b"].to(x.dtype)
@@ -101,19 +130,23 @@ def _causal_conv(p, x, cfg, prefix=None):
 
 def mamba_train(p, x, cfg) -> torch.Tensor:
     """x [B, T, d_model] -> [B, T, d_model]; T % SCAN_CHUNK == 0 (or T small)."""
-    s, d_inner, _ = _cfgdims(cfg)
+    s = cfg.ssm
     B, T, _ = x.shape
     c = COMPUTE_DTYPE
+    group = _group(p, cfg)
+    x = copy_to_group(x, group)
     xz = x @ p["in_proj"].to(c)
     x_in, z = torch.chunk(xz, 2, dim=-1)
     xc = F.silu(_causal_conv(p, x_in, cfg))                  # [B, T, d_inner]
+    proj = _x_proj(p, xc, group)
 
     chunk = SCAN_CHUNK if T % SCAN_CHUNK == 0 else T
-    h = torch.zeros((B, d_inner, s.d_state), dtype=torch.float32,
+    h = torch.zeros((B, xc.shape[-1], s.d_state), dtype=torch.float32,
                     device=x.device)
     ys = []
     for c0 in range(0, T, chunk):
-        dA, dBx, C_ssm = _ssm_inputs(p, xc[:, c0:c0 + chunk], cfg)
+        dA, dBx, C_ssm = _ssm_inputs(p, xc[:, c0:c0 + chunk],
+                                     proj[:, c0:c0 + chunk], cfg)
         pA, pBx = associative_scan(dA, dBx, dim=1)           # [B, ch, di, st]
         hs = pA * h[:, None] + pBx
         ys.append(torch.einsum("bcds,bcs->bcd", hs, C_ssm))
@@ -121,7 +154,7 @@ def mamba_train(p, x, cfg) -> torch.Tensor:
     y = torch.cat(ys, dim=1).to(c)
     y = y + p["D"].to(c) * xc
     y = y * F.silu(z)
-    return y @ p["out_proj"].to(c)
+    return reduce_from_group(y @ p["out_proj"].to(c), group)
 
 
 def init_mamba_cache(cfg, batch: int, device="cuda") -> MambaCache:
@@ -137,16 +170,17 @@ def init_mamba_cache(cfg, batch: int, device="cuda") -> MambaCache:
 def mamba_decode(p, x, cfg, cache: MambaCache):
     """One-token step: x [B, 1, d_model] -> (y [B, 1, d_model], cache)."""
     c = COMPUTE_DTYPE
+    group = _group(p, cfg)
     xz = x[:, 0] @ p["in_proj"].to(c)
     x_in, z = torch.chunk(xz, 2, dim=-1)                     # [B, d_inner]
     window = torch.cat([cache.conv, x_in[:, None]], dim=1)
     xc = torch.einsum("btd,td->bd", window, p["conv_w"].to(c)) \
         + p["conv_b"].to(c)
     xc = F.silu(xc)
-    dA, dBx, C_ssm = _ssm_inputs(p, xc, cfg)                 # [B, di, st]
-    h = dA * cache.h + dBx
+    dA, dBx, C_ssm = _ssm_inputs(p, xc, _x_proj(p, xc, group), cfg)
+    h = dA * cache.h + dBx                                   # [B, di, st]
     y = torch.einsum("bds,bs->bd", h, C_ssm).to(c)
     y = y + p["D"].to(c) * xc
     y = y * F.silu(z)
-    out = (y @ p["out_proj"].to(c))[:, None]
+    out = reduce_from_group(y @ p["out_proj"].to(c), group)[:, None]
     return out, MambaCache(window[:, 1:], h, cache.pos + 1)

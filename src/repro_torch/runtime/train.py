@@ -194,7 +194,8 @@ def load_train_state(tree: TrainState, model: Model) -> TrainState:
     def local(name: str, leaf):
         leaf = torch.as_tensor(leaf)
         return leaf if sharding is None else shard_of(
-            leaf, sharding.specs[name], sharding.mesh)
+            leaf, sharding.specs[name], sharding.mesh,
+            sharding.parts_of(name))
 
     for name, leaf in unstack_tree(tree.params).items():
         params[name].copy_(local(name, leaf))

@@ -11,6 +11,8 @@ from __future__ import annotations
 
 from typing import Tuple
 
+import torch
+
 from repro_torch.models.convert import is_stacked, reference_groups
 
 # last key -> logical axes (without any leading stack dims)
@@ -57,6 +59,17 @@ _BY_NAME: dict = {
 # keys under which the experts' 3D weights live (expert-sharded, EP)
 _MOE_WEIGHTS = ("wg", "wu", "wd")
 
+# last key -> the equal parts its sharded dim holds, each cut alike: Mamba's
+# fused ``in_proj`` is ``[x | z]``, and a rank holds ``[x_r | z_r]`` (the
+# reference's spec reads it as one dim, which would give x to the first
+# half of the ranks and z to the second)
+_PARTS = {"in_proj": 2}
+
+
+def param_parts(name: str) -> int:
+    """The parts of the port's parameter ``name``'s sharded dim."""
+    return _PARTS.get(name.rsplit(".", 1)[-1], 1)
+
 
 def param_axes(model, cfg=None) -> dict:
     """{reference path: logical axes} of every parameter of ``model``.
@@ -101,7 +114,9 @@ _CACHE_BY_NAME: dict = {
     "k": ("batch", "kv_seq", None, None),      # [B, S, Hk, hd]
     "v": ("batch", "kv_seq", None, None),
     "conv": ("batch", None, "d_inner"),        # [B, dc-1, width]
-    "h": ("batch", "d_inner", None),           # mamba [B, di, st] / rglru [B, lru]
+    # mamba [B, di, st] / rglru [B, lru]: "d_inner" for both, which holds
+    # because "lru" and "d_inner" map to the same mesh axis (the model dim)
+    "h": ("batch", "d_inner", None),
     "cross_k": ("batch", None, None, None),    # [B, F, Hk, hd]
     "cross_v": ("batch", None, None, None),
     "pos": ("batch",),
@@ -112,28 +127,54 @@ def cache_axes(cache) -> dict:
     """{reference path: logical axes} of a decode cache (``Model.
     init_cache`` or ``cache_shape``): the trunk's ``blocks.c_i.<field>``
     stacked over blocks and ``tail.c_i.<field>``, or whisper's
-    ``self_kv.<field>``, ``cross_k`` and ``cross_v`` stacked over layers."""
+    ``self_kv.<field>``, ``cross_k`` and ``cross_v`` stacked over layers.
+    As the reference, it puts ``layers`` before the unstacked tail's
+    leaves too."""
     out = {}
-    for path, ndim in _cache_ranks(cache).items():
-        last = path.rsplit(".", 1)[-1]
-        base = _CACHE_BY_NAME.get(last, (None,) * (ndim - 1))
-        out[path] = ("layers",) + tuple(base[: ndim - 1])
+    for path, t in cache_leaves(cache).items():
+        keys = path.split(".")
+        ndim = t.dim() + (keys[0] != "tail")
+        ref = ".".join(k for k in keys if not k.isdigit())
+        out[ref] = ("layers",) + cache_leaf_axes(path, ndim - 1)
     return out
 
 
-def _cache_ranks(cache) -> dict:
-    """{reference path: rank of the reference's leaf there}."""
-    if isinstance(cache, dict):
-        ranks = {}
-        for key, per_block in (("blocks", cache["blocks"][0]),
-                               ("tail", cache.get("tail"))):
-            stacked = key == "blocks"
-            for ci, nt in (per_block or {}).items():
-                for field, t in zip(nt._fields, nt):
-                    ranks[f"{key}.{ci}.{field}"] = t.dim() + stacked
-        return ranks
-    ranks = {f"self_kv.{f}": t.dim() + 1
-             for f, t in zip(cache.self_kv[0]._fields, cache.self_kv[0])}
-    ranks["cross_k"] = cache.cross_k[0].dim() + 1
-    ranks["cross_v"] = cache.cross_v[0].dim() + 1
-    return ranks
+def cache_leaves(cache) -> dict:
+    """{port path: tensor} of a decode cache: ``blocks.<b>.c_<i>.<field>``
+    and ``tail.c_<i>.<field>`` of the trunk's, ``self_kv.<l>.<field>``,
+    ``cross_k.<l>`` and ``cross_v.<l>`` of whisper's."""
+    out: dict = {}
+    cache_map(cache, lambda path, t: out.setdefault(path, t))
+    return out
+
+
+def cache_map(cache, fn, kv=None):
+    """``cache`` rebuilt with each tensor ``t`` at port path ``path``
+    replaced by ``fn(path, t)``, and, where ``kv`` is given, each rebuilt
+    attention cache ``c`` (``layers.KVCache``: the node with a ``seq``
+    field) at ``path`` by ``kv(path, c)``.  Other fields pass through."""
+    def walk(node, path):
+        if isinstance(node, dict):
+            return {k: walk(v, f"{path}{k}.") for k, v in node.items()}
+        if isinstance(node, list):
+            return [walk(v, f"{path}{i}.") for i, v in enumerate(node)]
+        if isinstance(node, tuple):
+            out = type(node)(*[walk(v, f"{path}{f}.")
+                               for f, v in zip(node._fields, node)])
+            if kv is not None and "seq" in node._fields:
+                return kv(path[:-1], out)
+            return out
+        if isinstance(node, torch.Tensor):
+            return fn(path[:-1], node)
+        return node
+    return walk(cache, "")
+
+
+def cache_leaf_axes(path: str, ndim: int) -> Tuple:
+    """The logical axes of the port's cache leaf at ``path`` (of rank
+    ``ndim``): the reference's ``cache_axes`` less the stack dim.  The
+    reference also puts ``layers`` before the unstacked tail's leaves,
+    which names each of their dims by its neighbour's; the port names them
+    as the stacked leaves."""
+    field = next(k for k in reversed(path.split(".")) if not k.isdigit())
+    return tuple(_CACHE_BY_NAME.get(field, (None,) * ndim)[:ndim])

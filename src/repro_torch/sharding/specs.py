@@ -16,6 +16,12 @@ layouts): a parameter is held as the shard :func:`shard_params` cut, and an
 activation is this data rank's rows, whole over ``model`` unless a hint
 says otherwise.  ``shard_hint`` checks that layout where the reference
 constrains it.  Outside a binding everything runs on one device, as before.
+
+``shard_cache`` / ``gather_cache`` are the decode cache's counterparts of
+``shard_params`` / ``gather_params``: each leaf is cut by ``spec_for`` of
+its logical axes (``axes.cache_leaf_axes``: ``k``/``v`` over ``kv_seq``,
+the recurrent states over their channels), and an attention cache whose
+positions are cut says so (``layers.KVCache.seq``), which decode reads.
 """
 
 from __future__ import annotations
@@ -44,8 +50,6 @@ DEFAULT_RULES: dict = {
 }
 
 DATA_AXES = ("pod", "data")
-# the families whose mixers have no tensor-parallel form yet
-NO_TP_FAMILIES = ("ssm", "hybrid", "audio")
 
 _ctx = threading.local()
 
@@ -207,10 +211,16 @@ def shard_hint(x: torch.Tensor, names: Sequence[Optional[str]],
 # --- parameters ---------------------------------------------------------------
 
 class Sharding(NamedTuple):
-    """How :func:`shard_params` cut a model: the mesh and each parameter's
-    spec (by the port's parameter name; None entries replicate)."""
+    """How :func:`shard_params` (or :func:`shard_cache`) cut a model (a
+    cache): the mesh, each leaf's spec (by the port's name; None entries
+    replicate) and, for a leaf whose sharded dim holds equal parts cut
+    alike (Mamba's ``in_proj``, ``[x | z]``), their count."""
     mesh: object
     specs: dict
+    parts: Optional[dict] = None
+
+    def parts_of(self, name: str) -> int:
+        return (self.parts or {}).get(name, 1)
 
 
 def param_specs(axes: dict, shapes: dict, mesh,
@@ -255,25 +265,37 @@ def _index(dims: dict, mesh, axis) -> int:
     return idx
 
 
-def shard_of(t: torch.Tensor, spec: tuple, mesh) -> torch.Tensor:
+def shard_of(t: torch.Tensor, spec: tuple, mesh, parts: int = 1
+             ) -> torch.Tensor:
     """This rank's shard of the whole tensor ``t`` laid out by ``spec`` (a
-    view)."""
+    view when ``parts`` is 1).  With ``parts`` > 1 a sharded dim holds
+    that many equal parts, and the shard is this rank's slice of each, in
+    order: ``[x_r | z_r]`` of ``[x | z]``."""
     dims = mesh_dims(mesh)
     for d, axis in enumerate(spec):
         if axis is not None:
-            n = t.shape[d] // _mesh_size(dims, axis)
-            t = t.narrow(d, _index(dims, mesh, axis) * n, n)
+            piece = t.shape[d] // parts
+            n = piece // _mesh_size(dims, axis)
+            lo = _index(dims, mesh, axis) * n
+            cuts = [t.narrow(d, j * piece + lo, n) for j in range(parts)]
+            t = cuts[0] if parts == 1 else torch.cat(cuts, d)
     return t
 
 
-def check_tp_family(cfg, mesh) -> None:
-    """Raise for a family without a tensor-parallel form on a mesh whose
-    ``model`` dim holds more than one rank."""
-    if mesh_dims(mesh).get("model", 1) > 1 and cfg.family in NO_TP_FAMILIES:
-        raise NotImplementedError(
-            f"{cfg.name} ({cfg.family}): tensor parallelism of the Mamba and "
-            f"RG-LRU mixers and of whisper's encoder-decoder waits for "
-            f"ROADMAP A7d")
+def _whole(t: torch.Tensor, spec: tuple, mesh, parts: int = 1
+           ) -> torch.Tensor:
+    """The inverse of ``shard_of`` on every rank: an all_gather over each
+    sharded dim's axis (of each part)."""
+    from repro_torch.core.distributed import all_gather
+    for d, axis in enumerate(spec):
+        if axis is None:
+            continue
+        pieces = list(t.chunk(parts, d))
+        for a in reversed(axis if isinstance(axis, tuple) else (axis,)):
+            pieces = [torch.cat(list(all_gather(x.contiguous(), mesh, a)), d)
+                      for x in pieces]
+        t = torch.cat(pieces, d)
+    return t
 
 
 @torch.no_grad()
@@ -281,11 +303,23 @@ def shard_params(model, mesh, rules: Optional[dict] = None):
     """Cut each of ``model``'s parameters to this rank's shard in place (a
     copy of the shard replaces the whole tensor), by ``model_specs``;
     records the cut as ``model.sharding``; returns ``model``."""
-    check_tp_family(model.cfg, mesh)
+    from repro_torch.sharding.axes import param_parts
     specs = model_specs(model, mesh, rules)
+    dims = mesh_dims(mesh)
+    parts = {}
     for name, p in model.named_parameters():
-        p.data = shard_of(p.data, specs[name], mesh).clone()
-    model.sharding = Sharding(mesh, specs)
+        k = param_parts(name)
+        if k > 1 and any(specs[name]):
+            d = next(i for i, a in enumerate(specs[name]) if a is not None)
+            size = _mesh_size(dims, specs[name][d])
+            if p.shape[d] % (k * size):
+                raise ValueError(f"{name}: {k} parts of {p.shape[d]} do not "
+                                 f"split over {size} ranks")
+            parts[name] = k
+    for name, p in model.named_parameters():
+        p.data = shard_of(p.data, specs[name], mesh,
+                          parts.get(name, 1)).clone()
+    model.sharding = Sharding(mesh, specs, parts)
     return model
 
 
@@ -293,13 +327,60 @@ def gather_params(named: dict, sharding: Sharding) -> dict:
     """``{name: whole tensor}`` of ``{name: local shard}`` (parameters, their
     grads or moments, by the names ``sharding.specs`` holds): an all_gather
     over each sharded dim's axis, on every rank."""
-    from repro_torch.core.distributed import all_gather
-    mesh, out = sharding.mesh, {}
-    for name, t in named.items():
-        for d, axis in enumerate(sharding.specs[name]):
-            if axis is None:
-                continue
-            for a in reversed(axis if isinstance(axis, tuple) else (axis,)):
-                t = torch.cat(list(all_gather(t.contiguous(), mesh, a)), d)
-        out[name] = t
-    return out
+    return {name: _whole(t, sharding.specs[name], sharding.mesh,
+                         sharding.parts_of(name))
+            for name, t in named.items()}
+
+
+# --- decode caches --------------------------------------------------------------
+
+def cache_specs(cache, mesh, rules: Optional[dict] = None) -> dict:
+    """``{port path: spec}`` of a whole decode cache (``Model.cache_shape``
+    serves), by ``spec_for`` of each leaf's logical axes
+    (``sharding.axes.cache_leaf_axes``)."""
+    from repro_torch.sharding.axes import cache_leaf_axes, cache_leaves
+    rules = {**DEFAULT_RULES, **(rules or {})}
+    return {path: spec_for(cache_leaf_axes(path, t.dim()), t.shape, mesh,
+                           rules)
+            for path, t in cache_leaves(cache).items()}
+
+
+def cache_sharding(cache, mesh, rules: Optional[dict] = None) -> Sharding:
+    """How :func:`shard_cache` cuts the whole ``cache`` (or its meta shapes,
+    ``Model.cache_shape`` outside a binding) over ``mesh``."""
+    return Sharding(mesh, cache_specs(cache, mesh, rules))
+
+
+def cut_cache(cache, sharding: Sharding, fn):
+    """``sharding.axes.cache_map(cache, fn)``, each attention cache's
+    ``seq`` set where ``sharding`` cuts its positions over a model dim of
+    more than one rank (``layers.KVCache``)."""
+    from repro_torch.sharding.axes import cache_map
+    many = mesh_dims(sharding.mesh).get("model", 1) > 1
+
+    def mark(path, c):
+        axis = sharding.specs[f"{path}.k"][1]
+        return c._replace(seq=many and "model" in (
+            axis if isinstance(axis, tuple) else (axis,)))
+    return cache_map(cache, fn, mark)
+
+
+@torch.no_grad()
+def shard_cache(cache, mesh, rules: Optional[dict] = None):
+    """The cache's counterpart of ``shard_params``: a copy of this rank's
+    shard of each leaf of the whole ``cache``, by ``cache_sharding``."""
+    sharding = cache_sharding(cache, mesh, rules)
+    return cut_cache(cache, sharding, lambda path, t: shard_of(
+        t, sharding.specs[path], mesh).clone())
+
+
+@torch.no_grad()
+def gather_cache(cache, sharding: Sharding):
+    """The cache's counterpart of ``gather_params``: the whole cache from
+    this rank's shards cut by ``sharding`` (``cache_sharding``), on every
+    rank."""
+    from repro_torch.sharding.axes import cache_map
+    return cache_map(
+        cache, lambda path, t: _whole(t, sharding.specs[path],
+                                      sharding.mesh),
+        lambda path, c: c._replace(seq=False))

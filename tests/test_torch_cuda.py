@@ -936,3 +936,93 @@ def test_nccl_tp_on_cards_matches_one(card, tmp_path, shape):
         for k, v in one["params"].items():
             np.testing.assert_allclose(r["params"][k], v, rtol=5e-3,
                                        atol=5e-4, err_msg=k)
+
+
+@pytest.mark.parametrize("shape", [(1, 2), (1, 4)])
+@pytest.mark.parametrize("arch", ["falcon-mamba-7b", "recurrentgemma-2b",
+                                  "whisper-small"])
+def test_nccl_tp_scans_on_cards_match_one(card, tmp_path, arch, shape):
+    """The Mamba mixer over ``d_inner``, the RG-LRU mixer over ``lru`` (80
+    channels in blocks of 16: a rank's straddle them, so its gates
+    all_gather) and whisper over NCCL, a card a rank, at tp ``shape[1]``:
+    3 train steps of a reduced config against one card on the whole batch
+    in float32 compute, losses and the gathered params within rtol 5e-3,
+    atol 5e-4."""
+    import torch_dist
+    from torch_train_ranks import train_span
+
+    from repro_torch.models import ARCHS
+    from repro_torch.models.config import RGLRUCfg
+    _mesh_cards(shape[1], "nccl")
+    kw = {"rglru": RGLRUCfg(lru_width=80, block_width=16)} \
+        if arch == "recurrentgemma-2b" else {}
+    cfg = ARCHS[arch].reduced(vocab=128, **kw)
+    ranks = torch_dist.spawn(train_span, shape[1],
+                             (cfg, 0, 3, 3, 8, 32, False, None, True),
+                             tmp_path, mesh_shape=shape, device="cuda",
+                             backend="nccl")
+    one = train_span(None, card, cfg, 0, 3, 3, 8, 32, float32=True)
+    for r in ranks:
+        np.testing.assert_allclose(r["losses"], one["losses"], rtol=5e-3,
+                                   atol=5e-4)
+        for k, v in one["params"].items():
+            np.testing.assert_allclose(r["params"][k], v, rtol=5e-3,
+                                       atol=5e-4, err_msg=k)
+
+
+@pytest.mark.parametrize("shape", [(1, 2), (1, 4), (2, 2)])
+def test_nccl_sharded_decode_on_cards_matches_one(card, tmp_path, shape):
+    """Decode of a sharded model over NCCL, a card a rank, on a
+    ``kv_seq``-sharded cache: five reduced configs (Mamba, RG-LRU with a
+    local attention, whisper, GQA, a local ring buffer with softcaps)
+    decode 8 steps from a 20-token prefix cut by ``shard_cache``, in
+    float32 compute, against one card: the logits within 1e-4 of the scale
+    (1e-3 on a scan), the gathered cache the one card's within the same
+    bound of each leaf's scale."""
+    import torch_dist
+    from torch_train_ranks import compute_dtype, tp_decode_rank
+
+    from repro_torch.models import ARCHS, Model
+    from repro_torch.models.convert import params_to_jax
+    from repro_torch.sharding.axes import cache_leaves
+    _mesh_cards(shape[0] * shape[1], "nccl")
+    B, prefix, steps, max_seq = 4, 20, 8, 32
+    cases, want = [], []
+    for arch, kw in (("falcon-mamba-7b", {}), ("recurrentgemma-2b", {}),
+                     ("whisper-small", {}), ("qwen3-1.7b", {}),
+                     ("gemma2-9b", {"window": 16})):
+        cfg = ARCHS[arch].reduced(**kw)
+        b = _model_batch(cfg, B=B, T=prefix + steps)
+        with compute_dtype(torch.float32), torch.no_grad():
+            model = Model(cfg, device=card)
+            frames = b.get("frames")
+            cache = model.init_cache(B, max_seq, None if frames is None
+                                     else frames.to(card))
+            logits = []
+            for t in range(prefix + steps):
+                if t == prefix:
+                    at_prefix = {k: v.cpu().numpy().copy() for k, v in
+                                 cache_leaves(cache).items()}
+                lt, cache = model.decode_step(b["tokens"][:, t].to(card),
+                                              cache)
+                logits.append(lt.cpu().numpy())
+        tokens = b["tokens"].numpy()[:, prefix:]
+        cases.append((cfg, params_to_jax(model), tokens,
+                      None if frames is None else frames.numpy(), max_seq,
+                      at_prefix))
+        want.append((np.stack(logits[prefix:], 1),
+                     {k: v.float().cpu().numpy()
+                      for k, v in cache_leaves(cache).items()}))
+    ranks = torch_dist.spawn(tp_decode_rank, shape[0] * shape[1], (cases,),
+                             tmp_path, mesh_shape=shape, device="cuda",
+                             backend="nccl")
+    for (cfg, *_), (logits, final), *got in zip(cases, want, *ranks):
+        tol = 1e-3 if cfg.family in ("ssm", "hybrid") else 1e-4
+        for g in got:
+            w = logits[slice(*g["rows"])]
+            assert np.abs(g["logits"] - w).max() <= tol * np.abs(w).max(), \
+                cfg.name
+            for k, v in final.items():
+                scale = float(np.abs(v).max()) or 1.0
+                assert np.abs(g["cache"][k] - v).max() <= tol * scale, \
+                    (cfg.name, k)

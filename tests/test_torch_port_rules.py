@@ -7,9 +7,9 @@
   and so do the examples (unless ``--device cpu`` asks for the CPU), the
   serving launcher (sync, ``--async``, ``--mesh`` and both together), the
   streaming launcher (with and without ``--mesh``) and the train launcher
-  (with and without ``--dp``, with ``--tp``) unless ``--device cpu`` asks
-  for the CPU; the train launcher's ``--tp 2`` on a family without a
-  tensor-parallel form raises;
+  (with and without ``--dp``, with ``--tp``, an ssm arch's too) unless
+  ``--device cpu`` asks for the CPU, where an ssm arch trains at ``--tp 2``
+  and writes a checkpoint the JAX package restores;
 * no mesh server refuses what a meshless one serves;
 * a CPU tensor takes a kernel's plain version and launches nothing;
 * ``chip_smoke.py`` fails, printing no result, without a card or without the
@@ -256,24 +256,35 @@ def test_mesh_servers_refuse_nothing_the_meshless_ones_serve():
 
 def test_train_launcher_without_a_card_fails_and_trains_nothing(tmp_path):
     """The train launcher hidden from every card raises before it builds a
-    model, with ``--dp 2`` or ``--tp 2`` before it starts a rank; ``--tp 2``
-    of an ssm arch raises on the CPU too, naming the roadmap item, instead
-    of training replicated."""
+    model, with ``--dp 2`` or ``--tp 2`` before it starts a rank, an ssm
+    arch's ``--tp 2`` too; on the CPU that arch trains at ``--tp 2`` and
+    its checkpoint loads into the JAX package's train state."""
     small = ("--arch", "qwen2-0.5b", "--reduced", "--steps", "2",
              "--ckpt-dir", str(tmp_path / "ck"))
-    for extra in ((), ("--dp", "2"), ("--tp", "2")):
+    ssm = ("--arch", "falcon-mamba-7b", "--tp", "2")
+    for extra in ((), ("--dp", "2"), ("--tp", "2"), ssm):
         out = _launch_without_a_card("repro_torch.launch.train", *small,
                                      *extra)
         assert out.returncode != 0
         assert "no CUDA card" in out.stderr
         assert "[train]" not in out.stdout
-    out = _launch_without_a_card("repro_torch.launch.train", *small,
-                                 "--device", "cpu", "--tp", "2", "--arch",
-                                 "falcon-mamba-7b")
-    assert out.returncode != 0
-    assert "NotImplementedError" in out.stderr and "A7d" in out.stderr
-    assert "[train]" not in out.stdout
     assert not (tmp_path / "ck").exists()
+    out = _launch_without_a_card("repro_torch.launch.train", *small,
+                                 "--device", "cpu", *ssm)
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert "[train] done on cpu, dp 1 x tp 2" in out.stdout
+    import jax
+
+    from repro.models import ARCHS as JARCHS
+    from repro.models import Model as JModel
+    from repro.runtime.checkpoint import restore_checkpoint
+    from repro.runtime.train import train_state_init
+    cfg = JARCHS["falcon-mamba-7b"].reduced(vocab=512, d_model=128,
+                                            d_ff=256, n_layers=2)
+    like = train_state_init(JModel(cfg), jax.random.key(0))
+    got, _ = restore_checkpoint(str(tmp_path / "ck"), 2, like)
+    assert jax.tree.structure(got) == jax.tree.structure(like)
+    assert int(got.opt.step) == 2
 
 
 def test_stream_launcher_without_a_card_fails_and_streams_nothing():

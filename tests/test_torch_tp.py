@@ -18,7 +18,10 @@ replicate, the MLP shards), ``qwen2-moe-a2.7b`` with 6 experts (block-EP at
   JAX package's train state and resumes at ``--dp 1 --tp 1``: the next
   loss and the last within the DP tolerances (rtol 5e-3, atol 5e-4) of an
   uninterrupted run at (1, 1) (bf16, as the launcher computes); an ssm
-  arch at ``--tp 2`` raises, naming ROADMAP A7d.
+  arch trains at ``--tp 2`` too, and its checkpoint (Mamba's ``in_proj``
+  put back whole from its halves) loads into the JAX package's train
+  state and holds the params of a run at ``--tp 1`` within those
+  tolerances.
 """
 
 import os
@@ -171,6 +174,9 @@ def _next_loss(ckpt_dir) -> float:
 def test_launcher_tp_checkpoint_resumes_anywhere(tmp_path):
     arch = ("--arch", "qwen2-moe-a2.7b")
     straight = _start(tmp_path / "one", *arch)
+    ssm = ("--arch", "falcon-mamba-7b", "--steps", "2")
+    ssm_runs = {tp: _start(tmp_path / f"ssm{tp}", *ssm, "--tp", str(tp))
+                for tp in (1, 2)}
     out = _launch(tmp_path / "tp", *arch, "--dp", "2", "--tp", "2",
                   "--steps", "4")
     assert out.returncode == 0, out.stderr[-3000:]
@@ -198,11 +204,29 @@ def test_launcher_tp_checkpoint_resumes_anywhere(tmp_path):
     np.testing.assert_allclose(_next_loss(tmp_path / "tp"),
                                _next_loss(tmp_path / "one"), rtol=5e-3,
                                atol=5e-4)
-    # a family without a tensor-parallel form refuses --tp
-    out = _launch(tmp_path / "ssm", "--arch", "falcon-mamba-7b", "--tp", "2")
-    assert out.returncode != 0
-    assert "NotImplementedError" in out.stderr and "A7d" in out.stderr
-    assert not (tmp_path / "ssm").exists()
+    # the ssm arch trains at --tp 2; the JAX package restores its
+    # checkpoint, whose params are those of the run at --tp 1
+    for tp, proc in ssm_runs.items():
+        out = _done(proc)
+        assert out.returncode == 0, out.stderr[-3000:]
+        assert f"dp 1 x tp {tp}" in out.stdout
+    jcfg = JARCHS["falcon-mamba-7b"]
+    jcfg = jcfg.reduced(vocab=512, d_model=128, d_ff=256, n_layers=2)
+    like = jstate_init(JModel(jcfg), jax.random.key(0))
+    got = {tp: JCK.restore_checkpoint(str(tmp_path / f"ssm{tp}"), 2, like)[0]
+           for tp in (1, 2)}
+    assert jax.tree.structure(got[2]) == jax.tree.structure(like)
+    assert int(got[2].opt.step) == 2
+    for path, w in jax.tree_util.tree_flatten_with_path(got[1].params)[0]:
+        np.testing.assert_allclose(
+            np.asarray(_at(got[2].params, path)), np.asarray(w), rtol=5e-3,
+            atol=5e-4, err_msg=jax.tree_util.keystr(path))
+
+
+def _at(tree, path):
+    for k in path:
+        tree = tree[k.key]
+    return tree
 
 
 @pytest.mark.parametrize("arch", ["qwen3-1.7b", "qwen2-moe-a2.7b"])

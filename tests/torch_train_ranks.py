@@ -24,17 +24,21 @@ from repro_torch.sharding.specs import logical_rules
 @contextlib.contextmanager
 def compute_dtype(dtype):
     """The port's model stack computes in ``dtype`` (its modules'
-    ``COMPUTE_DTYPE``), restored on exit."""
+    ``COMPUTE_DTYPE``, and the KV cache's dtype, a default bound when
+    ``init_kv_cache`` is defined), restored on exit."""
     from repro_torch.models import layers, moe, rglru, ssm
     mods = (layers, moe, ssm, rglru)
     saved = [m.COMPUTE_DTYPE for m in mods]
+    kv = layers.init_kv_cache.__defaults__
     for m in mods:
         m.COMPUTE_DTYPE = dtype
+    layers.init_kv_cache.__defaults__ = (dtype,) + kv[1:]
     try:
         yield
     finally:
         for m, d in zip(mods, saved):
             m.COMPUTE_DTYPE = d
+        layers.init_kv_cache.__defaults__ = kv
 
 
 def train_span(mesh, dev, cfg, first: int, last: int, total: int,
@@ -131,27 +135,43 @@ def tp_rank(mesh, dev, cases) -> list:
     """Per case ``(cfg, tree, batch)`` (the JAX package's weights and a
     batch, numpy), the model cut over this rank's ``model`` dim
     (``params_from_jax(mesh=)``) in float32 compute under
-    ``logical_rules``: the gathered logits, the loss metrics, the grads
-    gathered to the reference's layout, this rank's shard shapes and its
+    ``logical_rules``, on this data rank's rows of the batch: the gathered
+    logits of those rows, the loss metrics and the grads (averaged over
+    the data dim: the whole batch's) gathered to the reference's layout,
+    this rank's shard shapes, its Mamba ``in_proj`` shards and its
     replicated leaves' grads, and the grad norm of one clipped train
     step."""
+    from repro_torch.core.distributed import all_reduce
     from repro_torch.models.convert import flatten, params_from_jax, stack_tree
     from repro_torch.sharding.specs import gather_params
     torch.set_num_threads(1)
+    dp = mesh.size(mesh.mesh_dim_names.index("data"))
+    data = mesh.get_group("data") if dp > 1 else None
     out = []
     with compute_dtype(torch.float32), logical_rules(mesh):
         for cfg, tree, nb in cases:
             model = params_from_jax(cfg, tree, device=dev, mesh=mesh)
             specs = model.sharding.specs
-            b = {k: torch.from_numpy(v).to(dev) for k, v in nb.items()}
+            B = len(nb["tokens"])
+            r = 0 if data is None else dist.get_rank(data)
+            b = {k: torch.from_numpy(v[r * B // dp:(r + 1) * B // dp]).to(dev)
+                 for k, v in nb.items()}
             with torch.no_grad():
                 logits, _ = model.forward(b, gather=True)
             loss, met = model.loss(b)
             loss.backward()
             local = {k: p.grad.detach().clone()
                      for k, p in model.named_parameters()}
+            met = {k: v.detach() for k, v in met.items()}
+            if data is not None:
+                local = {k: all_reduce(g, data) / dp for k, g in local.items()}
+                met = {k: all_reduce(v, data) / dp for k, v in met.items()}
             whole = stack_tree(gather_params(local, model.sharding))
+            in_proj = {k: p.detach().cpu().numpy().copy()
+                       for k, p in model.named_parameters()
+                       if k.endswith("in_proj")}
             step = make_train_step(model, total_steps=4, warmup=2,
+                                   data_group=data,
                                    model_group=mesh.get_group("model"))
             _, m = step(train_state_init(model), b)
             out.append({
@@ -160,9 +180,75 @@ def tp_rank(mesh, dev, cases) -> list:
                 "grads": {k: v.numpy() for k, v in flatten(whole)},
                 "shapes": {k: tuple(p.shape)
                            for k, p in model.named_parameters()},
+                "in_proj": in_proj,
                 "replicated": {k: g.cpu().numpy() for k, g in local.items()
                                if all(a is None for a in specs[k])},
                 "grad_norm": float(m["grad_norm"])})
+    return out
+
+
+def tp_decode_rank(mesh, dev, cases) -> list:
+    """Per case ``(cfg, tree, tokens, frames, max_seq, cache)``: the model
+    cut over this rank's ``model`` dim, in float32 compute under
+    ``logical_rules``; ``init_cache``'s local shapes (and their whole
+    shapes by ``cache_shape`` outside the binding); the whole ``cache``
+    (numpy, by port path: a prefix already decoded) cut to this rank's
+    shard by ``shard_cache``, decoding this data rank's rows of ``tokens``
+    [B, steps] a step at a time: the gathered logits, the local shapes and
+    ``pos`` after the steps, each attention cache's ``seq`` mark (fresh and
+    after the steps) and the gathered cache (numpy by path)."""
+    from repro_torch.models.convert import params_from_jax
+    from repro_torch.sharding.axes import cache_leaves, cache_map
+    from repro_torch.sharding.specs import (cache_sharding, gather_cache,
+                                            shard_cache)
+    torch.set_num_threads(1)
+    dp = mesh.size(mesh.mesh_dim_names.index("data"))
+    r = mesh.get_local_rank("data")
+    out = []
+
+    def marks(cache):
+        seq = {}
+
+        def note(path, c):
+            seq[path] = c.seq
+            return c
+        cache_map(cache, lambda path, t: t, note)
+        return seq
+    with compute_dtype(torch.float32):
+        for cfg, tree, tokens, frames, max_seq, whole in cases:
+            B = tokens.shape[0]
+            rows = slice(r * B // dp, (r + 1) * B // dp)
+            with logical_rules(mesh):
+                model = params_from_jax(cfg, tree, device=dev, mesh=mesh)
+            f = None if frames is None else torch.from_numpy(
+                frames[rows]).to(dev)
+            empty = model.cache_shape(B, max_seq)
+            with logical_rules(mesh):
+                fresh = model.init_cache(B, max_seq, f)
+                cache = cache_map(empty, lambda path, t: torch.from_numpy(
+                    whole[path]).to(dev))
+                cut = cache_sharding(cache, mesh)
+                cache = shard_cache(cache, mesh)
+                logits = []
+                for t in range(tokens.shape[1]):
+                    lt, cache = model.decode_step(
+                        torch.from_numpy(tokens[rows, t]).to(dev), cache)
+                    logits.append(lt.cpu().numpy())
+                gathered = gather_cache(cache, cut)
+            out.append({
+                "rows": (rows.start, rows.stop),
+                "logits": np.stack(logits, 1),
+                "fresh": {k: (tuple(t.shape), str(t.dtype)) for k, t in
+                          cache_leaves(fresh).items()},
+                "whole": {k: tuple(t.shape) for k, t in
+                          cache_leaves(empty).items()},
+                "local": {k: tuple(t.shape) for k, t in
+                          cache_leaves(cache).items()},
+                "seq": (marks(fresh), marks(cache)),
+                "cross": [t.cpu().numpy() for t in fresh.cross_k]
+                if cfg.is_encdec else None,
+                "cache": {k: t.float().cpu().numpy() for k, t in
+                          cache_leaves(gathered).items()}})
     return out
 
 
