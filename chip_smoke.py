@@ -225,6 +225,22 @@ Phases, each of which fails the run (non-zero exit, no result line):
    32,768 positions filled from the seeded generator to 32,704 and cut by
    ``shard_cache``, and the three configs of (a) from an empty cache of 64
    positions (2 sequences).
+16. the dry-run family (``launch/roofline.py``, ``dryrun_join.py``,
+   ``dryrun.py``), each a child process playing rank 0 of a fake process
+   group: (a) the join at (16, 16) over 2^26 rows (2^18 a rank) on the card
+   and on the CPU, whose censuses must be equal call for call and byte for
+   byte, every kernel launching on the card; (b) model cells on ``meta``
+   tensors, each ``ok``: ``qwen3-1.7b`` ``train_4k``, ``prefill_32k`` and
+   ``decode_32k``, ``qwen2-moe-a2.7b`` ``train_4k``, ``qwen2-0.5b`` and
+   ``whisper-small`` ``train_4k`` under their ``seq`` rule, and
+   ``qwen3-1.7b`` ``decode_32k`` at (2, 16, 16); (c) ``qwen3-1.7b`` at full
+   width cut to 2 layers, a [2, 4096] forward and a train step at mesh 1,
+   on ``meta`` and for real on the card: the counted flops equal, the
+   ``meta`` peak within 0.75-1.33 x the card allocator's growth, and the
+   floor max(compute, memory) on the H100's datasheet rates at most the
+   measured time; the join at mesh 1 over 2^24 rows a relation (phase 4's
+   size) likewise, each record's floor at most its measured time.  Prints
+   each cell's terms and measured / floor.
 
 It then prints one line ``{"kernels": [...]}`` and, last,
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -485,6 +501,7 @@ def edge_sample_case(label, rels, torch, line, whole_rounds=False):
     block) also times the call cut to whole rounds of the grid, to show what
     the last, partly empty round costs.  Returns (its kernels-line entry,
     its draws)."""
+    from repro_torch.kernels import traffic
     from repro_torch.core import bloom
     from repro_torch.core.budget import QueryBudget
     from repro_torch.core.join import (decide_sample_sizes,
@@ -537,10 +554,8 @@ def edge_sample_case(label, rels, torch, line, whole_rounds=False):
     # joinable stratum's draws need, min(draws, count) of them
     join = st.joinable
     n_i = out_k[0][0]
-    gathered = sum(float(torch.minimum(n_i, c.float())[join].sum()) * 4
-                   for c in (st.counts[0], st.counts[1]))
-    S = st.keys.shape[0]
-    nbytes = S * (8 + 4 * 8 + 1 + 4) + 8 + gathered + S * 3 * 4
+    gathered = traffic.edge_sample_gathered(n_i, st.counts, join)
+    nbytes = traffic.edge_sample_bytes(1, st.keys.shape[0], gathered)
     err = max(float((a - b).abs().max()) for a, b in zip(out_k, out_p))
     # float work a draw: f (an add or a multiply), sum += f and sum2 += f * f
     # (one FFMA): 4 flops in 3 instructions
@@ -591,6 +606,7 @@ def edge_sample_case(label, rels, torch, line, whole_rounds=False):
 def kernel_phase(rels, torch, rates):
     """Phase 3: each kernel against its plain version at main-path shapes,
     timed beside its bound (``rates``: the integer pipe and dispatch rates)."""
+    from repro_torch.kernels import traffic
     from repro_torch.core import bloom
     from repro_torch.core.hashing import fmix32
     from repro_torch.data.synthetic import skewed_relation
@@ -643,8 +659,8 @@ def kernel_phase(rels, torch, rates):
     n_valid = float(valid[0].sum())
     lines.append(line("bloom_build",
                       float((words_k[0].long() - words_p.long()).abs().max()),
-                      ms, call_ms, plain_ms, ROWS * (8 + 1) + 8 + nb * 32,
-                      n_valid))
+                      ms, call_ms, plain_ms,
+                      traffic.bloom_build_bytes(1, ROWS, nb), n_valid))
     # the worst case for committing only missing bits: 2^24 distinct keys
     # (fmix32 is a bijection), every one of which must commit
     dkeys = fmix32(torch.arange(ROWS, device=dev))[None]
@@ -654,7 +670,7 @@ def kernel_phase(rels, torch, rates):
           "bloom_build words != plain on distinct keys")
     d_ms, _ = kernel_ms(
         lambda: kb.bloom_build_batched(dkeys, dvalid, nb, seed1))
-    d_bound, d_by = bound(rates, ROWS * (8 + 1) + 8 + nb * 32,
+    d_bound, d_by = bound(rates, traffic.bloom_build_bytes(1, ROWS, nb),
                           **int_ops("bloom_build", ROWS))
     extra = [f"kernel bloom_build on {ROWS} distinct keys: {d_ms:.4f} ms "
              f"(bound {d_bound:.4f} ms by {d_by})"]
@@ -679,8 +695,8 @@ def kernel_phase(rels, torch, rates):
                        PLAIN_REPS)
     lines.append(line("bloom_probe",
                       float((mask_k.int() - mask_p.int()).abs().max()),
-                      ms, call_ms, plain_ms, ROWS * 8 + nb * 32 + 8 + ROWS * 1,
-                      ROWS))
+                      ms, call_ms, plain_ms,
+                      traffic.bloom_probe_bytes(1, ROWS, nb), ROWS))
 
     # --- edge_sample: the sampled SUM's first (pilot) request ----------
     # on the main path's strata (uniform: every joinable stratum draws
@@ -999,6 +1015,7 @@ def small_shape_kernels(small, torch, rates):
     keys, a 4,096-block filter each, the strata of those slots): build,
     probe and sampler against their plain versions, as in phase 3; the
     probe timed beside its bound.  Returns the probe's timing."""
+    from repro_torch.kernels import traffic
     from repro_torch.core import bloom
     from repro_torch.core.budget import QueryBudget
     from repro_torch.core.join import (_slot, decide_sample_sizes,
@@ -1043,7 +1060,7 @@ def small_shape_kernels(small, torch, rates):
           "edge_sample at the small served shape: sums != plain")
     ms, call_ms = kernel_ms(lambda: kp.bloom_probe_batched(jw, keys, seeds))
     n_keys = B * SMALL_ROWS
-    b_ms, b_by = bound(rates, n_keys * 8 + B * nb * 32 + B * 8 + n_keys,
+    b_ms, b_by = bound(rates, traffic.bloom_probe_bytes(B, SMALL_ROWS, nb),
                        **{p: n_keys * v
                           for p, v in INT_OPS["bloom_probe"].items()})
     print(f"serve small shape: bloom_build, bloom_probe and edge_sample "
@@ -1311,6 +1328,7 @@ def stream_kernels(torch, rates, mbs, served, tick, sampled):
     the step of tick ``tick`` gave it (``sampled``: 3 real windows in 4
     slots, the strata of 2^23-row windows, sigma-fed b_i, a seed a window),
     equal to its plain version bit for bit."""
+    from repro_torch.kernels import traffic
     from repro_torch.core import bloom
     from repro_torch.kernels import bloom_build as kb
     from repro_torch.kernels import bloom_probe as kp
@@ -1328,7 +1346,7 @@ def stream_kernels(torch, rates, mbs, served, tick, sampled):
     plain_ms = time_ms(lambda: kb.bloom_build_ref(keys, valid, nb, seed1),
                        PLAIN_REPS)
     n = STREAM_SUB_ROWS
-    b_ms, b_by = bound(rates, n * (8 + 1) + 8 + nb * 32,
+    b_ms, b_by = bound(rates, traffic.bloom_build_bytes(1, n, nb),
                        **{p: float(valid.sum()) * v
                           for p, v in INT_OPS["bloom_build"].items()})
     build = dict(keys=n, num_blocks=nb, ms=ms, call_ms=call_ms,
@@ -1348,7 +1366,7 @@ def stream_kernels(torch, rates, mbs, served, tick, sampled):
     plain_ms = time_ms(lambda: kp.bloom_probe_ref(jwords, pkeys, seeds),
                        PLAIN_REPS)
     B, n = pkeys.shape
-    b_ms, b_by = bound(rates, B * n * (8 + 1) + B * nb * 32 + B * 8,
+    b_ms, b_by = bound(rates, traffic.bloom_probe_bytes(B, n, nb),
                        **{p: B * n * v
                           for p, v in INT_OPS["bloom_probe"].items()})
     probe = dict(slots=B, keys=n, num_blocks=nb, ms=ms, call_ms=call_ms,
@@ -4992,8 +5010,183 @@ def scan_phase(torch):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 16: the dry-run family (``launch/roofline.py``, ``dryrun_join.py``,
+# ``dryrun.py``) in child processes, each rank 0 of a fake process group:
+# (a) the join at (16, 16) and 2^26 rows on the card and on the CPU, (b)
+# model cells on ``meta`` tensors, (c) the meters against the card.
+# ---------------------------------------------------------------------------
+
+DRY_JOIN_LOG2 = 26
+# (arch, shapes, mesh tag, more arguments): one child process each
+DRY_CELLS = (("qwen3-1.7b", ("train_4k", "prefill_32k", "decode_32k"),
+              "singlepod", ()),
+             ("qwen2-moe-a2.7b", ("train_4k",), "singlepod", ()),
+             ("qwen2-0.5b", ("train_4k",), "singlepod", ()),
+             ("whisper-small", ("train_4k",), "singlepod", ()),
+             ("qwen3-1.7b", ("decode_32k",), "multipod", ("--multi-pod",)))
+# (c): qwen3-1.7b at full width cut to 2 layers, [2, 4096], mesh 1; the
+# join at mesh 1 on phase 4's 2^24 rows a relation
+DRY_CHECK = ("--mesh", "1x1", "--arch", "qwen3-1.7b", "--set", "n_layers=2",
+             "--batch", "2", "--seq", "4096")
+DRY_CHECK_SHAPES = ("prefill_32k", "train_4k")
+DRY_JOIN_CHECK_LOG2 = 24
+DRY_PEAK_RANGE = (0.75, 1.33)      # meta's peak over the card allocator's
+DRY_TIMEOUT_S = 300
+
+
+def _shapes(shapes) -> tuple:
+    return tuple(a for s in shapes for a in ("--shape", s))
+
+
+def _dry_start(args, log):
+    env = {**os.environ, "PYTHONPATH": os.path.join(ROOT, "src")}
+    if "repro_torch.launch.dryrun" in args and "cuda" not in args:
+        env["OMP_NUM_THREADS"] = "1"       # meta tensors compute nothing
+    return subprocess.Popen([sys.executable, "-m", *args], cwd=ROOT, env=env,
+                            stdout=log, stderr=subprocess.STDOUT, text=True)
+
+
+def _dry_wait(procs: dict, logs: dict) -> None:
+    """Wait for every child; a child that fails fails the phase with its
+    output's end; none outlives this call."""
+    try:
+        for name, p in procs.items():
+            rc = p.wait(timeout=DRY_TIMEOUT_S)
+            logs[name].seek(0)
+            text = logs[name].read()
+            check(rc == 0, f"dry {name} exited {rc}: {text[-3000:]}")
+            for line in text.strip().splitlines():
+                if line.strip():
+                    print(f"  {name}: {line.strip()}")
+    finally:
+        for p in procs.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+
+
+def _dry_run(jobs: dict, tmp: str) -> None:
+    logs = {name: open(os.path.join(tmp, f"{name}.log"), "w+")
+            for name in jobs}
+    try:
+        procs = {name: _dry_start(args, logs[name])
+                 for name, args in jobs.items()}
+        _dry_wait(procs, logs)
+    finally:
+        for f in logs.values():
+            f.close()
+
+
+def _load(path):
+    with open(path) as f:
+        return json.load(f)
+
+
+def dry_phase(torch) -> dict:
+    """Phase 16.  Returns each kernel's launches in (a)'s card run."""
+    from repro_torch.launch.dryrun_join import KERNELS
+    t_start = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="dry-")
+    try:
+        join = ("repro_torch.launch.dryrun_join", "--log2-rows",
+                str(DRY_JOIN_LOG2))
+        model = ("repro_torch.launch.dryrun",)
+        # (a) and (b), and (c)'s meta runs, side by side
+        jobs = {"join_cuda": (*join, "--out", f"{tmp}/join_cuda.json"),
+                "join_cpu": (*join, "--device", "cpu", "--out",
+                             f"{tmp}/join_cpu.json")}
+        for i, (arch, shapes, _, extra) in enumerate(DRY_CELLS):
+            jobs[f"cell{i}"] = (*model, "--arch", arch, *_shapes(shapes),
+                                *extra, "--out", f"{tmp}/cell{i}")
+        jobs["check_meta"] = (*model, *DRY_CHECK, *_shapes(DRY_CHECK_SHAPES),
+                              "--out", f"{tmp}/meta")
+        _dry_run(jobs, tmp)
+        t_ab = time.perf_counter() - t_start
+        # (c) on the card, one after another, alone
+        _dry_run({"check_cuda": (*model, *DRY_CHECK,
+                                 *_shapes(DRY_CHECK_SHAPES), "--device",
+                                 "cuda", "--out", f"{tmp}/cuda")}, tmp)
+        _dry_run({"join_check": (
+            "repro_torch.launch.dryrun_join", "--mesh", "1x1", "--log2-rows",
+            str(DRY_JOIN_CHECK_LOG2), "--reps", "3", "--out",
+            f"{tmp}/join_check.json")},
+            tmp)
+
+        # (a) the card's census equals the CPU's, call for call
+        cuda, cpu = (_load(f"{tmp}/join_{d}.json") for d in ("cuda", "cpu"))
+        launches = {k: 0 for k in KERNELS}
+        for rc, rp in zip(cuda, cpu):
+            check(rc["census"] == rp["census"],
+                  f"dry join {rc['operator']}: the card's census "
+                  f"{rc['census']} != the CPU's {rp['census']}")
+            check(rc["device"].startswith("cuda"), "dry join not on the card")
+            for k in KERNELS:
+                launches[k] += rc["launches"][k]
+        for k, n in launches.items():
+            check(n > 0, f"dry join: {k} never launched on the card")
+        ratio = cuda[2]["coll_bytes_per_device"] / max(
+            cuda[3]["coll_bytes_per_device"], 1)
+        print(f"dry join (16, 16), 2^{DRY_JOIN_LOG2} rows: census equal on "
+              f"the card and the CPU for the 4 records; naive / planned "
+              f"collective bytes {ratio:.4f}x; launches {launches}")
+        # (b) every model cell ok
+        for i, (arch, shapes, tag, _) in enumerate(DRY_CELLS):
+            for shape in shapes:
+                rec = _load(f"{tmp}/cell{i}/{arch}__{shape}__{tag}.json")
+                check(rec["status"] == "ok",
+                      f"dry {arch} {shape} {tag}: {rec.get('error')}")
+                rf = rec["roofline"]
+                print(f"dry {arch} {shape} {tag}: rules "
+                      f"{rec['rules_bound']}, terms ({rf['compute_s']:.4e}, "
+                      f"{rf['memory_s']:.4e}, {rf['collective_s']:.4e}) s, "
+                      f"{rf['dominant']}; peak "
+                      f"{rec['memory']['peak_bytes'] / 2**30:.3f} GiB; "
+                      f"collectives {rf['collective_ops']}")
+        # (c) the meters against the card
+        for shape in DRY_CHECK_SHAPES:
+            meta, card = (_load(f"{tmp}/{d}/qwen3-1.7b__{shape}__1x1.json")
+                          for d in ("meta", "cuda"))
+            for rec in (meta, card):
+                check(rec["status"] == "ok", f"dry check {shape}: "
+                      f"{rec.get('error')} {rec.get('traceback')}")
+            fm, fc = (r["roofline"]["flops_per_device"] for r in (meta, card))
+            check(fm == fc, f"dry check {shape}: flops {fm} on meta, {fc} on "
+                  f"the card")
+            pm, pc = (r["memory"]["temp_bytes"] for r in (meta, card))
+            share = pm / pc
+            check(DRY_PEAK_RANGE[0] <= share <= DRY_PEAK_RANGE[1],
+                  f"dry check {shape}: meta peak {pm} over the card's {pc} "
+                  f"= {share:.4f}")
+            rf = card["roofline"]
+            floor = max(rf["compute_s"], rf["memory_s"])
+            check(floor <= card["measured_s"], f"dry check {shape}: floor "
+                  f"{floor} s above the measured {card['measured_s']} s")
+            print(f"dry check qwen3-1.7b (2 layers) {shape} [2, 4096] mesh "
+                  f"1: flops {fc:.6e} on both; peak meta {pm} / card {pc} = "
+                  f"{share:.4f}; floor {floor:.6e} s (compute "
+                  f"{rf['compute_s']:.6e}, memory {rf['memory_s']:.6e}), "
+                  f"measured {card['measured_s']:.6e} s = "
+                  f"{card['measured_s'] / floor:.3f} x the floor")
+        for rec in _load(f"{tmp}/join_check.json"):
+            floor = max(rec["compute_s"], rec["memory_s"])
+            check(floor <= rec["measured_s"], f"dry join check "
+                  f"{rec['operator']}: floor {floor} s above the measured "
+                  f"{rec['measured_s']} s")
+            print(f"dry join check {rec['operator']} mesh 1, "
+                  f"2^{DRY_JOIN_CHECK_LOG2} rows: floor {floor:.6e} s, "
+                  f"measured {rec['measured_s']:.6e} s = "
+                  f"{rec['measured_s'] / floor:.3f} x; peak "
+                  f"{rec['peak_bytes']} B; launches {rec['launches']}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    print(f"dry: no new kernel on this path; (a) and (b) took {t_ab:.1f} s, "
+          f"phase 16 {time.perf_counter() - t_start:.1f} s")
+    return launches
+
+
 def main() -> int:
-    """Phases 1-15."""
+    """Phases 1-16."""
     t_start = time.perf_counter()
     import torch
 
@@ -5131,7 +5324,11 @@ def main() -> int:
     scan_phase(torch)
     for ln in lines:
         ln["phase15_launches"] = wrappers[ln["name"]].launches
-    print(f"chip_smoke: phases 1-15 took "
+    # --- phase 16: the dry-run family ----------------------------------------
+    dried = dry_phase(torch)
+    for ln in lines:
+        ln["phase16_launches"] = dried[ln["name"]]
+    print(f"chip_smoke: phases 1-16 took "
           f"{time.perf_counter() - t_start:.1f} s")
 
     print(json.dumps({"kernels": lines}))

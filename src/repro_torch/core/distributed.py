@@ -82,7 +82,13 @@ from repro_torch.core.sampling import (SENTINEL, SampleResult, Strata,
 class CommMeter:
     """This rank's collectives by name: calls, bytes put on the wire to
     the other ranks, and seconds (only while ``timed``: each collective
-    then waits for the card before and after)."""
+    then waits for the card before and after).
+
+    The census (:meth:`census`) counts the same calls by collective kind
+    (:data:`KINDS`), group size and whether the group's ranks lie in one
+    node of :data:`GPUS_PER_NODE` consecutive ranks, which is what a
+    roofline needs to charge each call at its link's rate
+    (``launch/roofline.py``)."""
 
     def __init__(self):
         self.timed = False
@@ -92,13 +98,33 @@ class CommMeter:
         self.calls: Counter = Counter()
         self.bytes: Counter = Counter()
         self.seconds: Counter = Counter()
+        self.kind_calls: Counter = Counter()
+        self.kind_bytes: Counter = Counter()
 
     def snapshot(self) -> dict:
         return {op: {"calls": self.calls[op], "bytes": self.bytes[op],
                      "ms": 1e3 * self.seconds[op]} for op in self.calls}
 
+    def census(self) -> list:
+        """One entry a (kind, group size, in one node): its calls and
+        bytes, sorted."""
+        return [{"kind": kind, "group": k, "intra_node": intra,
+                 "calls": self.kind_calls[key],
+                 "bytes": self.kind_bytes[key]}
+                for key in sorted(self.kind_calls)
+                for kind, k, intra in (key,)]
+
 
 COMM = CommMeter()
+
+# the collective kinds of the census; a ring moves, per rank, (k - 1) x the
+# input of an all_gather, 2 (k - 1) / k of an all_reduce's tensor and
+# (k - 1) / k of a reduce_scatter's input or an all_to_all's tensor
+KINDS = ("all_gather", "all_reduce", "reduce_scatter", "all_to_all",
+         "broadcast", "scatter")
+# an H100 node: 8 cards joined by NVLink; the ranks of a node are 8
+# consecutive ranks of the default group
+GPUS_PER_NODE = 8
 
 
 class DistJoinResult(NamedTuple):
@@ -172,9 +198,29 @@ def _wire(x: torch.Tensor, group) -> torch.Tensor:
     return x.contiguous()
 
 
-def _metered(op: str, device, nbytes: int, body):
+_GROUP_NODES: dict = {}
+
+
+def _in_one_node(group) -> bool:
+    """Whether ``group``'s ranks (the default group's for None) lie in one
+    node of ``GPUS_PER_NODE`` consecutive ranks."""
+    key = id(group)
+    hit = _GROUP_NODES.get(key)
+    if hit is None or hit[0] is not group:
+        ranks = (range(dist.get_world_size()) if group is None
+                 else dist.get_process_group_ranks(group))
+        nodes = {r // GPUS_PER_NODE for r in ranks}
+        hit = _GROUP_NODES[key] = (group, len(nodes) == 1)
+    return hit[1]
+
+
+def _metered(op: str, device, nbytes: int, body, kind: str, group):
+    k = dist.get_world_size(group)
+    key = (kind, k, _in_one_node(group))
     COMM.calls[op] += 1
     COMM.bytes[op] += nbytes
+    COMM.kind_calls[key] += 1
+    COMM.kind_bytes[key] += nbytes
     if not COMM.timed:
         return body()
     sync(device)
@@ -209,13 +255,18 @@ def all_gather_group(x: torch.Tensor, group,
         out = torch.stack(out)
         return (out.view(torch.bfloat16) if bits else out).to(x.device)
     return _metered(op, x.device, x.numel() * x.element_size() * (k - 1),
-                    body)
+                    body, "all_gather", group)
 
 
 def all_to_all(x: torch.Tensor, mesh, axis: str) -> torch.Tensor:
     """Block ``j`` of ``x``'s dim 0 (whose size is the axis's) goes to rank
     ``j`` on ``axis``; block ``j`` of the result came from rank ``j``."""
-    group = mesh.get_group(axis)
+    return all_to_all_group(x, mesh.get_group(axis))
+
+
+def all_to_all_group(x: torch.Tensor, group,
+                     op: str = "all_to_all") -> torch.Tensor:
+    """:func:`all_to_all` over ``group``, metered under ``op``."""
     k = dist.get_world_size(group)
     if k == 1:
         return x
@@ -225,8 +276,80 @@ def all_to_all(x: torch.Tensor, mesh, axis: str) -> torch.Tensor:
         out = torch.empty_like(w)
         dist.all_to_all_single(out, w, group=group)
         return out.to(x.device)
-    return _metered("all_to_all", x.device,
-                    x.numel() * x.element_size() * (k - 1) // k, body)
+    return _metered(op, x.device,
+                    x.numel() * x.element_size() * (k - 1) // k, body,
+                    "all_to_all", group)
+
+
+def reduce_scatter_group(x: torch.Tensor, group, dim: int,
+                         op: str = "reduce_scatter") -> torch.Tensor:
+    """The sum of ``x`` over ``group``, of which this rank keeps the
+    ``r``-th of ``k`` equal chunks of ``dim``, metered under ``op`` (a
+    ring's bytes: each rank sends (k - 1) / k of its input).  On gloo a
+    bf16 tensor crosses as float32, as in :func:`all_reduce`."""
+    k = dist.get_world_size(group)
+    if k == 1:
+        return x
+    wide = x.dtype == torch.bfloat16 and dist.get_backend(group) == "gloo"
+    front = x.movedim(dim, 0)
+
+    def body():
+        w = _wire((front.float() if wide else front).contiguous(), group)
+        out = torch.empty((w.shape[0] // k, *w.shape[1:]), dtype=w.dtype,
+                          device=w.device)
+        scatter = getattr(dist, "reduce_scatter_single", None) \
+            or dist.reduce_scatter_tensor
+        scatter(out, w, group=group)
+        return out.to(x.device, x.dtype).movedim(0, dim)
+    return _metered(op, x.device,
+                    x.numel() * (4 if wide else x.element_size())
+                    * (k - 1) // k, body, "reduce_scatter", group)
+
+
+def gather_dim(x: torch.Tensor, group, dim: int,
+               op: str = "all_gather") -> torch.Tensor:
+    """The ranks' ``x`` concatenated on ``dim`` in the group's rank order
+    (one all_gather; no grad)."""
+    if dist.get_world_size(group) == 1:
+        return x
+    g = all_gather_group(x.contiguous(), group, op)           # [k, *x.shape]
+    return g.movedim(0, dim).flatten(dim, dim + 1)
+
+
+def exchange(x: torch.Tensor, group, split_dim: int, cat_dim: int,
+             op: str = "all_to_all") -> torch.Tensor:
+    """One all_to_all: chunk ``j`` of ``k`` of ``split_dim`` goes to rank
+    ``j``, and the chunks received are concatenated on ``cat_dim`` in rank
+    order (no grad; :func:`exchange_grad` carries one)."""
+    k = dist.get_world_size(group)
+    if k == 1:
+        return x
+    shape = list(x.shape)
+    n = shape[split_dim] // k
+    parts = x.unflatten(split_dim, (k, n)).movedim(split_dim, 0)
+    got = all_to_all_group(parts.contiguous(), group, op)    # [k, ...]
+    return got.movedim(0, cat_dim).flatten(cat_dim, cat_dim + 1)
+
+
+class _Exchange(torch.autograd.Function):
+    """Forward: :func:`exchange`; backward: the exchange back."""
+
+    @staticmethod
+    def forward(ctx, x, group, split_dim, cat_dim, op):
+        ctx.args = (group, cat_dim, split_dim, op + "_grad")
+        return exchange(x, group, split_dim, cat_dim, op)
+
+    @staticmethod
+    def backward(ctx, g):
+        return exchange(g.contiguous(), *ctx.args), None, None, None, None
+
+
+def exchange_grad(x: torch.Tensor, group, split_dim: int, cat_dim: int,
+                  op: str = "all_to_all") -> torch.Tensor:
+    """:func:`exchange` whose grad is exchanged back."""
+    if group is None or dist.get_world_size(group) == 1:
+        return x
+    return _Exchange.apply(x, group, split_dim, cat_dim, op)
 
 
 def psum(x: torch.Tensor, mesh, axes: Sequence[str]) -> torch.Tensor:
@@ -255,7 +378,7 @@ def all_reduce(x: torch.Tensor, group, op: str = "all_reduce",
         return w.to(x.device, x.dtype)
     return _metered(op, x.device,
                     2 * x.numel() * (4 if wide else x.element_size())
-                    * (k - 1) // k, body)
+                    * (k - 1) // k, body, "all_reduce", group)
 
 
 class _ReduceFromGroup(torch.autograd.Function):
@@ -348,6 +471,62 @@ def all_reduce_both_ways(x: torch.Tensor, group,
     return copy_to_group(reduce_from_group(x, group, op), group, op + "_grad")
 
 
+class _GatherSeq(torch.autograd.Function):
+    """Forward: the ranks' chunks of ``dim`` concatenated (all_gather);
+    backward: the sum of the ranks' grads of the whole, this rank's chunk
+    of it (reduce_scatter)."""
+
+    @staticmethod
+    def forward(ctx, x, group, dim, op):
+        ctx.group, ctx.dim, ctx.op = group, dim, op
+        return gather_dim(x, group, dim, op)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (reduce_scatter_group(g, ctx.group, ctx.dim,
+                                     "reduce_scatter_seq_grad"),
+                None, None, None)
+
+
+class _ScatterSeq(torch.autograd.Function):
+    """Forward: the sum over the group, this rank's chunk of ``dim``
+    (reduce_scatter); backward: the ranks' grads of their chunks
+    concatenated (all_gather)."""
+
+    @staticmethod
+    def forward(ctx, x, group, dim, op):
+        ctx.group, ctx.dim = group, dim
+        return reduce_scatter_group(x, group, dim, op)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (gather_dim(g, ctx.group, ctx.dim, "all_gather_seq_grad"),
+                None, None, None)
+
+
+def gather_seq(x: torch.Tensor, group, dim: int = 1,
+               op: str = "all_gather_seq") -> torch.Tensor:
+    """Megatron's f under sequence parallelism: the whole sequence from
+    the ranks' chunks of ``dim`` (one all_gather), whose grad is the sum of
+    the ranks' grads cut back to this rank's chunk (one reduce_scatter).
+    Identity without a group or over one rank."""
+    if group is None or dist.get_world_size(group) == 1:
+        return x
+    return _GatherSeq.apply(x, group, dim, op)
+
+
+def scatter_seq(x: torch.Tensor, group, dim: int = 1,
+                op: str = "reduce_scatter_seq") -> torch.Tensor:
+    """Megatron's g under sequence parallelism: the sum of the ranks'
+    partial ``x`` (a row-parallel product's), of which this rank keeps its
+    chunk of ``dim`` (one reduce_scatter); its grad is the ranks' chunks'
+    grads put together (one all_gather).  Identity without a group or over
+    one rank."""
+    if group is None or dist.get_world_size(group) == 1:
+        return x
+    return _ScatterSeq.apply(x, group, dim, op)
+
+
 def _to_wire32(x: torch.Tensor) -> torch.Tensor:
     """float32 -> its bits, bool -> 0/1, int64 (uint32 values) -> the uint32
     bit pattern: one int32 per element."""
@@ -411,7 +590,8 @@ def scatter_rows(rel: Optional[Relation], capacity: int, mesh,
         dist.scatter(out, chunks, src=0)
         return out.to(device)
     got = _metered("scatter", device,
-                   out.numel() * 4 * (world - 1) if chunks else 0, body)
+                   out.numel() * 4 * (world - 1) if chunks else 0, body,
+                   "scatter", None)
     return Relation(_from_wire32(got[0], torch.int64),
                     _from_wire32(got[1], torch.float32),
                     _from_wire32(got[2], torch.bool))
@@ -433,7 +613,8 @@ def broadcast_from0(x: Optional[torch.Tensor], shape, dtype,
         return w.to(device)
     sent = w.numel() * w.element_size() * (dist.get_world_size() - 1)
     return _metered("broadcast", device,
-                    sent if dist.get_rank() == 0 else 0, body)
+                    sent if dist.get_rank() == 0 else 0, body, "broadcast",
+                    None)
 
 
 def or_reduce(words: torch.Tensor, mesh, axes: Sequence[str]) -> torch.Tensor:
@@ -619,7 +800,8 @@ def dist_prepare_stage(slots: Sequence[Sequence[Relation]], num_blocks: int,
                        bucket_cap: Optional[int] = None,
                        filter_words: Optional[Sequence[torch.Tensor]] = None,
                        filter_stage: bool = True,
-                       merge: str = "gather") -> list:
+                       merge: str = "gather",
+                       use_kernels: bool = False) -> list:
     """Filter build/OR/AND/probe, key shuffle, local sort + group-by, merge:
     one :class:`DistPrepareOut` a slot.
 
@@ -629,6 +811,8 @@ def dist_prepare_stage(slots: Sequence[Sequence[Relation]], num_blocks: int,
     serving engine passes its cached dataset filters.  ``merge='psum'``
     skips the strata gather: ``strata`` / ``population`` are then this
     rank's own strata, with the overflow summed over the ranks.
+    ``use_kernels`` builds and probes the filters through the build and
+    probe kernels (their plain versions on CPU tensors).
     """
     axes = tuple(axes)
     k = mesh_size(mesh, axes)
@@ -638,9 +822,15 @@ def dist_prepare_stage(slots: Sequence[Sequence[Relation]], num_blocks: int,
     totals = [torch.stack([r.count() for r in rels]) for rels in slots]
 
     if filter_stage:
+        if use_kernels:
+            from repro_torch.kernels import ops as kops
+            build, contains = kops.build_filter, (
+                lambda jf, keys: kops.probe_filter(jf.words, keys, jf.seed))
+        else:
+            build, contains = bloom.build, bloom.contains
         if filter_words is None:
-            parts = torch.stack([bloom.build(r.keys, r.valid, num_blocks,
-                                             seed).words
+            parts = torch.stack([build(r.keys, r.valid, num_blocks,
+                                       seed).words
                                  for rels, seed in zip(slots, seeds)
                                  for r in rels])
             merged = or_reduce(parts, mesh, axes)       # [B * n, nb, 8]
@@ -651,7 +841,7 @@ def dist_prepare_stage(slots: Sequence[Sequence[Relation]], num_blocks: int,
             jf = bloom.intersect_all(
                 [bloom.BloomFilter(words[i], seed) for i in range(n_rels)])
             probed.append([Relation(r.keys, r.values,
-                                    r.valid & bloom.contains(jf, r.keys))
+                                    r.valid & contains(jf, r.keys))
                            for r in rels])
         slots = probed
         # the all-gather restatement of the §3.1 (n + 1) filter-exchange
@@ -728,11 +918,26 @@ def dist_exact_stage(preps: Sequence[DistPrepareOut], mesh,
     return out
 
 
+def _sample(p: DistPrepareOut, b_local: torch.Tensor, b_max: int, seed,
+            f, expr: Optional[str]) -> SampleResult:
+    """This rank's draws over its strata: the sampler kernel (its plain
+    version on CPU tensors) for a two-way join of the named ``expr``, else
+    :func:`sample_edges` with ``f``."""
+    if expr is None or len(p.sorted_rels) != 2:
+        return sample_edges(p.sorted_rels, p.local_strata, b_local, b_max,
+                            seed, f)
+    from repro_torch.core.join import _kernel_sample_result
+    from repro_torch.kernels import ops as kops
+    return _kernel_sample_result(kops.sample_stats(
+        p.sorted_rels, p.local_strata, b_local, b_max, seed, expr))
+
+
 def dist_sample_stage(preps: Sequence[DistPrepareOut],
                       b_merged: Sequence[torch.Tensor], b_max: int,
                       seeds: Sequence, mesh, axes: Sequence[str], *,
                       agg: str = "sum", dedup: bool = False,
-                      confidence: float = 0.95, f_fn=None) -> list:
+                      confidence: float = 0.95, f_fn=None,
+                      kernel_expr: Optional[str] = None) -> list:
     """Stages 4-6: local draws, merged statistics, canonical finish;
     ``(value, err, cnt, dof, merged stats)`` a slot.
 
@@ -740,7 +945,8 @@ def dist_sample_stage(preps: Sequence[DistPrepareOut],
     ``[S]`` layout (the array a single-device driver decides); each rank
     takes its strata's sizes by key.  Draws are keyed on the join key, so
     the owning rank reproduces the single-device per-stratum statistics
-    exactly.
+    exactly.  ``kernel_expr`` (not with ``dedup``) draws through the
+    sampler kernel (``_sample``).
     """
     S = preps[0].strata.keys.shape[0]
     f = EXPRS["sum"][0] if f_fn is None else f_fn
@@ -748,8 +954,7 @@ def dist_sample_stage(preps: Sequence[DistPrepareOut],
     for p, b, seed in zip(preps, b_merged, seeds):
         b_local = merged_to_local(p.strata.keys, p.local_strata,
                                   b.to(torch.float32))
-        sample = sample_edges(p.sorted_rels, p.local_strata, b_local, b_max,
-                              seed, f)
+        sample = _sample(p, b_local, b_max, seed, f, kernel_expr)
         st = sample.stats
         fields.append([st.valid, st.population, st.n_sampled, st.sum_f,
                        st.sum_f2, sample.unique_f, sample.unique_count])
@@ -799,18 +1004,19 @@ def dist_sample_stage_psum(preps: Sequence[DistPrepareOut],
                            b_local: Sequence[torch.Tensor], b_max: int,
                            seeds: Sequence, mesh, axes: Sequence[str], *,
                            agg: str = "sum", dedup: bool = False,
-                           confidence: float = 0.95, f_fn=None) -> list:
+                           confidence: float = 0.95, f_fn=None,
+                           kernel_expr: Optional[str] = None) -> list:
     """Stages 4-6, paper dataflow (§3.3-III): local draws, summed parts;
     ``(value, err, cnt, dof, this rank's stats)`` a slot.
 
     ``b_local`` is each slot's per-stratum budget in THIS rank's slot
     layout.  Every estimator is a sum of per-stratum terms and strata are
     rank-complete, so the merge is one all_reduce of the sufficient parts,
-    all the slots' together.
+    all the slots' together.  ``kernel_expr`` as in
+    :func:`dist_sample_stage`.
     """
     f = EXPRS["sum"][0] if f_fn is None else f_fn
-    samples = [sample_edges(p.sorted_rels, p.local_strata,
-                            b.to(torch.float32), b_max, seed, f)
+    samples = [_sample(p, b.to(torch.float32), b_max, seed, f, kernel_expr)
                for p, b, seed in zip(preps, b_local, seeds)]
     parts = []
     for sample in samples:
@@ -857,7 +1063,8 @@ def make_distributed_join(mesh, *, n_rels: int,
                           confidence: float = 0.95,
                           num_blocks: Optional[int] = None,
                           merge: str = "gather",     # 'gather' | 'psum'
-                          seed: int = 0):
+                          seed: int = 0,
+                          use_kernels: bool = False):
     """The per-rank join over ``mesh``: every rank calls the returned
     ``run(local_rels, d_dt=0.0)`` with its own block of ``n_rels``
     relations (``core.relation.shard_to_mesh``) and gets the same
@@ -866,6 +1073,9 @@ def make_distributed_join(mesh, *, n_rels: int,
 
     ``merge='gather'`` equals the single-device pipeline bit for bit;
     ``merge='psum'`` is the paper's partial-aggregate merge.
+    ``use_kernels`` routes the filter build, the probe and the (two-way)
+    sampler through the three kernels, as ``approx_join`` does; on CPU
+    tensors their plain versions run.
     """
     axes = tuple(join_axes)
     k = mesh_size(mesh, axes)
@@ -883,7 +1093,8 @@ def make_distributed_join(mesh, *, n_rels: int,
         S = max_strata or k * (bucket_cap or max(2 * local_n // k, 8))
         prep, = dist_prepare_stage([rels], num_blocks, S, [seed], mesh,
                                    axes, bucket_cap=bucket_cap,
-                                   filter_stage=filter_stage, merge=merge)
+                                   filter_stage=filter_stage, merge=merge,
+                                   use_kernels=use_kernels)
         live_total = prep.live_counts.sum().to(torch.float32)
         input_total = prep.total_counts.sum().to(torch.float32)
         # psum merge: population is per-rank, so the global total sums
@@ -921,20 +1132,21 @@ def make_distributed_join(mesh, *, n_rels: int,
             raise ValueError("sample mode needs a fraction or a budget")
 
         # --- stage 5: sample during join + merge (§3.3/§3.4) ---
+        kexpr = expr if use_kernels else None
         if merge == "psum":
             # size b_i off each rank's own strata: every local stratum
             # gets its budget (no global-[S] cut)
             b_local = _pilot_sizes(prep.local_strata.population, s)
             (value, err, cnt, dof, st), = dist_sample_stage_psum(
                 [prep], [b_local], b_max, [seed + 1], mesh, axes, agg="sum",
-                confidence=confidence, f_fn=f_fn)
+                confidence=confidence, f_fn=f_fn, kernel_expr=kexpr)
             return DistJoinResult(value, err, cnt, dof,
                                   sample_draws=psum(st.n_sampled.sum(), mesh,
                                                     axes), **meters)
         b_merged = _pilot_sizes(prep.population, s)
         (value, err, cnt, dof, mstats), = dist_sample_stage(
             [prep], [b_merged], b_max, [seed + 1], mesh, axes, agg="sum",
-            dedup=False, confidence=confidence, f_fn=f_fn)
+            dedup=False, confidence=confidence, f_fn=f_fn, kernel_expr=kexpr)
         return DistJoinResult(value, err, cnt, dof,
                               sample_draws=mstats.n_sampled.sum(), **meters)
 

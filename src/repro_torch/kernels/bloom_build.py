@@ -31,7 +31,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, traffic
 from repro_torch.kernels.ref import bloom_build_ref, bloom_hashes_ref
 
 __all__ = ["bloom_build_batched", "bloom_hashes_batched", "bloom_build_ref",
@@ -69,6 +69,8 @@ def bloom_build_batched(keys: torch.Tensor, valid: torch.Tensor,
         rc = fn(keys.data_ptr(), valid.data_ptr(), seeds.data_ptr(),
                 words.data_ptr(), B, n, num_blocks, _build.stream(dev))
     bloom_build_batched.launches += 1
+    traffic.record("bloom_build",
+                   lambda: traffic.bloom_build_bytes(B, n, num_blocks))
     _build.check(rc, "bloom_build")
     return words
 

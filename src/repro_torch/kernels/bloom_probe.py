@@ -26,7 +26,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, traffic
 from repro_torch.kernels.ref import bloom_probe_ref
 
 __all__ = ["bloom_probe_batched", "bloom_probe_ref"]
@@ -58,6 +58,8 @@ def bloom_probe_batched(words: torch.Tensor, keys: torch.Tensor,
         rc = fn(words.data_ptr(), keys.data_ptr(), seeds.data_ptr(),
                 out.data_ptr(), B, n, nb, _build.stream(dev))
     bloom_probe_batched.launches += 1
+    traffic.record("bloom_probe",
+                   lambda: traffic.bloom_probe_bytes(B, n, nb))
     _build.check(rc, "bloom_probe")
     return out
 

@@ -31,7 +31,7 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, traffic
 from repro_torch.kernels.ref import edge_sample_ref
 
 __all__ = ["edge_sample_batched", "edge_sample_ref"]
@@ -91,6 +91,9 @@ def edge_sample_batched(values1: torch.Tensor, values2: torch.Tensor,
                 int(expr == "product"), out[0].data_ptr(), out[1].data_ptr(),
                 out[2].data_ptr(), scratch.data_ptr(), _build.stream(dev))
     edge_sample_batched.launches += 1
+    traffic.record("edge_sample", lambda: traffic.edge_sample_bytes(
+        B, S, traffic.edge_sample_gathered(out[0], (count1, count2),
+                                           joinable)))
     _build.check(rc, "edge_sample")
     return out[0], out[1], out[2]
 

@@ -15,6 +15,12 @@ for the CPU, and ``gloo`` over card tensors only when the caller asks for it
 backend that was asked for; nothing switches to another one.  Rank ``r``
 takes ``cuda:{r % device_count}``.
 
+A dry run (``launch/dryrun.py``, ``launch/dryrun_join.py``) plays rank 0
+of a production mesh in one process: :func:`fake_ranks` starts torch's
+``fake`` backend, whose collectives return at once and move nothing, so
+one rank's program runs, and is metered, as it would at 256 or 512 ranks.
+Nothing else starts that backend.
+
 Defined as functions, so importing this module starts no process and
 touches no device.
 """
@@ -29,6 +35,7 @@ import signal
 import tempfile
 import time
 import traceback
+from contextlib import contextmanager
 from typing import Callable, Optional, Sequence
 
 import torch
@@ -105,6 +112,31 @@ def check_group_order(mesh) -> None:
             raise RuntimeError(f"mesh: dim {name!r} groups ranks {got} "
                                f"(this rank {dist.get_rank(group)}), the "
                                f"mesh says {want} (index {coord[i]})")
+
+
+@contextmanager
+def fake_ranks(world: int):
+    """Rank 0 of ``world`` ranks on torch's ``fake`` backend, for the
+    block; the group is destroyed on the way out.  Its collectives check
+    shapes and return without moving a byte (their outputs are left as
+    they were), so a dry run meters rank 0's program at the size of a
+    cluster.  Raises if a default group exists, and names the module when
+    this torch lacks the backend: nothing switches to another one."""
+    if dist.is_initialized():
+        raise RuntimeError("fake_ranks: a default process group already "
+                           "exists")
+    try:
+        from torch.testing._internal.distributed.fake_pg import FakeStore
+    except ImportError as e:
+        raise RuntimeError("fake_ranks: this torch has no "
+                           "torch.testing._internal.distributed.fake_pg "
+                           f"({e}); a dry run needs its fake backend") from e
+    dist.init_process_group("fake", store=FakeStore(), rank=0,
+                            world_size=world)
+    try:
+        yield
+    finally:
+        dist.destroy_process_group()
 
 
 def _mesh(shape: Sequence[int], names: Sequence[str]):

@@ -22,6 +22,12 @@ heads' keys and values of the encoder states; the decode cache keeps
 built once from the gathered weights (``layers.cross_kv(whole=True)``), and
 its self-attention caches hold ``S / tp`` positions each
 (``layers.attention_decode``).
+
+Under the ``seq`` rule each stack whose sequence divides the model dim runs
+sequence parallel (``sp``, ``layers``): the decoder over its tokens, the
+encoder over its frames (1,500 frames do not divide 16 and stay whole).
+The decoder's cross-attention takes the encoder states whole: gathered
+once (``gather_seq``) from a sequence-parallel encoder.
 """
 
 from __future__ import annotations
@@ -31,6 +37,7 @@ from typing import NamedTuple
 import torch
 from torch import nn
 
+from repro_torch.core.distributed import gather_seq
 from repro_torch.models import layers as L
 
 
@@ -62,41 +69,56 @@ def init_encdec(init, cfg) -> L.Params:
     )
 
 
-def encode(p, frames, cfg) -> torch.Tensor:
-    """frames [B, F, d_input] -> encoder states [B, F, d]."""
+def encode(p, frames, cfg, sp=None) -> torch.Tensor:
+    """frames [B, F, d_input] -> encoder states [B, F, d]: this rank's
+    chunk of the frames under sequence parallelism (``sp``)."""
     B, F, _ = frames.shape
-    x = frames.to(L.COMPUTE_DTYPE) @ p["frame_proj"].to(L.COMPUTE_DTYPE)
-    x = x + L.sinusoidal_embedding(
-        torch.arange(F, dtype=torch.int32, device=frames.device),
-        cfg.d_model).to(x.dtype)
+    pos = torch.arange(F, dtype=torch.int32, device=frames.device)
+    if sp is not None:
+        n = F // sp.size
+        frames = frames.narrow(1, sp.rank * n, n)
+        pos = pos.narrow(0, sp.rank * n, n)
+    ps = L.seq_params(p, sp)
+    x = frames.to(L.COMPUTE_DTYPE) @ ps["frame_proj"].to(L.COMPUTE_DTYPE)
+    x = x + L.sinusoidal_embedding(pos, cfg.d_model).to(x.dtype)
     for bp in p["enc_blocks"]:
-        x = L.remat(cfg, _enc_layer, bp, x, cfg)
-    return L.layernorm(p["enc_norm"], x, cfg.norm_eps)
+        x = L.remat(cfg, _enc_layer, bp, x, cfg, sp)
+    return L.layernorm(ps["enc_norm"], x, cfg.norm_eps)
 
 
-def _enc_layer(bp, x, cfg):
-    h = L.layernorm(bp["pre_attn"], x, cfg.norm_eps)
-    x = x + L.attention_train(bp["attn"], h, cfg, kind="full")
-    h = L.layernorm(bp["pre_mlp"], x, cfg.norm_eps)
-    return x + L.mlp(bp["mlp"], h, cfg)
+def _enc_layer(bp, x, cfg, sp=None):
+    norms = L.seq_params(bp, sp)
+    h = L.layernorm(norms["pre_attn"], x, cfg.norm_eps)
+    x = x + L.attention_train(bp["attn"], h, cfg, kind="full", sp=sp)
+    h = L.layernorm(norms["pre_mlp"], x, cfg.norm_eps)
+    return x + L.mlp(bp["mlp"], h, cfg, sp)
 
 
-def decode_train(p, x, enc_out, cfg, positions) -> torch.Tensor:
-    """Teacher-forced decoder pass: x [B, T, d] token embeddings."""
+def decode_train(p, x, enc_out, cfg, positions, sp=None,
+                 enc_sp=None) -> torch.Tensor:
+    """Teacher-forced decoder pass: x [B, T, d] token embeddings (this
+    rank's chunk of them under ``sp``); ``enc_out`` this rank's chunk of
+    the encoder states when the encoder ran under ``enc_sp``."""
+    gathered = enc_sp is not None
+    if gathered:
+        enc_out = gather_seq(enc_out, enc_sp.group)
     for bp in p["dec_blocks"]:
-        x = L.remat(cfg, _dec_layer, bp, x, enc_out, cfg, positions)
+        x = L.remat(cfg, _dec_layer, bp, x, enc_out, cfg, positions, sp,
+                    gathered)
     return x
 
 
-def _dec_layer(bp, x, enc_out, cfg, positions):
-    h = L.layernorm(bp["pre_self"], x, cfg.norm_eps)
+def _dec_layer(bp, x, enc_out, cfg, positions, sp=None, gathered=False):
+    norms = L.seq_params(bp, sp)
+    h = L.layernorm(norms["pre_self"], x, cfg.norm_eps)
     x = x + L.attention_train(bp["self_attn"], h, cfg, kind="causal",
-                              positions=positions)
-    h = L.layernorm(bp["pre_cross"], x, cfg.norm_eps)
-    kv = L.cross_kv(bp["cross_attn"], enc_out, cfg)
-    x = x + L.attention_train(bp["cross_attn"], h, cfg, kind="cross", kv=kv)
-    h = L.layernorm(bp["pre_mlp"], x, cfg.norm_eps)
-    return x + L.mlp(bp["mlp"], h, cfg)
+                              positions=positions, sp=sp)
+    h = L.layernorm(norms["pre_cross"], x, cfg.norm_eps)
+    kv = L.cross_kv(bp["cross_attn"], enc_out, cfg, sp=sp, gathered=gathered)
+    x = x + L.attention_train(bp["cross_attn"], h, cfg, kind="cross", kv=kv,
+                              sp=sp)
+    h = L.layernorm(norms["pre_mlp"], x, cfg.norm_eps)
+    return x + L.mlp(bp["mlp"], h, cfg, sp)
 
 
 class EncDecCache(NamedTuple):

@@ -23,6 +23,20 @@ row-parallel bias added after it.  The attention itself runs unchanged on
 the local heads; whisper's cross-attention takes the encoder states'
 keys and values of the local heads (``cross_kv``).
 
+Sequence parallelism (where the ``seq`` rule cuts the sequence over the
+``model`` dim, ``sharding.specs.seq_axis``), Megatron's: between the
+layers a rank holds its chunk ``[B, T / tp, d]`` of the residual stream,
+and the norms run on it.  Where a layer's weights shard, f becomes an
+all_gather of the sequence (``gather_seq``, its grad a reduce_scatter) and
+g a reduce_scatter (``scatter_seq``, its grad an all_gather), so the
+layer's own work is the tensor-parallel one.  Where they do not (heads or
+``ff`` that do not divide the dim), the layer works on the rank's chunk:
+an attention's queries are its chunk's, against the keys and values of
+the whole sequence (one all_gather of its input), and an MLP is pointwise.
+A replicated parameter used on a chunk (the norms' scales, such layers'
+weights, a bias added after g) reads through ``seq_params``: its grad is
+summed over the dim (``copy_to_group``).
+
 Decode on a sharded model (``attention_decode``) reads a cache whose
 ``k``/``v`` a rank holds ``S / tp`` positions of, for every kv head (the
 ``kv_seq`` rule, flash-decode sequence parallelism; it holds where the kv
@@ -46,7 +60,8 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core.distributed import (all_reduce, copy_to_group,
-                                          gather_group, reduce_from_group)
+                                          gather_group, gather_seq,
+                                          reduce_from_group, scatter_seq)
 from repro_torch.sharding.specs import current_binding, model_axis, rebind
 
 COMPUTE_DTYPE = torch.bfloat16
@@ -97,6 +112,30 @@ class Init:
     def full(self, shape, value: float) -> torch.Tensor:
         return torch.full(shape, value, dtype=torch.float32,
                           device=self.device)
+
+
+class _SeqParams:
+    """``seq_params``' view of a layer's parameters."""
+
+    def __init__(self, p, group):
+        self.p, self.group = p, group
+
+    def __getitem__(self, name: str):
+        v = self.p[name]
+        if isinstance(v, nn.Module):
+            return _SeqParams(v, self.group)
+        return copy_to_group(v, self.group)
+
+    def __contains__(self, name: str) -> bool:
+        return name in self.p
+
+
+def seq_params(p, sp):
+    """``p`` (a layer's ``Params``) read on this rank's chunk of the
+    sequence: each parameter read goes through ``copy_to_group`` over
+    ``sp``'s group, so its grad is the sum of the ranks'.  ``p`` itself
+    without sequence parallelism (``sp`` None)."""
+    return p if sp is None else _SeqParams(p, sp.group)
 
 
 def remat(cfg, fn, *args):
@@ -215,16 +254,20 @@ def _tp_heads(p, cfg):
     return (model_axis() if H_l < cfg.n_heads else None), H_l, Hk_l
 
 
-def _project_qkv(p, x, cfg, positions, expand: bool = True):
+def _project_qkv(p, x, cfg, positions, expand: bool = True,
+                 gathered: bool = False):
     """(q, k, v) of the local heads, roped.  Where the kv heads are whole
     and the heads shard, k and v hold each local head's own kv group
-    (``expand``) or every kv head (not ``expand``, for the decode cache)."""
+    (``expand``) or every kv head (not ``expand``, for the decode cache).
+    ``x`` enters through f, unless it is ``gathered`` (``gather_seq``'s,
+    whose grad is already summed)."""
     B, T, _ = x.shape
     H, Hk, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
     c = COMPUTE_DTYPE
     tp, H_l, Hk_l = _tp_heads(p, cfg)
     group = None if tp is None else tp.group
-    x = copy_to_group(x, group)
+    if not gathered:
+        x = copy_to_group(x, group)
     kv_rep = tp is not None and Hk_l == Hk   # kv heads whole, heads split
 
     def kv(name):       # a replicated kv leaf, used on the local heads
@@ -271,12 +314,13 @@ def _local_kv(p, k, v, cfg):
     return _head_groups(k, v, tp, H_l, cfg)
 
 
-def _out_proj(p, out, cfg):
+def _out_proj(p, out, cfg, seq: bool = False):
     """``out @ wo``; summed over the model dim when ``wo`` holds a shard of
-    the heads."""
+    the heads (and cut to this rank's chunk of the sequence when ``seq``)."""
     tp = _tp_heads(p, cfg)[0]
     y = out @ p["wo"].to(COMPUTE_DTYPE)
-    return reduce_from_group(y, None if tp is None else tp.group)
+    group = None if tp is None else tp.group
+    return scatter_seq(y, group) if seq else reduce_from_group(y, group)
 
 
 def _sdpa(q, k, v, mask, cfg):
@@ -333,47 +377,111 @@ def _chunked_sdpa(q, k, v, pos_q, pos_k, kind: str, cfg,
         COMPUTE_DTYPE)
 
 
+def _mask(pos_q, pos_k, kind: str, cfg) -> torch.Tensor:
+    """[B?, T, S] bool: which keys each query attends to."""
+    i = pos_q[:, :, None]
+    j = pos_k[:, None, :]
+    if kind == "causal":
+        return j <= i
+    if kind == "local":
+        return (j <= i) & (j > i - cfg.window)
+    if kind == "full":
+        return torch.ones_like(j <= i)
+    raise ValueError(kind)
+
+
+def _attend(q, k, v, pos_q, pos_k, kind: str, cfg, T: int):
+    """The attention of ``q`` over ``k``/``v`` at these positions, chunked
+    where ``attn_chunk`` divides a longer sequence of ``T``."""
+    B = q.shape[0]
+    chunk = cfg.attn_chunk
+    if chunk and T % chunk == 0 and T > chunk:
+        return _chunked_sdpa(q, k, v, pos_q.expand(B, -1),
+                             pos_k.expand(B, -1), kind, cfg, chunk)
+    return _sdpa(q, k, v, _mask(pos_q, pos_k, kind, cfg), cfg)
+
+
 def attention_train(p, x, cfg, *, kind: str, positions=None,
-                    kv: Optional[tuple] = None) -> torch.Tensor:
+                    kv: Optional[tuple] = None, sp=None) -> torch.Tensor:
     """Full-sequence attention.  kind: 'causal' | 'local' | 'full' | 'cross'.
 
     ``kv`` (pre-projected k, v) is used for cross-attention (whisper decoder
-    over encoder states)."""
+    over encoder states).  Under sequence parallelism (``sp``, the model
+    dim) ``x`` and the output are this rank's chunk of the sequence and
+    ``positions`` the whole sequence's (module docstring)."""
     B, T, _ = x.shape
+    if sp is not None:
+        T = T * sp.size
+        if _tp_heads(p, cfg)[0] is None:
+            return _attention_chunk(p, x, cfg, kind, positions, kv, sp)
+        x = gather_seq(x, sp.group)
     if positions is None:
         positions = torch.arange(T, dtype=torch.int32, device=x.device)[None]
+    seq = sp is not None
     if kind == "cross":
         assert kv is not None
         k, v = _local_kv(p, *kv, cfg)
-        q = _project_qkv(p, x, cfg, positions)[0]
+        q = _project_qkv(p, x, cfg, positions, gathered=seq)[0]
         mask = torch.ones((B, T, k.shape[1]), dtype=torch.bool,
                           device=x.device)
-        return _out_proj(p, _sdpa(q, k, v, mask, cfg), cfg)
-    q, k, v = _project_qkv(p, x, cfg, positions)
-    chunk = cfg.attn_chunk
-    if chunk and T % chunk == 0 and T > chunk:
-        pos = positions.expand(B, T)
-        out = _chunked_sdpa(q, k, v, pos, pos, kind, cfg, chunk)
-        return _out_proj(p, out, cfg)
-    i = positions[:, :, None]
-    j = positions[:, None, :]
-    if kind == "causal":
-        mask = j <= i
-    elif kind == "local":
-        mask = (j <= i) & (j > i - cfg.window)
-    elif kind == "full":
-        mask = torch.ones((B, T, T), dtype=torch.bool, device=x.device)
-    else:
-        raise ValueError(kind)
-    return _out_proj(p, _sdpa(q, k, v, mask, cfg), cfg)
+        return _out_proj(p, _sdpa(q, k, v, mask, cfg), cfg, seq)
+    q, k, v = _project_qkv(p, x, cfg, positions, gathered=seq)
+    return _out_proj(p, _attend(q, k, v, positions, positions, kind, cfg, T),
+                     cfg, seq)
 
 
-def cross_kv(p, enc_out, cfg, whole: bool = False):
+def _attention_chunk(p, x, cfg, kind, positions, kv, sp) -> torch.Tensor:
+    """``attention_train`` under sequence parallelism where the heads do
+    not shard: this rank's chunk's queries against the keys and values of
+    the whole sequence (one all_gather of ``x``; a cross-attention's come
+    whole from ``kv``), every parameter replicated and read through
+    ``seq_params``."""
+    B, T_l, _ = x.shape
+    T = T_l * sp.size
+    c = COMPUTE_DTYPE
+    H, Hk, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    ps = seq_params(p, sp)
+    if positions is None:
+        positions = torch.arange(T, dtype=torch.int32, device=x.device)[None]
+    pos_q = positions[:, sp.rank * T_l:(sp.rank + 1) * T_l]
+    q = x @ ps["wq"].to(c)
+    if cfg.qkv_bias:
+        q = q + ps["bq"].to(c)
+    q = q.reshape(B, T_l, H, hd)
+    if cfg.qk_norm:
+        q = rmsnorm(ps["q_norm"], q, cfg.norm_eps)
+    q = rope(q, pos_q, cfg.rope_theta)
+    if kind == "cross":
+        k, v = kv
+        mask = torch.ones((B, T_l, k.shape[1]), dtype=torch.bool,
+                          device=x.device)
+        return _sdpa(q, k, v, mask, cfg) @ ps["wo"].to(c)
+    x_all = gather_seq(x, sp.group)
+    k = x_all @ ps["wk"].to(c)
+    v = x_all @ ps["wv"].to(c)
+    if cfg.qkv_bias:
+        k = k + ps["bk"].to(c)
+        v = v + ps["bv"].to(c)
+    k = k.reshape(B, T, Hk, hd)
+    v = v.reshape(B, T, Hk, hd)
+    if cfg.qk_norm:
+        k = rmsnorm(ps["k_norm"], k, cfg.norm_eps)
+    k = rope(k, positions, cfg.rope_theta)
+    out = _attend(q, k, v, pos_q, positions, kind, cfg, T)
+    return out @ ps["wo"].to(c)
+
+
+def cross_kv(p, enc_out, cfg, whole: bool = False, sp=None,
+             gathered: bool = False):
     """Pre-project encoder states for decoder cross-attention: the kv heads
     ``wk``/``wv`` hold (this rank's where they shard), or every kv head
     (``whole``, the decode cache's layout: one all_gather of the two
     weights' shards, cheaper than one of the [B, F] products once
-    B F > 2 d)."""
+    B F > 2 d).  Under the decoder's sequence parallelism (``sp``) where
+    the heads do not shard, a rank's queries use the keys for its chunk
+    only: the weights, and states whole on every rank, enter through f
+    over ``sp``.  ``gathered`` states (``gather_seq``'s) carry their own
+    grad sum."""
     B, S, _ = enc_out.shape
     c = COMPUTE_DTYPE
     tp, _, Hk_l = _tp_heads(p, cfg)
@@ -384,7 +492,10 @@ def cross_kv(p, enc_out, cfg, whole: bool = False):
         Hk_l = cfg.n_kv_heads
     elif tp is not None and Hk_l == cfg.n_kv_heads:
         wk, wv = copy_to_group(wk, group), copy_to_group(wv, group)
-    enc = enc_out if whole else copy_to_group(enc_out, group)
+    elif tp is None and sp is not None:
+        group = sp.group
+        wk, wv = copy_to_group(wk, group), copy_to_group(wv, group)
+    enc = enc_out if whole or gathered else copy_to_group(enc_out, group)
     k = (enc @ wk.to(c)).reshape(B, S, Hk_l, cfg.hd)
     v = (enc @ wv.to(c)).reshape(B, S, Hk_l, cfg.hd)
     return k, v
@@ -492,19 +603,30 @@ def init_mlp(init: Init, cfg) -> Params:
                   wd=init.dense((ff, d)), bd=init.zeros((d,)))
 
 
-def mlp(p, x, cfg) -> torch.Tensor:
+def mlp(p, x, cfg, sp=None) -> torch.Tensor:
     """The dense feed-forward; column- then row-parallel over the model dim
-    when ``wd`` holds a shard of ``ff``."""
+    when ``wd`` holds a shard of ``ff``.  Under sequence parallelism
+    (``sp``) ``x`` and the output are this rank's chunk of the sequence
+    (module docstring)."""
     c = COMPUTE_DTYPE
     tp = model_axis() if p["wd"].shape[0] < cfg.d_ff else None
     group = None if tp is None else tp.group
-    x = copy_to_group(x, group)
+    if sp is None:
+        x = copy_to_group(x, group)
+        g = reduce_from_group
+    elif tp is None:                     # pointwise on this rank's chunk
+        p = seq_params(p, sp)
+        g = reduce_from_group
+    else:
+        x = gather_seq(x, group)
+        g = scatter_seq
     if cfg.ff_kind == "swiglu":
-        return reduce_from_group((F.silu(x @ p["wg"].to(c)) *
-                                  (x @ p["wu"].to(c))) @ p["wd"].to(c), group)
+        return g((F.silu(x @ p["wg"].to(c)) * (x @ p["wu"].to(c)))
+                 @ p["wd"].to(c), group)
     if cfg.ff_kind == "geglu":
-        return reduce_from_group((F.gelu(x @ p["wg"].to(c), approximate="tanh")
-                                  * (x @ p["wu"].to(c))) @ p["wd"].to(c),
-                                 group)
+        return g((F.gelu(x @ p["wg"].to(c), approximate="tanh")
+                  * (x @ p["wu"].to(c))) @ p["wd"].to(c), group)
     h = F.gelu(x @ p["wu"].to(c) + p["bu"].to(c), approximate="tanh")
-    return reduce_from_group(h @ p["wd"].to(c), group) + p["bd"].to(c)
+    # a bias added after g is used on this rank's chunk under sp
+    bd = p["bd"] if sp is None or tp is None else seq_params(p, sp)["bd"]
+    return g(h @ p["wd"].to(c), group) + bd.to(c)

@@ -20,6 +20,15 @@ attention and MLP layers (``layers``), the Mamba mixer over ``d_inner``
 (``ssm``), the RG-LRU mixer over ``lru`` (``rglru``), whisper's stacks
 (``encdec``).
 
+Under the ``seq`` rule (``sharding.specs.seq_axis``) a sequence that divides
+the model dim runs sequence parallel (``layers``): the vocab-parallel
+lookup ends in a reduce_scatter to this rank's chunk of the sequence (a
+whole table looks up the chunk's tokens), and the head, whose logits the
+rule lays out as seq chunks over the whole vocabulary ("a mesh axis appears
+once per spec: its first use wins"), ends in one all_to_all from vocab
+slices to seq chunks.  The loss is then each chunk's mean, averaged over
+the dim.
+
 Under a binding ``init_cache`` allocates only this rank's shard of the
 decode cache (``sharding.specs.cache_specs``: ``k``/``v`` hold ``S / tp``
 positions of every kv head, the recurrent states the local channels, the
@@ -37,14 +46,16 @@ import torch
 from torch import nn
 
 from repro_torch.core.distributed import (all_gather, all_reduce,
-                                          copy_to_group, reduce_from_group)
+                                          copy_to_group, exchange_grad,
+                                          gather_dim, gather_seq,
+                                          reduce_from_group, scatter_seq)
 from repro_torch.models import encdec as ED
 from repro_torch.models import layers as L
 from repro_torch.models import trunk as TR
 from repro_torch.models.config import ArchConfig
 from repro_torch.sharding.specs import (cache_sharding, current_binding,
                                         cut_cache, local_shape, model_axis,
-                                        shard_hint)
+                                        seq_axis, shard_hint)
 
 Z_LOSS_WEIGHT = 1e-4
 MOE_AUX_WEIGHT = 1e-2
@@ -100,58 +111,85 @@ class Model(nn.Module):
         V_l = self.embed.shape[0]
         return (model_axis() if V_l < self.cfg.vocab else None), V_l
 
-    def _embed(self, tokens):
+    def _embed(self, tokens, sp=None):
+        """The tokens' embeddings: this rank's chunk of the sequence under
+        sequence parallelism (``sp``)."""
         cfg = self.cfg
         tp, V_l = self._vocab_axis()
         if tp is None:
-            x = self.embed[tokens].to(L.COMPUTE_DTYPE)
+            table = self.embed
+            if sp is not None:
+                n = tokens.shape[1] // sp.size
+                tokens = tokens[:, sp.rank * n:(sp.rank + 1) * n]
+                table = copy_to_group(table, sp.group)
+            x = table[tokens].to(L.COMPUTE_DTYPE)
         else:
             t = tokens.long() - tp.rank * V_l
             mine = (t >= 0) & (t < V_l)
             x = (self.embed[t.clamp(0, V_l - 1)] * mine[..., None]).to(
                 L.COMPUTE_DTYPE)
-            x = reduce_from_group(x, tp.group)
+            x = reduce_from_group(x, tp.group) if sp is None \
+                else scatter_seq(x, tp.group)
         if cfg.scale_embed:
             x = x * torch.sqrt(torch.tensor(cfg.d_model, dtype=L.COMPUTE_DTYPE,
                                             device=x.device))
         return x
 
-    def _final_norm(self, x):
+    def _final_norm(self, x, sp=None):
         cfg = self.cfg
-        return (L.layernorm(self.final_norm, x, cfg.norm_eps)
-                if cfg.family == "audio"
-                else L.rmsnorm(self.final_norm, x, cfg.norm_eps))
+        p = L.seq_params(self.final_norm, sp)
+        return (L.layernorm(p, x, cfg.norm_eps) if cfg.family == "audio"
+                else L.rmsnorm(p, x, cfg.norm_eps))
 
-    def _logits(self, x):
+    def _logits(self, x, sp=None):
         """float32 logits: this rank's vocabulary slice when the table is
-        sharded."""
+        sharded; under sequence parallelism (``sp``) this rank's chunk of
+        the sequence over the whole vocabulary."""
         cfg = self.cfg
         tp = self._vocab_axis()[0]
         head = self.embed.T if cfg.tie_embeddings else self.head
-        x = copy_to_group(x, None if tp is None else tp.group)
+        if sp is None:
+            x = copy_to_group(x, None if tp is None else tp.group)
+        elif tp is None:
+            head = copy_to_group(head, sp.group)
+        else:
+            x = gather_seq(x, sp.group)
         logits = x @ head.to(L.COMPUTE_DTYPE)
         logits = L.softcap(logits.float(), cfg.logit_softcap)
+        if sp is not None and tp is not None:     # vocab slices -> seq chunks
+            logits = exchange_grad(logits, tp.group, 1, 2, "all_to_all_logits")
+        T = logits.shape[1] * (1 if sp is None else sp.size)
         return shard_hint(logits, ("batch", "seq", "vocab"),
-                          (*logits.shape[:-1], cfg.vocab))
+                          (logits.shape[0], T, cfg.vocab))
 
     # --- forward (train / prefill) -------------------------------------------
 
     def forward(self, batch: dict, gather: bool = False) -> tuple:
         """-> (logits over token positions [B, T, V], aux dict).  On a
-        vocab-sharded model the logits are this rank's [B, T, V / tp] slice
-        unless ``gather`` asks for all of them (which carry no grad)."""
+        vocab-sharded model the logits are this rank's [B, T, V / tp] slice,
+        under sequence parallelism its [B, T / tp, V] chunk, unless
+        ``gather`` asks for all of them (which carry no grad)."""
         cfg = self.cfg
         tokens = batch["tokens"]
         B, T = tokens.shape
         dev = tokens.device
-        x = self._embed(tokens)
+        sp = seq_axis(T)
+        if sp is not None and cfg.num_img_tokens:
+            raise NotImplementedError("sequence parallelism with image "
+                                      "tokens has no layout yet")
+        x = self._embed(tokens, sp)
         aux: dict = {}
         if cfg.is_encdec:
-            enc_out = ED.encode(self.encdec, batch["frames"], cfg)
+            frames = batch["frames"]
+            # the encoder cuts its frames only beside a cut decoder
+            enc_sp = None if sp is None else seq_axis(frames.shape[1])
+            enc_out = ED.encode(self.encdec, frames, cfg, enc_sp)
             pos = torch.arange(T, dtype=torch.int32, device=dev)[None, :]
-            x = x + L.sinusoidal_embedding(pos[0], cfg.d_model
-                                           ).to(x.dtype)[None]
-            x = ED.decode_train(self.encdec, x, enc_out, cfg, pos)
+            lo = 0 if sp is None else sp.rank * x.shape[1]
+            x = x + L.sinusoidal_embedding(pos[0, lo:lo + x.shape[1]],
+                                           cfg.d_model).to(x.dtype)[None]
+            x = ED.decode_train(self.encdec, x, enc_out, cfg, pos, sp,
+                                enc_sp)
         else:
             P_img = 0
             if cfg.num_img_tokens:
@@ -159,14 +197,17 @@ class Model(nn.Module):
                 x = torch.cat(
                     [img @ self.img_proj.to(L.COMPUTE_DTYPE), x], dim=1)
                 P_img = cfg.num_img_tokens
-            pos = torch.arange(x.shape[1], dtype=torch.int32, device=dev)
-            pos = pos[None, :].expand(B, x.shape[1])
-            x, aux = TR.trunk_train(self.trunk, x, cfg, pos)
+            n = x.shape[1] * (1 if sp is None else sp.size)
+            pos = torch.arange(n, dtype=torch.int32, device=dev)
+            pos = pos[None, :].expand(B, n)
+            x, aux = TR.trunk_train(self.trunk, x, cfg, pos, sp)
             if P_img:
                 x = x[:, P_img:]
-        x = self._final_norm(x)
-        logits = self._logits(x)
-        if gather and logits.shape[-1] < cfg.vocab:
+        x = self._final_norm(x, sp)
+        logits = self._logits(x, sp)
+        if gather and sp is not None:
+            logits = gather_dim(logits.detach(), sp.group, 1)
+        elif gather and logits.shape[-1] < cfg.vocab:
             parts = all_gather(logits.detach(), current_binding()[0], "model")
             logits = torch.cat(list(parts), dim=-1)
         return logits, aux
@@ -174,9 +215,18 @@ class Model(nn.Module):
     def loss(self, batch: dict) -> tuple:
         """-> (scalar loss, metrics dict)."""
         logits, aux = self.forward(batch)
-        logz, gold = self._logz_gold(logits, batch["targets"])
+        targets = batch["targets"]
+        sp = seq_axis(targets.shape[1])
+        if sp is not None:
+            n = targets.shape[1] // sp.size
+            targets = targets[:, sp.rank * n:(sp.rank + 1) * n]
+        logz, gold = self._logz_gold(logits, targets)
         nll = torch.mean(logz - gold)
         zloss = Z_LOSS_WEIGHT * torch.mean(logz ** 2)
+        if sp is not None:        # the chunks' means, averaged over the dim
+            nll, zloss = reduce_from_group(torch.stack([nll, zloss])
+                                           / sp.size, sp.group,
+                                           "all_reduce_loss")
         total = nll + zloss
         metrics = {"nll": nll, "z_loss": zloss}
         if "moe_aux_loss" in aux:
@@ -191,7 +241,8 @@ class Model(nn.Module):
         float32: over a vocabulary slice, an all_reduce of the max, of the
         sum of exps and of the gold logit (the latter two summing grads
         back to each rank's slice unchanged)."""
-        tp, V_l = self._vocab_axis()
+        V_l = logits.shape[-1]
+        tp = model_axis() if V_l < self.cfg.vocab else None
         if tp is None:
             return (torch.logsumexp(logits, dim=-1),
                     torch.gather(logits, -1, targets[..., None].long())[..., 0])

@@ -25,7 +25,10 @@ its blocks and no collective; where they straddle blocks (320 channels a
 rank of 256-wide blocks), one all_gather of the conv's output ``xc`` a
 layer gives each rank the inputs of the blocks its channels lie in.  The
 blocks enter through ``copy_to_group``: a rank's grad of them is its
-channels' part.
+channels' part.  Under sequence parallelism (the ``seq`` rule) the input
+comes in as this rank's chunk of the sequence: f is an all_gather of it
+and g a reduce_scatter (``layers``), the scan running on the whole
+sequence of the local channels.
 """
 
 from __future__ import annotations
@@ -36,7 +39,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core.distributed import (copy_to_group, gather_from_group,
-                                          reduce_from_group)
+                                          gather_seq, reduce_from_group,
+                                          scatter_seq)
 from repro_torch.models.layers import COMPUTE_DTYPE, Init, Params
 from repro_torch.models.ssm import associative_scan
 from repro_torch.sharding.specs import model_axis
@@ -131,18 +135,23 @@ def _conv(p, x, cfg, prefix=None):
     return out + p["conv_b"].to(x.dtype)
 
 
-def rglru_train(p, x, cfg) -> torch.Tensor:
-    """x [B, T, d_model] -> [B, T, d_model]."""
+def rglru_train(p, x, cfg, sp=None) -> torch.Tensor:
+    """x [B, T, d_model] -> [B, T, d_model]; this rank's chunks of the
+    sequence under sequence parallelism (``sp``)."""
     c = COMPUTE_DTYPE
     tp = _tp(p, cfg)
     group = None if tp is None else tp.group
-    x = copy_to_group(x, group)
+    if sp is not None and tp is None:
+        raise NotImplementedError("sequence parallelism runs the RG-LRU with "
+                                  "its channels cut over the model dim")
+    x = copy_to_group(x, group) if sp is None else gather_seq(x, group)
     y = F.gelu(x @ p["in_y"].to(c), approximate="tanh")
     xb = x @ p["in_x"].to(c)
     xc = _conv(p, xb, cfg)
     a, bx = _gates(p, xc, cfg, tp)                         # [B, T, lru] f32
     _, hs = associative_scan(a, bx, dim=1)
-    return reduce_from_group((hs.to(c) * y) @ p["out"].to(c), group)
+    g = reduce_from_group if sp is None else scatter_seq
+    return g((hs.to(c) * y) @ p["out"].to(c), group)
 
 
 def init_rglru_cache(cfg, batch: int, device="cuda") -> RGLRUCache:

@@ -8,7 +8,11 @@ where the reference scans stacked parameters, plus an unscanned tail block
 when the period does not divide the depth.  Each full block runs under the
 reference's block remat (``layers.remat``: ``torch.utils.checkpoint`` where
 the reference has ``jax.checkpoint``), the tail without, as there.  The
-reference's layout hint on each mixer's input is a ``shard_hint`` check.
+reference's layout hint on each mixer's input is a ``shard_hint`` check;
+under the ``seq`` rule the blocks run sequence parallel (``sp``, the model
+dim: ``layers``), the residual stream and the norms on this rank's chunk
+of the sequence.  The Mamba mixer and the MoE have no sequence-parallel
+form yet and raise under it.
 
 Decode carries one cache dict per block, ``{"blocks": [...], "tail": ...}``.
 """
@@ -33,6 +37,12 @@ def _norm_init(init, cfg):
 def _norm(p, x, cfg):
     return L.layernorm(p, x, cfg.norm_eps) if cfg.family == "audio" \
         else L.rmsnorm(p, x, cfg.norm_eps)
+
+
+def _no_seq(sp, what: str) -> None:
+    if sp is not None:
+        raise NotImplementedError(f"{what} has no sequence-parallel form; "
+                                  f"bind the seq rule without it")
 
 
 def n_blocks(cfg) -> tuple:
@@ -78,57 +88,63 @@ def init_trunk(init, cfg) -> L.Params:
     return L.Params(**p)
 
 
-def _apply_ff(bp, i, x, cfg, aux):
-    h = _norm(bp[f"ffpre_{i}"], x, cfg)
+def _apply_ff(bp, i, x, cfg, aux, sp=None):
+    h = _norm(L.seq_params(bp, sp)[f"ffpre_{i}"], x, cfg)
     if cfg.ff_kind == "moe":
+        _no_seq(sp, "the MoE")
         moe_fn = M.moe_ffn_ep if cfg.moe_impl == "ep" else M.moe_ffn
         ff, a = moe_fn(bp[f"ff_{i}"], h, cfg)
         aux = {k: aux.get(k, 0.0) + v for k, v in a.items()}
     else:
-        ff = L.mlp(bp[f"ff_{i}"], h, cfg)
+        ff = L.mlp(bp[f"ff_{i}"], h, cfg, sp)
     if cfg.post_norms:
-        ff = _norm(bp[f"postff_{i}"], ff, cfg)
+        ff = _norm(L.seq_params(bp, sp)[f"postff_{i}"], ff, cfg)
     return x + ff, aux
 
 
-def block_train(bp, x, cfg, positions, pattern=None) -> tuple:
+def block_train(bp, x, cfg, positions, pattern=None, sp=None) -> tuple:
     aux: dict = {}
     pattern = pattern or cfg.mixer_pattern
+    norms = L.seq_params(bp, sp)
+    B, T, d = x.shape
+    whole = (B, T * (1 if sp is None else sp.size), d)
     for i, kind in enumerate(pattern):
-        h = _norm(bp[f"pre_{i}"], x, cfg)
-        h = shard_hint(h, ("batch", "seq", "embed"))
+        h = _norm(norms[f"pre_{i}"], x, cfg)
+        h = shard_hint(h, ("batch", "seq", "embed"), whole)
         if kind == "attn":
             mx = L.attention_train(bp[f"mix_{i}"], h, cfg, kind="causal",
-                                   positions=positions)
+                                   positions=positions, sp=sp)
         elif kind == "local":
             mx = L.attention_train(bp[f"mix_{i}"], h, cfg, kind="local",
-                                   positions=positions)
+                                   positions=positions, sp=sp)
         elif kind == "mamba":
+            _no_seq(sp, "the Mamba mixer")
             mx = S.mamba_train(bp[f"mix_{i}"], h, cfg)
         else:
-            mx = R.rglru_train(bp[f"mix_{i}"], h, cfg)
+            mx = R.rglru_train(bp[f"mix_{i}"], h, cfg, sp)
         if cfg.post_norms:
-            mx = _norm(bp[f"postmix_{i}"], mx, cfg)
+            mx = _norm(norms[f"postmix_{i}"], mx, cfg)
         x = x + mx
         if cfg.ff_kind != "none":
-            x, aux = _apply_ff(bp, i, x, cfg, aux)
+            x, aux = _apply_ff(bp, i, x, cfg, aux, sp)
     return x, aux
 
 
-def trunk_train(tp, x, cfg, positions) -> tuple:
+def trunk_train(tp, x, cfg, positions, sp=None) -> tuple:
     """x [B, T, d] -> (x, aux).  One block after another, each under block
-    remat."""
+    remat.  Under sequence parallelism (``sp``) ``x`` is this rank's chunk
+    of the sequence and ``positions`` the whole sequence's."""
     dev = x.device
     aux = {"moe_aux_loss": torch.zeros((), dtype=torch.float32, device=dev),
            "moe_overflow": torch.zeros((), dtype=torch.float32, device=dev)} \
         if cfg.ff_kind == "moe" else {}
     for bp in tp["blocks"]:
-        x, a = L.remat(cfg, block_train, bp, x, cfg, positions)
+        x, a = L.remat(cfg, block_train, bp, x, cfg, positions, None, sp)
         aux = {k: aux[k] + a.get(k, 0) for k in aux}
     if "tail" in tp:
         _, tail_len = n_blocks(cfg)
         x, a = block_train(tp["tail"], x, cfg, positions,
-                           cfg.mixer_pattern[:tail_len])
+                           cfg.mixer_pattern[:tail_len], sp)
         aux = {k: aux[k] + a.get(k, 0) for k in aux}
     return x, aux
 

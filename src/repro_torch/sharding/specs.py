@@ -17,6 +17,10 @@ activation is this data rank's rows, whole over ``model`` unless a hint
 says otherwise.  ``shard_hint`` checks that layout where the reference
 constrains it.  Outside a binding everything runs on one device, as before.
 
+Where the rules cut ``seq`` over ``model`` (a config's ``rules``) and the
+sequence divides, the stack runs sequence parallel instead of holding
+activations whole (:func:`seq_axis`, ``models/layers.py``).
+
 ``shard_cache`` / ``gather_cache`` are the decode cache's counterparts of
 ``shard_params`` / ``gather_params``: each leaf is cut by ``spec_for`` of
 its logical axes (``axes.cache_leaf_axes``: ``k``/``v`` over ``kv_seq``,
@@ -153,16 +157,18 @@ class Axis(NamedTuple):
 def bound_axis(name: str) -> Optional[Axis]:
     """The bound mesh's ``name`` dim (``"model"`` or ``"data"``); None
     outside a binding, or when the mesh has no such dim or it holds one
-    rank.  A ``pod`` dim of more than one rank has no model-stack layout
-    yet and raises."""
+    rank.  On a mesh with a ``pod`` dim of more than one rank, ``"data"``
+    is the pods' data ranks together (the ``batch`` rule's ``("pod",
+    "data")``), one group flattened from the two dims."""
     bind = current_binding()
     if bind is None:
         return None
     mesh = bind[0]
     dims = mesh_dims(mesh)
-    if dims.get("pod", 1) > 1:
-        raise NotImplementedError("the model stack binds (data, model) "
-                                  "meshes; a pod dim has no layout yet")
+    if name == "data" and dims.get("pod", 1) > 1:
+        flat = mesh["pod", "data"]._flatten()
+        return Axis(flat.get_group(), _index(dims, mesh, ("pod", "data")),
+                    dims["pod"] * dims.get("data", 1))
     if dims.get(name, 1) == 1:
         return None
     return Axis(mesh.get_group(name), mesh.get_local_rank(name), dims[name])
@@ -177,6 +183,26 @@ def model_axis() -> Axis:
         raise RuntimeError("a sharded model runs under logical_rules(mesh) "
                            "with the mesh it was sharded over")
     return axis
+
+
+def seq_axis(length: int) -> Optional[Axis]:
+    """The bound ``model`` dim when the rules cut a sequence of ``length``
+    positions over it (the ``seq`` rule, as ``spec_for`` lays ``("batch",
+    "seq", "embed")``: a length it does not divide stays whole); None
+    otherwise.  Under it the model stack runs sequence parallel
+    (``models/layers.py``)."""
+    bind = current_binding()
+    if bind is None:
+        return None
+    mesh, rules = bind
+    dims = {a: n for a, n in mesh_dims(mesh).items() if a not in DATA_AXES}
+    cut = spec_for(("batch", "seq", "embed"), (1, length, 1), dims, rules)[1]
+    if cut is None:
+        return None
+    if cut != "model":
+        raise NotImplementedError(f"the seq rule cuts over {cut!r}; the "
+                                  f"model stack cuts sequences over 'model'")
+    return bound_axis("model")
 
 
 def local_shape(spec: tuple, shape: Sequence[int], mesh) -> tuple:

@@ -1026,3 +1026,55 @@ def test_nccl_sharded_decode_on_cards_matches_one(card, tmp_path, shape):
                 scale = float(np.abs(v).max()) or 1.0
                 assert np.abs(g["cache"][k] - v).max() <= tol * scale, \
                     (cfg.name, k)
+
+
+@pytest.mark.parametrize("shape", [(1, 2), (2, 2)])
+def test_nccl_seq_parallel_on_cards_matches_one(card, tmp_path, shape):
+    """Sequence parallelism (``qwen2-0.5b``'s ``seq`` rule bound) over NCCL,
+    a card a rank, on a (data, model) mesh of ``shape``: 3 train steps of
+    a reduced config against one card on the whole batch in float32
+    compute, losses and the gathered params within rtol 5e-3, atol
+    5e-4."""
+    import torch_dist
+    from torch_train_ranks import train_span
+
+    from repro_torch.models import ARCHS
+    world = shape[0] * shape[1]
+    _mesh_cards(world, "nccl")
+    cfg = ARCHS["qwen2-0.5b"].reduced(vocab=128)
+    ranks = torch_dist.spawn(train_span, world,
+                             (cfg, 0, 3, 3, 8, 32, False, None, True,
+                              {"seq": "model"}),
+                             tmp_path, mesh_shape=shape, device="cuda",
+                             backend="nccl")
+    one = train_span(None, card, cfg, 0, 3, 3, 8, 32, float32=True)
+    for r in ranks:
+        assert any(k.startswith("reduce_scatter") for k in r["comm"])
+        np.testing.assert_allclose(r["losses"], one["losses"], rtol=5e-3,
+                                   atol=5e-4)
+        for k, v in one["params"].items():
+            np.testing.assert_allclose(r["params"][k], v, rtol=5e-3,
+                                       atol=5e-4, err_msg=k)
+
+
+@pytest.mark.parametrize("shape", ["prefill_32k", "train_4k"])
+def test_dry_run_meters_hold_against_the_card(card, shape):
+    """Phase 16 (c) at a smaller depth: ``qwen3-1.7b`` at full width cut to
+    one layer, [2, 1024], mesh 1, dry-run on ``meta`` and run on the card:
+    the counted flops equal, the ``meta`` peak within 0.75-1.33 x the card
+    allocator's growth, the roofline floor at most the measured time."""
+    from repro_torch.launch import dryrun as DR
+    from repro_torch.launch.mesh import fake_ranks, make_host_mesh
+    kw = dict(cfg_overrides={"n_layers": 1}, batch=2, seq=1024,
+              verbose=False)
+    with fake_ranks(1):
+        mesh = make_host_mesh(1, 1)
+        meta = DR.run_cell("qwen3-1.7b", shape, mesh, **kw)
+        real = DR.run_cell("qwen3-1.7b", shape, mesh, device=card, **kw)
+    for rec in (meta, real):
+        assert rec["status"] == "ok", rec.get("traceback")
+    fm, fr = (r["roofline"] for r in (meta, real))
+    assert fm["flops_per_device"] == fr["flops_per_device"] > 0
+    share = meta["memory"]["temp_bytes"] / real["memory"]["temp_bytes"]
+    assert 0.75 <= share <= 1.33, share
+    assert max(fr["compute_s"], fr["memory_s"]) <= real["measured_s"]

@@ -14,7 +14,10 @@
 * a CPU tensor takes a kernel's plain version and launches nothing;
 * ``chip_smoke.py`` fails, printing no result, without a card or without the
   rest of the repository;
-* a program that ran mesh ranks leaves no helper process when it ends.
+* a program that ran mesh ranks leaves no helper process when it ends;
+* torch's ``fake`` process-group backend is named in ``launch/mesh.py``
+  alone (``fake_ranks``, which only the dry runs call), and the join dry
+  run, on the card by default, fails without one.
 """
 
 import json
@@ -68,7 +71,9 @@ def test_port_modules_import_no_jax_and_no_reference():
               "repro_torch.optim.compress", "repro_torch.data.pipeline",
               "repro_torch.runtime.train", "repro_torch.sharding",
               "repro_torch.sharding.specs", "repro_torch.sharding.axes",
-              "repro_torch.launch.train"):
+              "repro_torch.launch.train", "repro_torch.launch.roofline",
+              "repro_torch.launch.dryrun", "repro_torch.launch.dryrun_join",
+              "repro_torch.launch.report", "repro_torch.kernels.traffic"):
         assert m in mods, m
     code = ("import importlib, json, sys\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
@@ -95,6 +100,34 @@ def test_port_sources_name_no_jax_and_no_reference():
     bad = [f"{f}: {m.group(0).strip()}" for f in files
            for m in FORBIDDEN.finditer(f.read_text())]
     assert bad == []
+
+
+FAKE = re.compile(r"""["']fake["']|fake_pg|FakeStore""")
+
+
+def test_fake_backend_only_in_the_mesh_module():
+    files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"] + sorted(
+        (ROOT / "examples").glob("torch_*.py"))
+    named = sorted(str(f.relative_to(ROOT)) for f in files
+                   if FAKE.search(f.read_text()))
+    assert named == ["src/repro_torch/launch/mesh.py"]
+    callers = sorted(str(f.relative_to(ROOT)) for f in files
+                     if "fake_ranks(" in f.read_text())
+    assert callers == ["src/repro_torch/launch/dryrun.py",
+                       "src/repro_torch/launch/dryrun_join.py",
+                       "src/repro_torch/launch/mesh.py"]
+
+
+def test_dry_runs_on_the_card_fail_without_one():
+    for module, args in (("repro_torch.launch.dryrun_join",
+                          ("--log2-rows", "12")),
+                         ("repro_torch.launch.dryrun",
+                          ("--device", "cuda", "--arch", "qwen3-1.7b",
+                           "--shape", "decode_32k"))):
+        out = _launch_without_a_card(module, *args)
+        assert out.returncode != 0
+        assert "no CUDA card" in out.stderr
+        assert "==" not in out.stdout
 
 
 def test_default_device_is_the_card():

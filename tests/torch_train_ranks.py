@@ -43,13 +43,13 @@ def compute_dtype(dtype):
 
 def train_span(mesh, dev, cfg, first: int, last: int, total: int,
                batch: int, seq: int, compress: bool = False,
-               ckpt_dir=None, float32: bool = False) -> dict:
+               ckpt_dir=None, float32: bool = False, rules=None) -> dict:
     """As ``_train_span``, in float32 compute when ``float32``, under
-    ``logical_rules(mesh)`` on a mesh (an MoE's capacity is then the global
-    batch's)."""
+    ``logical_rules(mesh, rules)`` on a mesh (an MoE's capacity is then the
+    global batch's; the ``seq`` rule runs the model sequence parallel)."""
     with compute_dtype(torch.float32) if float32 else \
-            contextlib.nullcontext(), logical_rules(mesh) if mesh is not None \
-            else contextlib.nullcontext():
+            contextlib.nullcontext(), logical_rules(mesh, rules) \
+            if mesh is not None else contextlib.nullcontext():
         return _train_span(mesh, dev, cfg, first, last, total, batch, seq,
                            compress, ckpt_dir)
 
@@ -131,7 +131,7 @@ def f16_mean(payloads: list) -> np.ndarray:
     return acc.astype(np.float32) / np.float32(len(payloads))
 
 
-def tp_rank(mesh, dev, cases) -> list:
+def tp_rank(mesh, dev, cases, rules=None) -> list:
     """Per case ``(cfg, tree, batch)`` (the JAX package's weights and a
     batch, numpy), the model cut over this rank's ``model`` dim
     (``params_from_jax(mesh=)``) in float32 compute under
@@ -139,8 +139,10 @@ def tp_rank(mesh, dev, cases) -> list:
     logits of those rows, the loss metrics and the grads (averaged over
     the data dim: the whole batch's) gathered to the reference's layout,
     this rank's shard shapes, its Mamba ``in_proj`` shards and its
-    replicated leaves' grads, and the grad norm of one clipped train
-    step."""
+    replicated leaves' grads, the collective census of the loss and its
+    backward, and the grad norm of one clipped train step.  ``rules``
+    bind over the default ones (the ``seq`` rule: sequence
+    parallelism)."""
     from repro_torch.core.distributed import all_reduce
     from repro_torch.models.convert import flatten, params_from_jax, stack_tree
     from repro_torch.sharding.specs import gather_params
@@ -148,7 +150,7 @@ def tp_rank(mesh, dev, cases) -> list:
     dp = mesh.size(mesh.mesh_dim_names.index("data"))
     data = mesh.get_group("data") if dp > 1 else None
     out = []
-    with compute_dtype(torch.float32), logical_rules(mesh):
+    with compute_dtype(torch.float32), logical_rules(mesh, rules):
         for cfg, tree, nb in cases:
             model = params_from_jax(cfg, tree, device=dev, mesh=mesh)
             specs = model.sharding.specs
@@ -158,8 +160,10 @@ def tp_rank(mesh, dev, cases) -> list:
                  for k, v in nb.items()}
             with torch.no_grad():
                 logits, _ = model.forward(b, gather=True)
+            COMM.reset()
             loss, met = model.loss(b)
             loss.backward()
+            census = COMM.census()
             local = {k: p.grad.detach().clone()
                      for k, p in model.named_parameters()}
             met = {k: v.detach() for k, v in met.items()}
@@ -183,6 +187,7 @@ def tp_rank(mesh, dev, cases) -> list:
                 "in_proj": in_proj,
                 "replicated": {k: g.cpu().numpy() for k, g in local.items()
                                if all(a is None for a in specs[k])},
+                "census": census,
                 "grad_norm": float(m["grad_norm"])})
     return out
 
