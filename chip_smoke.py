@@ -3647,7 +3647,8 @@ def model_phase(torch):
 # [2, 4096] (phase 12's prefill shape) under block remat; (b) the other
 # nine configs at phase 12's cut depths, 2 steps of [2, 512]; (c) one
 # ``reduced()`` config a family on the card against the CPU in float32;
-# (d) data parallelism, 2 gloo ranks sharing the card, plain and int8-EF;
+# (d) data parallelism, 2 gloo ranks sharing the card, plain, int8-EF and
+# ZeRO-1 (AdamW's slots cut over the data ranks);
 # (e) the train launcher killed after its step-6 checkpoint and resumed;
 # (f) ``examples/torch_train_lm.py`` (~100M parameters, 300 steps).
 TRAIN_MAIN = "qwen3-1.7b"
@@ -3666,6 +3667,10 @@ DP_ARCH = "qwen2-0.5b"
 DP_BATCH = (4, 512)               # global [B, T]; 2 rows a rank
 DP_PLAIN_STEPS, DP_EF_STEPS = 3, 10
 DP_RTOL, DP_ATOL = 5e-3, 5e-4     # tests/test_torch_train_distributed.py
+# ZeRO-1 against plain DP on the same ranks (tests/test_torch_zero1.py):
+# params rtol 1e-5, atol 1e-6 (a bias that starts at 0 moves by steps whose
+# size follows grads below AdamW's eps)
+ZERO1_RTOL, ZERO1_ATOL = 1e-5, 1e-6
 DP_EF_LR = 1e-3
 DP_TIMEOUT_S = 300
 RESUME_ARGS = ("--arch", "qwen2-0.5b", "--reduced", "--steps", "12",
@@ -3896,10 +3901,12 @@ def train_card_vs_cpu(torch):
 
 def train_rank(mesh, dev, runs):
     """One rank of phase 13 (d): each run of ``runs`` in turn (``(cfg,
-    steps, lr, compress, B, T)``: ``steps`` steps of ``cfg`` on this rank's
-    rows of the global [B, T] batch, in float32 compute); with ``mesh``
-    None, one process on the whole batch.  Returns, a run, the losses, the
-    params, the residuals' sum, the ``COMM`` meters and the seconds."""
+    steps, lr, mode, B, T)``: ``steps`` steps of ``cfg`` on this rank's
+    rows of the global [B, T] batch, in float32 compute, ``mode`` "plain",
+    "int8-EF" or "zero1"); with ``mesh`` None, one process on the whole
+    batch.  Returns, a run, the losses, the params, the residuals' sum, the
+    ``COMM`` meters, the seconds, the AdamW slots' bytes on this rank and
+    this process's peak of card memory over the run."""
     import torch
     from repro_torch.core.distributed import COMM
     from repro_torch.launch.train import make_batch_fn
@@ -3909,15 +3916,18 @@ def train_rank(mesh, dev, runs):
     rank = 0 if group is None else group.rank()
     world = 1 if group is None else group.size()
     out = []
-    for cfg, steps, lr, compress, B, T in runs:
+    for cfg, steps, lr, mode, B, T in runs:
+        compress, zero1 = mode == "int8-EF", mode == "zero1"
+        torch.cuda.reset_peak_memory_stats(dev)
         with compute_dtype(torch.float32):
             model = Model(cfg, device=dev, generator=torch.Generator(
                 device=dev).manual_seed(SEED))
             kw = {} if group is None else {
                 "compress_group" if compress else "data_group": group}
             step = make_train_step(model, lr=lr, warmup=TRAIN_WARMUP,
-                                   total_steps=steps, **kw)
-            state = train_state_init(model, compress=compress)
+                                   total_steps=steps, zero1=zero1, **kw)
+            state = train_state_init(model, compress=compress, zero1=zero1,
+                                     data_group=group)
             batch_fn = make_batch_fn(cfg, B, T, SEED, device=dev, rank=rank,
                                      world=world)
             COMM.reset()
@@ -3933,30 +3943,37 @@ def train_rank(mesh, dev, runs):
                                for k, p in state.params.items()},
                     "ef_abs": float(sum(float(e.abs().sum())
                                         for e in ef.values())),
-                    "comm": COMM.snapshot()})
-        del state, step, model
+                    "comm": COMM.snapshot(),
+                    "slot_bytes": sum(t.numel() * t.element_size()
+                                      for f in (state.opt.m, state.opt.v)
+                                      for t in f.values()),
+                    "peak_bytes": torch.cuda.max_memory_allocated(dev)})
+        # the next run's peak must not hold this one's residuals
+        del state, step, model, ef
     return out
 
 
 def train_dp(torch, dev="cuda"):
     """Phase 13 (d): 2 gloo ranks sharing the card (``dev``), plain DP
-    against one process on the whole batch, and int8-EF DP; each mode's
-    all_reduce bytes per rank and step."""
+    against one process on the whole batch, int8-EF DP, and ZeRO-1 DP
+    against plain; each mode's collective bytes per rank and step, and
+    ZeRO-1's slots and peak against plain's."""
     from repro_torch.launch.mesh import run_ranks, stop_rank_server
     from repro_torch.models import ARCHS
     cfg, cut = model_cut(ARCHS[DP_ARCH])
     B, T = DP_BATCH
-    plain_run = (cfg, DP_PLAIN_STEPS, TRAIN_LR, False, B, T)
-    ef_run = (cfg, DP_EF_STEPS, DP_EF_LR, True, B, T)
+    plain_run = (cfg, DP_PLAIN_STEPS, TRAIN_LR, "plain", B, T)
+    ef_run = (cfg, DP_EF_STEPS, DP_EF_LR, "int8-EF", B, T)
+    zero1_run = (cfg, DP_PLAIN_STEPS, TRAIN_LR, "zero1", B, T)
     torch.cuda.empty_cache()
     one, = train_rank(None, torch.device(dev), [plain_run])
     try:
-        ranks = run_ranks(train_rank, 2, ([plain_run, ef_run],),
+        ranks = run_ranks(train_rank, 2, ([plain_run, ef_run, zero1_run],),
                           backend="gloo", device=dev,
                           timeout_s=DP_TIMEOUT_S)
     finally:
         stop_rank_server()
-    plain, ef = ([r[i] for r in ranks] for i in range(2))
+    plain, ef, zero1 = ([r[i] for r in ranks] for i in range(3))
     n = sum(v.size for v in one["params"].values())
     worst = 0.0
     for k, want in one["params"].items():
@@ -3994,7 +4011,55 @@ def train_dp(torch, dev="cuda"):
           f"{one['seconds'] / DP_PLAIN_STEPS:.3f} s")
     return {"plain_losses": plain[0]["losses"], "one_losses": one["losses"],
             "max_abs_err": worst, "ef_losses": losses,
-            "allreduce_bytes_per_step": per_step}
+            "allreduce_bytes_per_step": per_step,
+            "zero1": train_zero1(plain, zero1)}
+
+
+def train_zero1(plain: list, zero1: list) -> dict:
+    """Phase 13 (d)'s ZeRO-1 run against plain DP on the same 2 ranks:
+    params, slots, collective bytes a step and each rank's peak."""
+    worst = 0.0
+    for k, want in plain[0]["params"].items():
+        got = zero1[0]["params"][k]
+        check(np.array_equal(got, zero1[1]["params"][k]),
+              f"train dp zero1: the ranks' {k} differ")
+        check(np.allclose(got, want, rtol=ZERO1_RTOL, atol=ZERO1_ATOL),
+              f"train dp zero1: {k} off plain DP's by "
+              f"{float(np.abs(got - want).max())}")
+        worst = max(worst, float(np.abs(got - want).max()))
+    check(np.allclose(zero1[0]["losses"], plain[0]["losses"],
+                      rtol=ZERO1_RTOL), f"train dp zero1: losses "
+          f"{zero1[0]['losses']} against plain DP's {plain[0]['losses']}")
+
+    def per_step(run, op):
+        return run["comm"].get(op, {"bytes": 0})["bytes"] / DP_PLAIN_STEPS
+    moved = {op: per_step(zero1[0], op) for op in (
+        "zero1_reduce_scatter", "zero1_all_gather", "all_reduce")}
+    plain_ar = per_step(plain[0], "all_reduce")
+    check(sum(moved.values()) == plain_ar, f"train dp zero1: bytes a step "
+          f"{moved} against plain DP's all_reduce {plain_ar}")
+    check(moved["zero1_reduce_scatter"] > 0 and moved["zero1_all_gather"]
+          == moved["zero1_reduce_scatter"], f"train dp zero1: {moved}")
+    slots = [r["slot_bytes"] for r in zero1]
+    whole = plain[0]["slot_bytes"]
+    check(all(s < whole for s in slots), f"train dp zero1: slots {slots} "
+          f"against the whole {whole}")
+    peaks = {"plain": [r["peak_bytes"] for r in plain],
+             "zero1": [r["peak_bytes"] for r in zero1]}
+    print(f"train dp zero1 {DP_ARCH}, 2 gloo ranks on one card, "
+          f"{DP_PLAIN_STEPS} steps: params within {worst:.3g} of plain DP's "
+          f"(rtol {ZERO1_RTOL}, atol {ZERO1_ATOL}), ranks equal, losses "
+          f"{zero1[0]['losses']}; a rank's slots {slots} B against the whole "
+          f"{whole} B ({slots[0] / whole:.4f}); bytes a rank and step "
+          f"{moved} = {sum(moved.values())} against plain's all_reduce "
+          f"{plain_ar}; each rank's peak {peaks['zero1']} B against plain "
+          f"DP's {peaks['plain']} B; step time "
+          f"{zero1[0]['seconds'] / DP_PLAIN_STEPS:.3f} s against plain "
+          f"{plain[0]['seconds'] / DP_PLAIN_STEPS:.3f} s")
+    return {"max_abs_err": worst, "slot_bytes": slots, "whole_slots": whole,
+            "bytes_per_step": moved, "plain_allreduce": plain_ar,
+            "peak_bytes": peaks,
+            "step_s": zero1[0]["seconds"] / DP_PLAIN_STEPS}
 
 
 def _train_launch(args, ckpt_dir, *extra):
@@ -5014,7 +5079,9 @@ def scan_phase(torch):
 # phase 16: the dry-run family (``launch/roofline.py``, ``dryrun_join.py``,
 # ``dryrun.py``) in child processes, each rank 0 of a fake process group:
 # (a) the join at (16, 16) and 2^26 rows on the card and on the CPU, (b)
-# model cells on ``meta`` tensors, (c) the meters against the card.
+# model cells on ``meta`` tensors, and the train cells again under
+# ``--zero1``, (c) the meters against the card, and ``--zero1`` at mesh 1
+# (the identity) against the plain step.
 # ---------------------------------------------------------------------------
 
 DRY_JOIN_LOG2 = 26
@@ -5025,6 +5092,8 @@ DRY_CELLS = (("qwen3-1.7b", ("train_4k", "prefill_32k", "decode_32k"),
              ("qwen2-0.5b", ("train_4k",), "singlepod", ()),
              ("whisper-small", ("train_4k",), "singlepod", ()),
              ("qwen3-1.7b", ("decode_32k",), "multipod", ("--multi-pod",)))
+# (b) under --zero1, in one child: beside (b)'s plain records of these
+DRY_ZERO1_ARCHS = ("qwen3-1.7b", "qwen2-moe-a2.7b")
 # (c): qwen3-1.7b at full width cut to 2 layers, [2, 4096], mesh 1; the
 # join at mesh 1 on phase 4's 2^24 rows a relation
 DRY_CHECK = ("--mesh", "1x1", "--arch", "qwen3-1.7b", "--set", "n_layers=2",
@@ -5099,8 +5168,14 @@ def dry_phase(torch) -> dict:
         for i, (arch, shapes, _, extra) in enumerate(DRY_CELLS):
             jobs[f"cell{i}"] = (*model, "--arch", arch, *_shapes(shapes),
                                 *extra, "--out", f"{tmp}/cell{i}")
+        jobs["zero1"] = (*model, *(a for arch in DRY_ZERO1_ARCHS
+                                   for a in ("--arch", arch)),
+                         "--shape", "train_4k", "--zero1", "--out",
+                         f"{tmp}/zero1")
         jobs["check_meta"] = (*model, *DRY_CHECK, *_shapes(DRY_CHECK_SHAPES),
                               "--out", f"{tmp}/meta")
+        jobs["check_zero1"] = (*model, *DRY_CHECK, "--shape", "train_4k",
+                               "--zero1", "--out", f"{tmp}/meta_zero1")
         _dry_run(jobs, tmp)
         t_ab = time.perf_counter() - t_start
         # (c) on the card, one after another, alone
@@ -5143,6 +5218,7 @@ def dry_phase(torch) -> dict:
                       f"{rf['dominant']}; peak "
                       f"{rec['memory']['peak_bytes'] / 2**30:.3f} GiB; "
                       f"collectives {rf['collective_ops']}")
+        zero1 = dry_zero1(tmp)
         # (c) the meters against the card
         for shape in DRY_CHECK_SHAPES:
             meta, card = (_load(f"{tmp}/{d}/qwen3-1.7b__{shape}__1x1.json")
@@ -5182,7 +5258,55 @@ def dry_phase(torch) -> dict:
         shutil.rmtree(tmp, ignore_errors=True)
     print(f"dry: no new kernel on this path; (a) and (b) took {t_ab:.1f} s, "
           f"phase 16 {time.perf_counter() - t_start:.1f} s")
+    print(f"dry zero1 summary: {json.dumps(zero1)}")
     return launches
+
+
+def dry_zero1(tmp: str) -> dict:
+    """Phase 16's ``--zero1`` records against the plain ones: (b)'s train
+    cells at (16, 16) (memory, census, collective bytes) and (c)'s step at
+    mesh 1, where ZeRO-1 is the identity (counted flops, bytes and
+    memory equal)."""
+    out = {}
+    plain_of = {arch: f"{tmp}/cell{i}/{arch}__train_4k__singlepod.json"
+                for i, (arch, shapes, tag, _) in enumerate(DRY_CELLS)
+                if tag == "singlepod" and "train_4k" in shapes}
+    for arch in DRY_ZERO1_ARCHS:
+        rec = _load(f"{tmp}/zero1/{arch}__train_4k__singlepod_zero1.json")
+        check(rec["status"] == "ok" and rec.get("zero1") is True,
+              f"dry zero1 {arch}: {rec.get('error')}")
+        plain = _load(plain_of[arch])
+        census = rec["roofline"]["census"]
+        kinds = {e["kind"] for e in census if e["group"] == 16}
+        check({"reduce_scatter", "all_gather"} <= kinds,
+              f"dry zero1 {arch}: census {census}")
+        mem = {k: (rec["memory"][k], plain["memory"][k]) for k in (
+            "argument_bytes", "temp_bytes", "peak_bytes")}
+        check(mem["argument_bytes"][0] < mem["argument_bytes"][1],
+              f"dry zero1 {arch}: argument bytes {mem['argument_bytes']}")
+        coll = (rec["roofline"]["coll_bytes_per_device"],
+                plain["roofline"]["coll_bytes_per_device"])
+        print(f"dry zero1 {arch} train_4k (16, 16), zero1 / plain: "
+              + ", ".join(f"{k} {a} / {b} ({a / 2**30:.3f} / "
+                          f"{b / 2**30:.3f} GiB)" for k, (a, b) in
+                          mem.items())
+              + f"; collective bytes a rank {coll[0]:.0f} / {coll[1]:.0f} "
+              f"({coll[0] / coll[1]:.6f}x); census {census} / "
+              f"{plain['roofline']['census']}")
+        out[arch] = {"memory": mem, "coll_bytes": coll, "census": census}
+    meta, z = (_load(f"{tmp}/{d}/qwen3-1.7b__train_4k__1x1{t}.json")
+               for d, t in (("meta", ""), ("meta_zero1", "_zero1")))
+    check(z["status"] == "ok", f"dry zero1 check: {z.get('error')}")
+    same = {k: (z["roofline"][k], meta["roofline"][k]) for k in (
+        "flops_per_device", "hbm_bytes_per_device")}
+    same.update({k: (z["memory"][k], meta["memory"][k]) for k in (
+        "argument_bytes", "temp_bytes")})
+    check(all(a == b for a, b in same.values()), f"dry zero1 check at mesh "
+          f"1: {same}")
+    print(f"dry zero1 check qwen3-1.7b (2 layers) train_4k [2, 4096] mesh 1 "
+          f"on meta: the identity, equal to the plain step: {same}")
+    out["mesh1"] = same
+    return out
 
 
 def main() -> int:

@@ -29,13 +29,14 @@ Meshes: single-pod ``(16, 16)`` ``("data", "model")`` and multi-pod ``(2,
 16, 16)`` ``("pod", "data", "model")``.  ``--rule`` overrides a logical
 rule, ``--set`` a config field; ``--mesh DxM`` replaces the production
 mesh by a ``(data, model)`` one, ``--batch`` and ``--seq`` the shape's
-global batch and length.  The JAX package's ``--zero1`` has no counterpart
-yet: the port's AdamW holds no ZeRO-1 slots.
+global batch and length.  ``--zero1`` cuts a train cell's AdamW slots over
+``data`` as well (``ZERO1_RULES``: ``make_train_step(zero1=True)``); its
+records say ``"zero1": true`` and their files end in ``_zero1``.
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.dryrun --arch qwen3-1.7b \\
       --shape train_4k [--multi-pod | --both-meshes] [--rule seq=model] \\
-      [--set moe_impl=ep] [--out experiments/dryrun_torch]
+      [--set moe_impl=ep] [--zero1] [--out experiments/dryrun_torch]
   PYTHONPATH=src python -m repro_torch.launch.dryrun --device cuda \
       --mesh 1x1 --arch qwen3-1.7b --set n_layers=2 --shape train_4k \
       --batch 2 --seq 4096
@@ -117,9 +118,11 @@ class Cell(NamedTuple):
     n_active: int
 
 
-def build_cell(cfg, cell, mesh, rules: dict, device="meta") -> Cell:
+def build_cell(cfg, cell, mesh, rules: dict, device="meta",
+               zero1: bool = False) -> Cell:
     """The model of ``cell`` (a ``configs.ShapeCell``), cut to rank 0's
-    shards, and its step; call under ``logical_rules(mesh, rules)``."""
+    shards, and its step (a train step's AdamW slots cut over ``data`` too
+    with ``zero1``); call under ``logical_rules(mesh, rules)``."""
     model = Model(cfg, device=device)
     n_total, n_active = RL.count_params(model, cfg)
     shard_params(model, mesh, rules)
@@ -128,11 +131,12 @@ def build_cell(cfg, cell, mesh, rules: dict, device="meta") -> Cell:
         batch = local_rows(batch_specs(cfg, "train", cell.seq, cell.batch,
                                        device), mesh)
         data = bound_axis("data")
+        data = None if data is None else data.group
         model_axis = bound_axis("model")
         step = make_train_step(
-            model, data_group=None if data is None else data.group,
+            model, data_group=data, zero1=zero1,
             model_group=None if model_axis is None else model_axis.group)
-        state = train_state_init(model)
+        state = train_state_init(model, zero1=zero1, data_group=data)
         return Cell({"state": state, "batch": batch},
                     lambda: step(state, batch), n_total, n_active)
     if cell.kind == "prefill":
@@ -167,8 +171,9 @@ def _materialize(cache, device):
 
 def run_cell(arch: str, shape_name: str, mesh, *, verbose=True,
              rules=None, cfg_overrides=None, device="meta", batch=None,
-             seq=None, reps: int = 3) -> dict:
-    """One cell's record (the JAX package's keys, and ``rules_bound``):
+             seq=None, reps: int = 3, zero1: bool = False) -> dict:
+    """One cell's record (the JAX package's keys, ``rules_bound`` and, for
+    ``zero1``, ``"zero1": true``):
     ``status`` ok, skipped (with the reason ``configs.applicable`` gives)
     or failed (with the error).  ``batch`` / ``seq`` replace the shape's;
     on a real device the step runs once unmetered, once metered, then
@@ -189,6 +194,8 @@ def run_cell(arch: str, shape_name: str, mesh, *, verbose=True,
         rec["cfg_overrides"] = dict(cfg_overrides)
     if rules:
         rec["rules_override"] = dict(rules)
+    if zero1:
+        rec["zero1"] = True
     ok, why = applicable(cfg, shape_name)
     if not ok:
         rec["status"] = "skipped"
@@ -199,7 +206,7 @@ def run_cell(arch: str, shape_name: str, mesh, *, verbose=True,
     t0 = time.time()
     try:
         with logical_rules(mesh, merged):
-            built = build_cell(cfg, cell, mesh, merged, dev)
+            built = build_cell(cfg, cell, mesh, merged, dev, zero1)
             real = dev.type != "meta"
             if real:
                 built.run()                      # warm: kernels, workspace
@@ -257,7 +264,8 @@ def run_cells(archs, shapes, *, multi_pod: bool, rules=None,
               **kw) -> list:
     """Every (arch, shape) cell on one production mesh (or a ``(data,
     model)`` mesh of ``mesh_shape``), each record written to
-    ``out/<arch>__<shape>__<tag>.json``; ``kw`` go to ``run_cell``."""
+    ``out/<arch>__<shape>__<tag>.json`` (``<tag>_zero1`` under ``zero1``);
+    ``kw`` go to ``run_cell``."""
     records = []
     world = (mesh_shape[0] * mesh_shape[1] if mesh_shape
              else WORLD[multi_pod])
@@ -268,6 +276,8 @@ def run_cells(archs, shapes, *, multi_pod: bool, rules=None,
         else:
             mesh = make_production_mesh(multi_pod=multi_pod)
             tag = "multipod" if multi_pod else "singlepod"
+        if kw.get("zero1"):
+            tag += "_zero1"
         if verbose:
             print(f"== mesh {dict(zip(mesh.mesh_dim_names, mesh.shape))} "
                   f"({dist.get_world_size()} fake ranks) ==", flush=True)
@@ -286,7 +296,8 @@ def run_cells(archs, shapes, *, multi_pod: bool, rules=None,
 
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default=None, help="one arch id (default all)")
+    ap.add_argument("--arch", action="append", default=None,
+                    help="an arch id, as often as wanted (default all)")
     ap.add_argument("--shape", action="append", default=None,
                     help="a shape, as often as wanted (default all)")
     ap.add_argument("--multi-pod", action="store_true")
@@ -303,6 +314,8 @@ def main(argv=None) -> None:
                          "one, e.g. 1x1")
     ap.add_argument("--batch", type=int, default=None)
     ap.add_argument("--seq", type=int, default=None)
+    ap.add_argument("--zero1", action="store_true",
+                    help="cut a train cell's AdamW slots over data (ZeRO-1)")
     args = ap.parse_args(argv)
     check_device(args.device, "dryrun")
     mesh_shape = (tuple(int(n) for n in args.mesh.split("x"))
@@ -316,7 +329,7 @@ def main(argv=None) -> None:
     if overrides:
         overrides = {k: (None if v == "none" else v)
                      for k, v in overrides.items()}
-    archs = [args.arch] if args.arch else list(ARCHS)
+    archs = args.arch or list(ARCHS)
     shapes = args.shape or list(SHAPES)
     meshes = ([False] if mesh_shape else [True, False] if args.both_meshes
               else [args.multi_pod])
@@ -326,7 +339,8 @@ def main(argv=None) -> None:
         records += run_cells(archs, shapes, multi_pod=mp, rules=overrides,
                              cfg_overrides=cfg_overrides, out=args.out,
                              mesh_shape=mesh_shape, device=args.device,
-                             batch=args.batch, seq=args.seq)
+                             batch=args.batch, seq=args.seq,
+                             zero1=args.zero1)
     n_ok = sum(r["status"] == "ok" for r in records)
     n_skip = sum(r["status"] == "skipped" for r in records)
     n_fail = sum(r["status"] == "failed" for r in records)

@@ -12,6 +12,14 @@ are the reference's float32 0-d arithmetic without a wait for the card.
 On a model sharded over a ``model`` group, the global norm that clips the
 grads is the whole model's: a sharded leaf's squares are summed over the
 group, a replicated leaf (the same on every rank) counts once.
+
+ZeRO-1 (:class:`Zero1`): each leaf whose slot spec cuts a dim over the
+data group (``sharding.specs.slot_specs``) keeps only this data rank's
+slice of its moments.  The step hands the update that slice of the mean
+grad (:func:`scatter_grads`, one reduce_scatter); the update moves that
+slice of the parameter, then one all_gather puts the updated slices back
+into every rank's parameters.  The reference writes the layout as shardings
+and leaves the gather and scatter to XLA; the port runs them explicitly.
 """
 
 from __future__ import annotations
@@ -20,8 +28,10 @@ import math
 from typing import NamedTuple
 
 import torch
+import torch.distributed as dist
 
-from repro_torch.core.distributed import all_reduce
+from repro_torch.core.distributed import (all_gather_group, all_reduce,
+                                         gather_dim, reduce_scatter_group)
 
 # elements of the update's temporaries at once (two float32 buffers)
 CHUNK_ELEMENTS = 1 << 28
@@ -33,25 +43,110 @@ class AdamWState(NamedTuple):
     v: dict              # second moment
 
 
-def adamw_init(params: dict) -> AdamWState:
-    return AdamWState(torch.zeros((), dtype=torch.int32),
-                      {k: torch.zeros_like(p, dtype=torch.float32)
-                       for k, p in params.items()},
-                      {k: torch.zeros_like(p, dtype=torch.float32)
-                       for k, p in params.items()})
+class Zero1(NamedTuple):
+    """ZeRO-1's cut of the slots over a data group: ``dims`` maps each leaf
+    cut to the dim cut (a leaf not named keeps whole slots on every rank);
+    ``group`` is the data dim's group, ``rank`` this rank's index in it,
+    ``size`` its ranks; on a multi-pod mesh ``pod`` is the pods' group,
+    over which the slices are replicated."""
+    dims: dict
+    group: object
+    rank: int
+    size: int
+    pod: object = None
+
+    def local(self, name: str, t: torch.Tensor) -> torch.Tensor:
+        """This rank's slice of ``t`` (a leaf as the model holds it, or its
+        grad; a view), or ``t`` for a leaf not cut."""
+        d = self.dims.get(name)
+        if d is None:
+            return t
+        n = t.shape[d] // self.size
+        return t.narrow(d, self.rank * n, n)
+
+    def whole(self, named: dict) -> dict:
+        """The inverse of :meth:`local` over ``{name: slice}`` on every rank
+        of the group: an all_gather a leaf cut."""
+        return {k: t if k not in self.dims else gather_dim(
+            t.contiguous(), self.group, self.dims[k], "gather_slots")
+                for k, t in named.items()}
 
 
-def global_norm(tensors, split=(), group=None) -> torch.Tensor:
-    """sqrt of the sum of squares over every element of ``tensors``; the
-    tensors whose flag in ``split`` is set are shards, their squares summed
-    over ``group`` too."""
+def adamw_init(params: dict, zero1: Zero1 = None) -> AdamWState:
+    """Zero moments, float32, of the shape of each parameter (with
+    ``zero1``, of this rank's slice of it)."""
+    def zeros():
+        return {k: torch.zeros((zero1.local(k, p) if zero1 else p).shape,
+                               dtype=torch.float32, device=p.device)
+                for k, p in params.items()}
+    return AdamWState(torch.zeros((), dtype=torch.int32), zeros(), zeros())
+
+
+def global_norm(tensors, split=(), group=None, cut=(),
+                cut_group=None) -> torch.Tensor:
+    """sqrt of the sum of squares over every element of the whole tensors
+    that ``tensors`` are parts of: those whose flag in ``split`` is set are
+    shards over ``group`` (the model dim), those whose flag in ``cut`` is
+    set slices over ``cut_group`` (ZeRO-1's data dim); a tensor's squares
+    are summed over each group it is cut over, so each element counts
+    once."""
     norms = torch._foreach_norm([t.float() for t in tensors])
-    if not any(split):
+    if not any(split) and not any(cut):
         return torch.linalg.vector_norm(torch.stack(norms))
     sq = torch.stack(norms) ** 2
-    mask = torch.tensor(split, device=sq.device)
-    part = all_reduce(torch.where(mask, sq, 0.0).sum(), group, "grad_norm")
-    return torch.sqrt(part + torch.where(mask, 0.0, sq).sum())
+    n = len(tensors)
+    s = torch.tensor(list(split) or [False] * n, device=sq.device)
+    c = torch.tensor(list(cut) or [False] * n, device=sq.device)
+
+    def part(mask):
+        return torch.where(mask, sq, 0.0).sum()
+    if any(cut):
+        over = all_reduce(torch.stack([part(s & c), part(~s & c)]),
+                          cut_group, "grad_norm")
+        shards, slices = over[0] + part(s & ~c), over[1]
+    else:
+        shards, slices = part(s), 0.0
+    if any(split):
+        shards = all_reduce(shards, group, "grad_norm")
+    return torch.sqrt(shards + slices + part(~s & ~c))
+
+
+def scatter_grads(grads: dict, zero1: Zero1) -> dict:
+    """The mean over the data ranks of each grad of ``grads`` (leaves cut by
+    ``zero1``), this rank's slice of it: one reduce_scatter of every leaf's
+    slices laid rank-major, then on a multi-pod mesh one all_reduce over
+    the pods.  The ring moves what the all_reduce of these leaves would
+    have, half of it here, half in the all_gather after the update."""
+    k = zero1.size
+    names = list(grads)
+    rows = [grads[n].unflatten(zero1.dims[n], (k, -1))
+            .movedim(zero1.dims[n], 0).reshape(k, -1) for n in names]
+    mine = reduce_scatter_group(torch.cat(rows, 1), zero1.group, 0,
+                                "zero1_reduce_scatter")[0]
+    ranks = k
+    if zero1.pod is not None:
+        mine = all_reduce(mine, zero1.pod, "zero1_all_reduce_pod")
+        ranks *= dist.get_world_size(zero1.pod)
+    mine = mine / ranks
+    parts = mine.split([r.shape[1] for r in rows])
+    return {n: part.view(zero1.local(n, grads[n]).shape)
+            for n, part in zip(names, parts)}
+
+
+def _gather_into(params: dict, zero1: Zero1) -> None:
+    """Every rank's updated slice put back into each cut parameter, in
+    place: one all_gather of them all."""
+    names = [k for k in params if k in zero1.dims]
+    if not names:
+        return
+    mine = [zero1.local(k, params[k]) for k in names]
+    every = all_gather_group(torch.cat([t.reshape(-1) for t in mine]),
+                             zero1.group, "zero1_all_gather")
+    parts = every.split([t.numel() for t in mine], 1)
+    for k, t, part in zip(names, mine, parts):
+        d = zero1.dims[k]
+        params[k].copy_(part.reshape(zero1.size, *t.shape).movedim(0, d)
+                        .flatten(d, d + 1))
 
 
 def cosine_schedule(base_lr: float, warmup: int, total: int):
@@ -71,17 +166,25 @@ def adamw_update(params: dict, grads: dict, state: AdamWState, *, lr_fn,
                  b1: float = 0.9, b2: float = 0.95, eps: float = 1e-8,
                  weight_decay: float = 0.1,
                  clip_norm: float = 1.0, sharded=frozenset(),
-                 model_group=None) -> tuple:
+                 model_group=None, zero1: Zero1 = None) -> tuple:
     """-> (params, new_state, metrics).  Clips ``grads`` to the global norm
     ``clip_norm`` (scaling them in place), then updates ``params`` and the
     moments in place; weight decay applies to every leaf.  The leaves
-    named in ``sharded`` are shards over ``model_group``."""
+    named in ``sharded`` are shards over ``model_group``.  With ``zero1``
+    the state holds the slots :func:`adamw_init` cut, ``grads`` holds this
+    rank's slice of each cut leaf's (:func:`scatter_grads`), the update
+    moves that slice of the parameter, and an all_gather over the data
+    group then fills every rank's parameters."""
+    cut = zero1.dims if zero1 is not None else {}
     names = list(params)
-    p = [params[k] for k in names]
+    p = [zero1.local(k, params[k]) if k in cut else params[k]
+         for k in names]
     g = [grads[k].float() for k in names]
     m = [state.m[k] for k in names]
     v = [state.v[k] for k in names]
-    gnorm = global_norm(g, [k in sharded for k in names], model_group)
+    gnorm = global_norm(g, [k in sharded for k in names], model_group,
+                        [k in cut for k in names],
+                        zero1.group if cut else None)
     scale = torch.clamp(clip_norm / (gnorm + 1e-9), max=1.0)
     torch._foreach_mul_(g, scale)
     step = state.step + 1
@@ -102,6 +205,8 @@ def adamw_update(params: dict, grads: dict, state: AdamWState, *, lr_fn,
         del den
         torch._foreach_add_(upd, p[lo:hi], alpha=weight_decay)
         torch._foreach_add_(p[lo:hi], upd, alpha=-float(lr))
+    if cut:
+        _gather_into(params, zero1)
     return params, AdamWState(step, state.m, state.v), \
         {"grad_norm": gnorm, "lr": lr}
 

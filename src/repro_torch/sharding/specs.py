@@ -21,6 +21,10 @@ Where the rules cut ``seq`` over ``model`` (a config's ``rules``) and the
 sequence divides, the stack runs sequence parallel instead of holding
 activations whole (:func:`seq_axis`, ``models/layers.py``).
 
+ZeRO-1 (``ZERO1_RULES``, :func:`slot_specs`) lays AdamW's moments out as
+their parameters, with the ``embed`` dim also cut over ``data``; a rank
+holds its ``data`` slice of its ``model`` shard (:func:`data_dim`).
+
 ``shard_cache`` / ``gather_cache`` are the decode cache's counterparts of
 ``shard_params`` / ``gather_params``: each leaf is cut by ``spec_for`` of
 its logical axes (``axes.cache_leaf_axes``: ``k``/``v`` over ``kv_seq``,
@@ -54,6 +58,11 @@ DEFAULT_RULES: dict = {
 }
 
 DATA_AXES = ("pod", "data")
+
+# ZeRO-1: the optimizer's slots (AdamW's m and v) cut their d_model dim over
+# the data dim, on top of their parameter's layout (the JAX package's
+# ``launch/dryrun.py`` ``ZERO1_RULES``)
+ZERO1_RULES: dict = {"embed": "data"}
 
 _ctx = threading.local()
 
@@ -262,7 +271,8 @@ def param_specs(axes: dict, shapes: dict, mesh,
 
 def model_specs(model, mesh, rules: Optional[dict] = None) -> dict:
     """Each of ``model``'s parameters' spec, by the port's name: the spec
-    of the reference's leaf (the stacks stacked), less its stack dim.
+    of the reference's leaf (the stacks stacked), less its stack dim.  A
+    model already cut (``shard_params``) is laid out by its whole shapes.
 
     A stack's leading dim is its layers.  The reference's ``param_axes``
     names it so, except for a dense MLP's stacked ``wg``/``wu``/``wd``,
@@ -274,13 +284,47 @@ def model_specs(model, mesh, rules: Optional[dict] = None) -> dict:
     from repro_torch.sharding.axes import param_axes
     named = dict(model.named_parameters())
     groups = reference_groups(named)
-    shapes = {path: ((len(g),) if is_stacked(g[0]) else ())
-              + tuple(named[g[0]].shape) for path, g in groups.items()}
+    cut = getattr(model, "sharding", None)
+
+    def whole(name: str) -> tuple:
+        shape = tuple(named[name].shape)
+        if cut is None:
+            return shape
+        dims = mesh_dims(cut.mesh)
+        return tuple(n * _mesh_size(dims, a)
+                     for n, a in zip(shape, cut.specs[name]))
+    shapes = {path: ((len(g),) if is_stacked(g[0]) else ()) + whole(g[0])
+              for path, g in groups.items()}
     axes = {path: ("layers",) + names[1:] if is_stacked(groups[path][0])
             else names for path, names in param_axes(model, model.cfg).items()}
     ref = param_specs(axes, shapes, mesh, rules)
     return {n: ref[path][1:] if is_stacked(n) else ref[path]
             for path, g in groups.items() for n in g}
+
+
+def slot_specs(model, mesh, rules: Optional[dict] = None) -> dict:
+    """Each parameter's ZeRO-1 slot spec (AdamW's ``m`` and ``v``), by the
+    port's name: ``model_specs`` under ``rules`` with ``ZERO1_RULES`` over
+    them, so a slot keeps its parameter's ``model`` cut and also cuts its
+    ``embed`` dim over ``data`` where ``data`` divides it (and no other dim
+    of the spec took ``data`` first)."""
+    return model_specs(model, mesh, {**(rules or {}), **ZERO1_RULES})
+
+
+def data_dim(spec: tuple) -> Optional[int]:
+    """The dim ``spec`` cuts over the ``data`` mesh axis, or None."""
+    return next((d for d, a in enumerate(spec) if a == "data"), None)
+
+
+def _parts_dim(spec: tuple) -> Optional[int]:
+    """The dim where a leaf's parts lie (``Sharding.parts``): the first one
+    cut over a mesh axis other than the data axes.  A slot's spec also cuts
+    its ``embed`` dim over ``data``, and that dim holds no parts."""
+    for d, axis in enumerate(spec):
+        flat = axis if isinstance(axis, tuple) else (axis,)
+        if axis is not None and any(a not in DATA_AXES for a in flat):
+            return d
+    return None
 
 
 def _index(dims: dict, mesh, axis) -> int:
@@ -294,17 +338,20 @@ def _index(dims: dict, mesh, axis) -> int:
 def shard_of(t: torch.Tensor, spec: tuple, mesh, parts: int = 1
              ) -> torch.Tensor:
     """This rank's shard of the whole tensor ``t`` laid out by ``spec`` (a
-    view when ``parts`` is 1).  With ``parts`` > 1 a sharded dim holds
-    that many equal parts, and the shard is this rank's slice of each, in
-    order: ``[x_r | z_r]`` of ``[x | z]``."""
+    view when ``parts`` is 1).  With ``parts`` > 1 the dim that holds them
+    (the first cut over a model axis) holds that many equal parts, and the
+    shard is this rank's slice of each, in order: ``[x_r | z_r]`` of ``[x |
+    z]``; any other cut dim is sliced whole."""
     dims = mesh_dims(mesh)
+    at = _parts_dim(spec)
     for d, axis in enumerate(spec):
         if axis is not None:
-            piece = t.shape[d] // parts
+            k = parts if d == at else 1
+            piece = t.shape[d] // k
             n = piece // _mesh_size(dims, axis)
             lo = _index(dims, mesh, axis) * n
-            cuts = [t.narrow(d, j * piece + lo, n) for j in range(parts)]
-            t = cuts[0] if parts == 1 else torch.cat(cuts, d)
+            cuts = [t.narrow(d, j * piece + lo, n) for j in range(k)]
+            t = cuts[0] if k == 1 else torch.cat(cuts, d)
     return t
 
 
@@ -313,10 +360,11 @@ def _whole(t: torch.Tensor, spec: tuple, mesh, parts: int = 1
     """The inverse of ``shard_of`` on every rank: an all_gather over each
     sharded dim's axis (of each part)."""
     from repro_torch.core.distributed import all_gather
+    at = _parts_dim(spec)
     for d, axis in enumerate(spec):
         if axis is None:
             continue
-        pieces = list(t.chunk(parts, d))
+        pieces = list(t.chunk(parts if d == at else 1, d))
         for a in reversed(axis if isinstance(axis, tuple) else (axis,)):
             pieces = [torch.cat(list(all_gather(x.contiguous(), mesh, a)), d)
                       for x in pieces]
@@ -335,8 +383,8 @@ def shard_params(model, mesh, rules: Optional[dict] = None):
     parts = {}
     for name, p in model.named_parameters():
         k = param_parts(name)
-        if k > 1 and any(specs[name]):
-            d = next(i for i, a in enumerate(specs[name]) if a is not None)
+        d = _parts_dim(specs[name])
+        if k > 1 and d is not None:
             size = _mesh_size(dims, specs[name][d])
             if p.shape[d] % (k * size):
                 raise ValueError(f"{name}: {k} parts of {p.shape[d]} do not "

@@ -1057,6 +1057,41 @@ def test_nccl_seq_parallel_on_cards_matches_one(card, tmp_path, shape):
                                        atol=5e-4, err_msg=k)
 
 
+@pytest.mark.parametrize("backend", ["gloo", "nccl"])
+def test_zero1_dp_on_the_card_matches_plain_dp(card, tmp_path, backend):
+    """ZeRO-1 at (data, model) = (2, 1), gloo ranks sharing the card or
+    NCCL a card a rank: 3 train steps of a reduced ``qwen2-0.5b`` in
+    float32 compute against plain DP on the same ranks (losses, ``m`` and
+    ``v`` within rtol 1e-5, atol 1e-5 of the leaf's scale; params within
+    rtol 1e-5, atol 1e-6: ``tests/test_torch_zero1.py``) and against one
+    card on the whole batch (rtol 5e-3, atol 5e-4); a rank's slots are the
+    whole moments cut by ``slot_specs``."""
+    import torch_dist
+    from torch_train_ranks import train_span
+
+    from repro_torch.models import ARCHS
+    _mesh_cards(2, backend)
+    cfg = ARCHS["qwen2-0.5b"].reduced(vocab=128)
+    runs = {z: torch_dist.spawn(train_span, 2,
+                                (cfg, 0, 3, 3, 8, 32, False, None, True,
+                                 None, z), tmp_path, device="cuda",
+                                backend=backend)
+            for z in (False, True)}
+    one = train_span(None, card, cfg, 0, 3, 3, 8, 32, float32=True)
+    plain, zero1 = runs[False][0], runs[True][0]
+    assert all(r["slot_err"] == 0.0 for r in runs[True])
+    assert zero1["slot_bytes"] < plain["slot_bytes"]
+    np.testing.assert_allclose(zero1["losses"], plain["losses"], rtol=1e-5)
+    for field in ("params", "m", "v"):
+        for k, w in plain[field].items():
+            np.testing.assert_allclose(
+                zero1[field][k], w, rtol=1e-5, err_msg=f"{field} {k}",
+                atol=1e-6 if field == "params" else 1e-5 * np.abs(w).max())
+    for k, w in one["params"].items():
+        np.testing.assert_allclose(zero1["params"][k], w, rtol=5e-3,
+                                   atol=5e-4, err_msg=k)
+
+
 @pytest.mark.parametrize("shape", ["prefill_32k", "train_4k"])
 def test_dry_run_meters_hold_against_the_card(card, shape):
     """Phase 16 (c) at a smaller depth: ``qwen3-1.7b`` at full width cut to

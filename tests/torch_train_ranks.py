@@ -43,7 +43,8 @@ def compute_dtype(dtype):
 
 def train_span(mesh, dev, cfg, first: int, last: int, total: int,
                batch: int, seq: int, compress: bool = False,
-               ckpt_dir=None, float32: bool = False, rules=None) -> dict:
+               ckpt_dir=None, float32: bool = False, rules=None,
+               zero1: bool = False) -> dict:
     """As ``_train_span``, in float32 compute when ``float32``, under
     ``logical_rules(mesh, rules)`` on a mesh (an MoE's capacity is then the
     global batch's; the ``seq`` rule runs the model sequence parallel)."""
@@ -51,21 +52,27 @@ def train_span(mesh, dev, cfg, first: int, last: int, total: int,
             contextlib.nullcontext(), logical_rules(mesh, rules) \
             if mesh is not None else contextlib.nullcontext():
         return _train_span(mesh, dev, cfg, first, last, total, batch, seq,
-                           compress, ckpt_dir)
+                           compress, ckpt_dir, rules, zero1)
 
 
 def _train_span(mesh, dev, cfg, first: int, last: int, total: int,
                 batch: int, seq: int, compress: bool = False,
-                ckpt_dir=None) -> dict:
+                ckpt_dir=None, rules=None, zero1: bool = False) -> dict:
     """Steps [first, last) of a run of ``total`` steps of ``cfg`` (weights
     from seed 0) on this rank's rows of the global ``lm_batch``; with
     ``mesh`` None, one process on the whole batch.  From ``ckpt_dir``'s
     newest checkpoint when ``first`` > 0; rank 0 writes one at ``last``.
     Returns the losses, the final params and residuals (numpy, by name),
-    this rank's ``COMM`` meters and the step it started from.  On a mesh
-    whose ``model`` dim holds more than one rank the model is cut over it
-    (``shard_params``) and the params come back gathered."""
-    from repro_torch.sharding.specs import gather_params, shard_params
+    the whole moments (``m``, ``v``, by name), this rank's slots' bytes,
+    its ``COMM`` meters of the steps and the step it started from.  On a
+    mesh whose ``model`` dim holds more than one rank the model is cut over
+    it (``shard_params``) and the params come back gathered.  ``zero1`` cuts
+    the slots over the data dim; then the result also holds the largest
+    difference between this rank's slots and the whole moments cut by
+    ``shard_of`` under ``slot_specs``."""
+    from repro_torch.models.convert import unstack_tree
+    from repro_torch.sharding.specs import (gather_params, shard_of,
+                                            shard_params, slot_specs)
     torch.set_num_threads(1)
     group = None if mesh is None else mesh.get_group("data")
     rank = 0 if group is None else dist.get_rank(group)
@@ -78,8 +85,10 @@ def _train_span(mesh, dev, cfg, first: int, last: int, total: int,
     if tp > 1:
         shard_params(model, mesh)
         kw["model_group"] = mesh.get_group("model")
-    step = make_train_step(model, total_steps=total, warmup=2, **kw)
-    state = train_state_init(model, compress=compress)
+    step = make_train_step(model, total_steps=total, warmup=2, zero1=zero1,
+                           **kw)
+    state = train_state_init(model, compress=compress, zero1=zero1,
+                             data_group=group)
     start = 0
     if first:
         tree, start, _ = elastic_restore(
@@ -93,20 +102,79 @@ def _train_span(mesh, dev, cfg, first: int, last: int, total: int,
         state, m = step(state, batch_fn(i))
         losses.append(float(m["loss"]))
         overflow.append(float(m.get("moe_overflow", 0.0)))
+    comm = COMM.snapshot()
     lead = mesh is None or dist.get_rank() == 0
-    if ckpt_dir is not None and (lead or tp > 1):
-        tree = train_state_tree(state, model)
-        if lead:
-            save_checkpoint(ckpt_dir, last, tree)
+    tree = train_state_tree(state, model)   # every rank: it gathers
+    if ckpt_dir is not None and lead:
+        save_checkpoint(ckpt_dir, last, tree)
     params = state.params if tp == 1 else gather_params(state.params,
                                                          model.sharding)
     ef = state.ef_error or {}
-    return {"losses": losses, "overflow": overflow, "start": start,
-            "params": {k: p.detach().cpu().numpy()
-                       for k, p in params.items()},
-            "ef_abs": float(sum(e.abs().sum() for e in ef.values())),
-            "comm": COMM.snapshot(), "written": latest_step(ckpt_dir)
-            if ckpt_dir is not None else None}
+    moments = {f: {k: t.numpy() for k, t in unstack_tree(
+        getattr(tree.opt, f)).items()} for f in ("m", "v")}
+    out = {"losses": losses, "overflow": overflow, "start": start,
+           "params": {k: p.detach().cpu().numpy()
+                      for k, p in params.items()}, **moments,
+           "ef_abs": float(sum(e.abs().sum() for e in ef.values())),
+           "comm": comm, "written": latest_step(ckpt_dir)
+           if ckpt_dir is not None else None,
+           "slot_bytes": sum(t.numel() * t.element_size()
+                             for f in (state.opt.m, state.opt.v)
+                             for t in f.values())}
+    if zero1:
+        specs = slot_specs(model, mesh, rules)
+        parts = model.sharding.parts_of if tp > 1 else (lambda k: 1)
+        out["slot_err"] = max(float((shard_of(torch.from_numpy(
+            moments["m"][k]), specs[k], mesh, parts(k)) - t.cpu()).abs()
+            .max()) for k, t in state.opt.m.items())
+    return out
+
+
+def zero1_adamw_rank(mesh, dev, cases: list) -> list:
+    """ZeRO-1 AdamW over the data group, per case ``(params, axes, grads)``
+    (numpy leaves, their logical axes, and a list over updates of a list
+    over ranks of numpy grads): the slots cut by ``spec_for`` of ``axes``
+    under ``ZERO1_RULES`` over a data dim of the group's ranks; each update
+    takes this rank's grads to the mean's slices (``scatter_grads``, the
+    uncut leaves all_reduced) and runs ``adamw_update``.  Per case and
+    update: the params, the gathered ``m`` and ``v``, the grad norm and the
+    lr; per case the slots' shapes."""
+    from repro_torch.core.distributed import all_reduce
+    from repro_torch.optim import adamw as TA
+    from repro_torch.sharding.specs import (DEFAULT_RULES, ZERO1_RULES,
+                                            data_dim, spec_for)
+    torch.set_num_threads(1)
+    group = mesh.get_group("data")
+    k, r = dist.get_world_size(group), dist.get_rank(group)
+    rules = {**DEFAULT_RULES, **ZERO1_RULES}
+    out = []
+    for params, axes, grads in cases:
+        dims = {n: data_dim(spec_for(axes[n], v.shape, {"data": k}, rules))
+                for n, v in params.items()}
+        zero1 = TA.Zero1({n: d for n, d in dims.items() if d is not None},
+                         group, r, k)
+        p = {n: torch.from_numpy(v.copy()).to(dev) for n, v in params.items()}
+        state = TA.adamw_init(p, zero1)
+        shapes = {n: tuple(t.shape) for n, t in state.m.items()}
+        steps = []
+        for g in grads:
+            mine = {n: torch.from_numpy(v).to(dev) for n, v in g[r].items()}
+            cut = TA.scatter_grads({n: mine[n] for n in zero1.dims}, zero1)
+            rest = {n: all_reduce(t, group) / k for n, t in mine.items()
+                    if n not in zero1.dims}
+            p, state, met = TA.adamw_update(
+                p, {**rest, **cut}, state,
+                lr_fn=TA.cosine_schedule(1e-2, 1, 10), zero1=zero1)
+            steps.append({
+                "params": {n: t.cpu().numpy().copy() for n, t in p.items()},
+                "m": {n: t.cpu().numpy().copy() for n, t in
+                      zero1.whole(state.m).items()},
+                "v": {n: t.cpu().numpy().copy() for n, t in
+                      zero1.whole(state.v).items()},
+                "grad_norm": float(met["grad_norm"]),
+                "lr": float(met["lr"])})
+        out.append({"slots": shapes, "steps": steps})
+    return out
 
 
 def ef_rank(mesh, dev, grads: list, errors: list) -> tuple:
