@@ -1,0 +1,52 @@
+"""Fixtures of the benchmark's CPU tests: a copy of the benchmark whose
+configurations are cut to a size the CPU runs in seconds."""
+
+from __future__ import annotations
+
+import json
+import shutil
+import sys
+from pathlib import Path
+
+import pytest
+
+ROOT = Path(__file__).resolve().parents[2]
+for p in (str(ROOT), str(ROOT / "src")):
+    if p not in sys.path:
+        sys.path.insert(0, p)
+
+# the cut each configuration gets on the CPU (every other key kept)
+TINY = {
+    "s51-2e26": {"rows": [4096, 4096], "keys_per_dataset": 256,
+                 "query": {"fp_rate": 0.01, "max_strata": 512,
+                           "b_max": 256, "batch_slots": 4}},
+    "tpch-sf30": {"orders_rows": 3000, "customer_rows": 300,
+                  "customers_with_orders": 200,
+                  "query": {"fp_rate": 0.01, "max_strata": 256,
+                            "b_max": 64, "batch_slots": 4}},
+}
+
+
+def tiny_tree(dest: Path) -> Path:
+    """A root holding the benchmark with its configurations cut to TINY and
+    each mix's verified sample drawn from the answers to the clients' first
+    requests (a window on the CPU may answer few more)."""
+    shutil.copytree(ROOT / "portbench", dest / "portbench",
+                    ignore=shutil.ignore_patterns("tests", "__pycache__"))
+    manifest = json.loads((ROOT / "BENCHMARK.json").read_text())
+    for c in manifest["configs"]:
+        path = dest / c["file"]
+        cfg = json.loads(path.read_text())
+        cfg.update(TINY[c["name"]])
+        path.write_text(json.dumps(cfg))
+    for path in (dest / "portbench" / "traffic").glob("*.json"):
+        mix = json.loads(path.read_text())
+        mix.update(verify_span=mix["clients"], verify_sample=4)
+        path.write_text(json.dumps(mix))
+    (dest / "BENCHMARK.json").write_text(json.dumps(manifest))
+    return dest
+
+
+@pytest.fixture
+def tiny_root(tmp_path):
+    return tiny_tree(tmp_path)
