@@ -914,9 +914,11 @@ class JoinServer:
         self.tracer = NULL_TRACER if tracer is None else tracer
         self.trace_name = "engine"   # lane/replica label for step spans
         self.diagnostics = ServerDiagnostics(registry=metrics)
-        # per-step scratch the tracer consumes (None while tracing is off)
-        self._stage_trace: Optional[dict] = None
-        self._recon_batch: Optional[dict] = None
+        # per-step scratch the tracer consumes (None while tracing is off):
+        # the step's stage spans, copied onto each request's lane, and the
+        # tensors its byte-reconciliation records read after the step
+        self._stage_spans: Optional[list] = None
+        self._recon_inputs: Optional[dict] = None
         # completion callback (request -> None), fired by _notify_done for
         # every finished or shed request; the async tier installs its
         # future-resolver here
@@ -1367,13 +1369,18 @@ class JoinServer:
         """Serve one batch of same-shape-class queries; returns batch size."""
         if not self.queue:
             return 0
-        t_form = time.perf_counter()
-        cls, batch = self._take_batch()
+        tr, lane = self.tracer, self.trace_name
+        with tr.span("batch-formation", cat="batch", tid=lane) as sp:
+            cls, batch = self._take_batch()
+            path = self._path_of(cls)
+            sp.set(batch=len(batch), path=path)
         t_dispatch = time.perf_counter()
         self.diagnostics.steps += 1
         self.diagnostics.max_batch = max(self.diagnostics.max_batch,
                                          len(batch))
-        self._run_batch(cls, batch)
+        with tr.span("step", cat="serve", tid=lane, batch=len(batch),
+                     path=path):
+            self._run_batch(cls, batch)
         t_done = time.perf_counter()
         for req in batch:
             req._dispatch_t = t_dispatch
@@ -1389,9 +1396,9 @@ class JoinServer:
             self.diagnostics.shuffled_bytes_saved += float(
                 d.shuffled_bytes_repartition - d.shuffled_bytes_filtered)
             self._notify_done(req)
-        if self.tracer.enabled:
-            self._trace_step(cls, batch, t_form, t_dispatch, t_done)
-        self._stage_trace = self._recon_batch = None
+        if tr.enabled:
+            self._trace_step(cls, batch)
+        self._stage_spans = self._recon_inputs = None
         return len(batch)
 
     def _path_of(self, cls: ShapeClass) -> str:
@@ -1402,23 +1409,16 @@ class JoinServer:
             return f"mesh{self.mesh_k}/{cls.serve_mode}"
         return "single"
 
-    def _trace_step(self, cls: ShapeClass, batch: list[JoinRequest],
-                    t_form: float, t_dispatch: float, t_done: float) -> None:
-        """Emit the step's spans: one engine-lane group (batch-formation,
-        step, stage timings) plus a complete per-query span tree (query ->
-        queued/execute -> prepare/sample|exact -> complete) on a lane per
-        request instance, and the per-query byte reconciliation records
-        collected by ``_run_batch``."""
-        tr, lane, path = self.tracer, self.trace_name, self._path_of(cls)
-        tr.event("batch-formation", t_form, t_dispatch - t_form, cat="batch",
-                 tid=lane, batch=len(batch), path=path)
-        tr.event("step", t_dispatch, t_done - t_dispatch, cat="serve",
-                 tid=lane, batch=len(batch), path=path)
-        stages = self._stage_trace or {}
-        for name, (ts, dur, extra) in stages.items():
-            tr.event(name, ts, dur, cat="stage", tid=lane, path=path,
-                     **extra)
-        recs = self._recon_batch or {}
+    def _trace_step(self, cls: ShapeClass, batch: list[JoinRequest]) -> None:
+        """After a traced step (its engine-lane spans were recorded live):
+        a complete per-query span tree (query -> queued/execute ->
+        prepare/sample|exact -> complete) on a lane per request instance,
+        its stage spans copied from the engine's, and the per-query byte
+        reconciliation records, computed here, off the step's clock."""
+        tr, path = self.tracer, self._path_of(cls)
+        stages = {sp.name: sp for sp in self._stage_spans or ()}
+        recs = self._recon_records(cls, batch, **self._recon_inputs) \
+            if self._recon_inputs is not None else {}
         for req in batch:
             tid = f"q:{req.query_id}#{req._span_id}"
             base = dict(query_id=req.query_id, qspan=req._span_id, path=path)
@@ -1435,17 +1435,18 @@ class JoinServer:
             tr.event("execute", req._dispatch_t,
                      req._complete_t - req._dispatch_t, cat="query", tid=tid,
                      **base)
-            for name, (ts, dur, extra) in stages.items():
-                tr.event(name, ts, dur, cat="stage", tid=tid, **base,
-                         **extra)
+            for sp in stages.values():
+                tr.event(sp.name, sp.t0, sp.dur, cat="stage", tid=tid,
+                         **{**base, **sp.args})
             rec = recs.get(id(req))
             if rec is not None:
                 tr.note_recon(rec)
                 # zero-duration sub-phase markers carrying the byte pairs
                 # (the filter exchange and the shuffle are modeled costs of
                 # the prepare stage, so they mark, not span)
-                p_ts, p_dur, _ = stages.get("prepare",
-                                            (req._dispatch_t, 0.0, None))
+                prep = stages.get("prepare")
+                p_ts, p_dur = (req._dispatch_t, 0.0) if prep is None \
+                    else (prep.t0, prep.dur)
                 pairs = {p["name"]: p for p in rec["pairs"]}
                 fe = pairs.get("filter_exchange_bytes")
                 if fe is not None:
@@ -1787,7 +1788,11 @@ class JoinServer:
                 continue
             sigma = None
             if budget.error is not None and self.sigma.has(req.query_id):
-                sigma = self.sigma.lookup(req.query_id, skeys[i])
+                with self.tracer.span(
+                        "sigma-lookup", cat="host", tid=self.trace_name,
+                        strata=len(skeys[i]), query_id=req.query_id,
+                        qspan=req._span_id):
+                    sigma = self.sigma.lookup(req.query_id, skeys[i])
             b_rows.append(decide_sample_sizes(
                 budget, strata_slice(i), self.cost_model, d_filter, sigma,
                 budget.confidence))
@@ -1833,10 +1838,25 @@ class JoinServer:
                 JoinDiagnostics(sample_draws=stats_i.n_sampled.sum(),
                                 sampled=True, **diag),
                 stats=stats_i, strata=strata_i)
-            sig = measured_sigma(stats_i).cpu().numpy()
-            ok = (stats_i.valid & (stats_i.n_sampled > 1)).cpu().numpy()
-            self.sigma.update(req.query_id, skeys[i], sig, ok)
+            sig, ok = self._to_host(
+                "sigma", measured_sigma(stats_i),
+                stats_i.valid & (stats_i.n_sampled > 1))
+            with self.tracer.span(
+                    "sigma-update", cat="host", tid=self.trace_name,
+                    strata=len(skeys[i]), query_id=req.query_id,
+                    qspan=req._span_id) as sp:
+                if self.tracer.enabled:
+                    sp.set(kept=int(ok.sum()))
+                self.sigma.update(req.query_id, skeys[i], sig, ok)
             self.diagnostics.sampled_queries += 1
+
+    def _to_host(self, what: str, *tensors) -> list:
+        """The tensors copied to the host (numpy arrays), under one
+        ``to-host`` span of their bytes."""
+        with self.tracer.span("to-host", cat="host", tid=self.trace_name,
+                              bytes=sum(t.nbytes for t in tensors),
+                              what=what):
+            return [t.cpu().numpy() for t in tensors]
 
     def _stage_builders(self, cls: ShapeClass, num_blocks: int) -> dict:
         """Per-route stage builders.
@@ -1885,14 +1905,32 @@ class JoinServer:
                     exact=partial(_make_exact, cls.agg, cls.expr))
 
     def _run_batch(self, cls: ShapeClass, batch: list[JoinRequest]) -> None:
-        """One engine step: one call per stage for the whole batch."""
-        B, rels_b, words_b, seeds, fseeds, num_blocks = \
-            self._batch_inputs(cls, batch)
+        """One engine step: one call per stage for the whole batch.
+
+        Traced, the step's parts are live spans on the engine lane, inside
+        its ``step``: ``batch-inputs``, ``compile`` (a fresh prepare's
+        warm-up), ``prepare``, ``to-host`` (each copy to the host: the
+        strata populations and keys; on a mesh the bucket overflow and the
+        meters), ``decide`` (with a ``sigma-lookup`` a registry lookup),
+        ``sample`` / ``exact``, and ``finish`` (with each sampled request's
+        ``to-host`` of its sigmas and a ``sigma-update``)."""
+        tr, lane, path = self.tracer, self.trace_name, self._path_of(cls)
+        with tr.span("batch-inputs", cat="host", tid=lane) as sp:
+            B, rels_b, words_b, seeds, fseeds, num_blocks = \
+                self._batch_inputs(cls, batch)
+            sp.set(slots=B, real=len(batch))
         n_real, device = len(batch), seeds.device
         builders = self._stage_builders(cls, num_blocks)
-        # stage-timing scratch for the tracer ({} only while tracing, so the
-        # untraced path waits for the device no more than it must)
-        stages = {} if self.tracer.enabled else None
+        # the step's stage spans, for the requests' lanes ([] only while
+        # tracing, so the untraced path waits for the device no more than it
+        # must)
+        stages = [] if tr.enabled else None
+
+        def stage(name: str, **args):
+            sp = tr.span(name, cat="stage", tid=lane, path=path, **args)
+            if stages is not None:
+                stages.append(sp)
+            return sp
 
         prepare, fresh = self._executable("prepare", cls, B,
                                           builders["prepare"])
@@ -1903,65 +1941,60 @@ class JoinServer:
             # skew every latency budget on the first batch of a class.  A
             # mesh class loads no kernel, and its warm-up would shuffle
             # every slot's rows once more
-            tc = time.perf_counter()
-            prepare(rels_b, words_b, fseeds, n_real)
+            with stage("compile", stage="prepare"):
+                prepare(rels_b, words_b, fseeds, n_real)
+                sync(device)
+        with stage("prepare"):
+            t0 = time.perf_counter()
+            prep = prepare(rels_b, words_b, fseeds, n_real)
             sync(device)
-            if stages is not None:
-                stages["compile"] = (tc, time.perf_counter() - tc,
-                                     {"stage": "prepare"})
-        t0 = time.perf_counter()
-        prep = prepare(rels_b, words_b, fseeds, n_real)
-        sync(device)
-        d_filter = time.perf_counter() - t0
+            d_filter = time.perf_counter() - t0
         self.diagnostics.filter_s += d_filter
-        if stages is not None:
-            stages["prepare"] = (t0, d_filter, {})
 
-        population = prep.population.cpu().numpy()
-        skeys = prep.strata.keys.cpu().numpy()
+        population, = self._to_host("population", prep.population)
+        skeys, = self._to_host("strata-keys", prep.strata.keys)
 
         def slice_i(i):
             return _slot(prep.strata, i)
 
-        sampled_idx, exact_idx, b_rows = self._decide_b_rows(
-            batch, B, population, skeys, slice_i, d_filter)
+        with tr.span("decide", cat="host", tid=lane) as sp:
+            sampled_idx, exact_idx, b_rows = self._decide_b_rows(
+                batch, B, population, skeys, slice_i, d_filter)
+            sp.set(sampled=len(sampled_idx), exact=len(exact_idx))
 
         # -- one call per stage, whole batch --------------------------------
         value = err = cnt = dof = stats = e_est = e_cnt = None
         if sampled_idx:
             sample, _ = self._executable("sample", cls, B,
                                          builders["sample"])
-            ts = time.perf_counter()
-            value, err, cnt, dof, stats = sample(
-                prep.sorted_rels, prep.strata, torch.stack(b_rows),
-                (seeds + 1) & MASK, n_real)
-            if stages is not None:
-                sync(device)
-                stages["sample"] = (ts, time.perf_counter() - ts,
-                                    {"queries": len(sampled_idx)})
+            with stage("sample", queries=len(sampled_idx)):
+                value, err, cnt, dof, stats = sample(
+                    prep.sorted_rels, prep.strata, torch.stack(b_rows),
+                    (seeds + 1) & MASK, n_real)
+                if stages is not None:
+                    sync(device)
         if exact_idx:
             exact, _ = self._executable("exact", cls, B, builders["exact"])
-            ts = time.perf_counter()
-            e_est, e_cnt = exact(prep.sorted_rels, prep.strata, n_real)
-            if stages is not None:
-                sync(device)
-                stages["exact"] = (ts, time.perf_counter() - ts,
-                                   {"queries": len(exact_idx)})
+            with stage("exact", queries=len(exact_idx)):
+                e_est, e_cnt = exact(prep.sorted_rels, prep.strata, n_real)
+                if stages is not None:
+                    sync(device)
 
         # kernel classes run the single-device pipeline even on a mesh
         # server (a plain PrepareOut: no shuffle buckets, nothing dropped)
         meshless = self.mesh is None or cls.use_kernels
         if cls.use_kernels:
             self.diagnostics.kernel_queries += len(batch)
-        dropped = None if meshless else \
-            prep.bucket_overflow.cpu().numpy().astype(np.float64)
+        dropped = None if meshless else self._to_host(
+            "bucket-overflow", prep.bucket_overflow)[0].astype(np.float64)
         fbytes = num_blocks * bloom.WORDS_PER_BLOCK * 4
-        self._finish_batch(
-            batch, strata_slice=slice_i, live_counts=prep.live_counts,
-            total_counts=prep.total_counts, fbytes=fbytes, d_filter=d_filter,
-            exact_idx=exact_idx, e_est=e_est, e_cnt=e_cnt, value=value,
-            err=err, cnt=cnt, dof=dof, stats=stats, skeys=skeys,
-            dropped=dropped)
+        with tr.span("finish", cat="host", tid=lane, requests=len(batch)):
+            self._finish_batch(
+                batch, strata_slice=slice_i, live_counts=prep.live_counts,
+                total_counts=prep.total_counts, fbytes=fbytes,
+                d_filter=d_filter, exact_idx=exact_idx, e_est=e_est,
+                e_cnt=e_cnt, value=value, err=err, cnt=cnt, dof=dof,
+                stats=stats, skeys=skeys, dropped=dropped)
         self.diagnostics.filter_exchange_bytes_model += \
             len(batch) * float(filter_exchange_bytes(cls.n_inputs, fbytes))
         if not meshless:
@@ -1969,21 +2002,28 @@ class JoinServer:
             # (always 0 under the lossless exact-parity default), pad slots
             # excluded
             d = self.diagnostics
-            d.dist_shuffled_tuple_bytes += float(
-                prep.shuffled_tuple_bytes[:n_real].sum())
+            tup, dev_bytes, dev_dropped = self._to_host(
+                "meters", prep.shuffled_tuple_bytes[:n_real].sum(),
+                prep.device_shuffled_bytes[:n_real].sum(0),
+                prep.device_dropped[:n_real].sum(0))
+            d.dist_shuffled_tuple_bytes += float(tup)
             d.per_device_shuffled_bytes = d.per_device_shuffled_bytes \
-                + prep.device_shuffled_bytes[:n_real].sum(0).cpu().numpy()
+                + dev_bytes
             d.dist_dropped_tuples += float(dropped[:n_real].sum())
             d.per_device_dropped_tuples = d.per_device_dropped_tuples \
-                + prep.device_dropped[:n_real].sum(0).cpu().numpy()
+                + dev_dropped
             d.dist_wire_bytes_model += n_real * self._wire_bytes_model(cls)
         if self.mesh is not None:
             for wkey in self._step_words:
                 self._ranks.release_words(wkey)
         if stages is not None:
-            self._stage_trace = stages
-            self._recon_batch = self._recon_records(cls, batch, prep, fbytes,
-                                                    meshless)
+            self._stage_spans = stages
+            # the tensors the reconciliation records read, after the step
+            self._recon_inputs = dict(
+                live=prep.live_counts[:n_real], fbytes=fbytes,
+                tup=None if meshless else prep.shuffled_tuple_bytes[:n_real],
+                dev=None if meshless
+                else prep.device_shuffled_bytes[:n_real])
 
     def _wire_bytes_model(self, cls: ShapeClass) -> float:
         """Static per-rank collective bytes for ONE query through the mesh
@@ -2004,18 +2044,20 @@ class JoinServer:
             merge = ((1 + n) + 7 + n) * cls.max_strata * 4 * (k - 1)
         return float(a2a + merge)
 
-    def _recon_records(self, cls: ShapeClass, batch: list[JoinRequest],
-                       prep, fbytes: int, meshless: bool) -> dict:
-        """Per-query byte-reconciliation records (traced steps only): each
-        modeled cost paired with its metered counterpart, keyed by request
-        identity for ``_trace_step``.  A single-device or kernel query
-        moves no tuples over a wire, so its pairs are unmetered."""
-        n_real, k = len(batch), self.mesh_k
-        live = prep.live_counts[:n_real].cpu().numpy()
-        tup = dev = None
+    def _recon_records(self, cls: ShapeClass, batch: list[JoinRequest], *,
+                       live, fbytes: int, tup=None, dev=None) -> dict:
+        """Per-query byte-reconciliation records (traced steps only, after
+        the step): each modeled cost paired with its metered counterpart,
+        keyed by request identity for ``_trace_step``.  ``live``, ``tup``
+        and ``dev`` are the step's live counts and, on a mesh, its shuffled
+        tuple and per-device bytes, real slots only.  A single-device or
+        kernel query moves no tuples over a wire, so its pairs are
+        unmetered."""
+        k = self.mesh_k
+        meshless = tup is None
+        live = live.cpu().numpy()
         if not meshless:
-            tup = prep.shuffled_tuple_bytes[:n_real].cpu().numpy()
-            dev = prep.device_shuffled_bytes[:n_real].cpu().numpy()
+            tup, dev = tup.cpu().numpy(), dev.cpu().numpy()
         path, wire = self._path_of(cls), self._wire_bytes_model(cls)
         fe_model = float(filter_exchange_bytes(cls.n_inputs, fbytes))
         out = {}

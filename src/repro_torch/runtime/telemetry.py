@@ -7,12 +7,17 @@ shared by the serving layers (`JoinServer` now; the streaming and async
 tiers when they are ported):
 
 * `Tracer` — per-query spans (ingest, batch-formation, compile, prepare,
-  sample / exact, complete) recorded into a bounded ring.  Disabled
-  tracers cost one attribute read per call site (`span()` hands back a
-  shared no-op span; `instant()`/`event()` return immediately), so the
-  hot path is unchanged with tracing off.  Rings export as Chrome
-  trace-event JSON (`chrome_trace`) viewable in Perfetto / chrome://tracing,
-  tagged with replica identity.
+  sample / exact, complete) and the served step's host spans on the engine
+  lane (batch-inputs, to-host, decide with its sigma-lookups, finish with
+  its sigma-updates) recorded into a bounded ring.  Disabled tracers cost
+  one attribute read per call site (`span()` hands back a shared no-op
+  span; `instant()`/`event()` return immediately), so the hot path is
+  unchanged with tracing off.  While a `torch.profiler` session runs, an
+  enabled tracer's live spans also open `record_function` ranges of their
+  names, so the profiler's trace carries them on its own clock; the ranges
+  record nothing in the ring.  Rings export as Chrome trace-event JSON
+  (`chrome_trace`) viewable in Perfetto / chrome://tracing, tagged with
+  replica identity.
 
 * `MetricsRegistry` — named counters / gauges / histograms.  The server
   diagnostics route their fields through one registry, which is therefore
@@ -31,6 +36,7 @@ from __future__ import annotations
 
 import json
 import re
+import sys
 import threading
 from collections import OrderedDict, deque
 from time import perf_counter
@@ -222,27 +228,48 @@ class _NullSpan:
 NULL_SPAN = _NullSpan()
 
 
-class Span:
-    """Context manager recording one duration event on exit."""
+def _profiler_range(name: str):
+    """An open `torch.profiler.record_function` range named `name` while a
+    profiler session runs on this thread, else None.  Torch comes from
+    `sys.modules`: a process that never imported it runs no profiler, and
+    this module still imports with numpy alone."""
+    torch = sys.modules.get("torch")
+    if torch is None or not torch.autograd._profiler_enabled():
+        return None
+    rng = torch.autograd.profiler.record_function(name)
+    rng.__enter__()
+    return rng
 
-    __slots__ = ("_tracer", "name", "cat", "tid", "args", "t0")
+
+class Span:
+    """Context manager recording one duration event on exit (``t0`` and
+    ``dur`` stay on the span), mirrored as a profiler range of the same
+    name while a profiler session runs."""
+
+    __slots__ = ("_tracer", "name", "cat", "tid", "args", "t0", "dur",
+                 "_range")
 
     def __init__(self, tracer: "Tracer", name: str, cat: str, tid: str,
                  args: Dict[str, Any]):
         self._tracer = tracer
         self.name, self.cat, self.tid, self.args = name, cat, tid, args
-        self.t0 = 0.0
+        self.t0 = self.dur = 0.0
+        self._range = None
 
     def set(self, **kw) -> None:
         self.args.update(kw)
 
     def __enter__(self):
+        self._range = _profiler_range(self.name)
         self.t0 = perf_counter()
         return self
 
     def __exit__(self, *exc):
-        self._tracer.event(self.name, self.t0, perf_counter() - self.t0,
-                           cat=self.cat, tid=self.tid, **self.args)
+        self.dur = perf_counter() - self.t0
+        if self._range is not None:
+            self._range.__exit__(None, None, None)
+        self._tracer.event(self.name, self.t0, self.dur, cat=self.cat,
+                           tid=self.tid, **self.args)
         return False
 
 

@@ -315,6 +315,131 @@ def test_tracing_off_serves_bit_identical_and_silent(use_kernels):
     assert off.reconciliation_report()["paths"] == {}
 
 
+# -- the served step's host spans ----------------------------------------------
+
+HOST_SPANS = ("batch-inputs", "to-host", "decide", "sigma-lookup", "finish",
+              "sigma-update")
+
+
+def _host_step(use_kernels, tracer, trace=True):
+    """A server whose registry holds ``t0/q``'s sigmas (an untraced first
+    request), then one step of a sampled ``t0/q`` and an exact ``t1/q``,
+    traced if ``trace``; returns (server, sampled, exact request)."""
+    tracer.enabled = False
+    srv = JoinServer(batch_slots=2, tracer=tracer)
+    srv.submit(_req(3, qid="t0/q", use_kernels=use_kernels))
+    srv.run()
+    assert srv.sigma.has("t0/q")
+    tracer.enabled = trace
+    a = srv.submit(_req(4, qid="t0/q", use_kernels=use_kernels))
+    b = srv.submit(_req(5, qid="t1/q", budget=QueryBudget(),
+                        use_kernels=use_kernels))
+    assert srv.step() == 2
+    return srv, a, b
+
+
+def _engine_tree(tr):
+    return span_tree(e for e in tr.events if e["tid"] == "engine")
+
+
+@pytest.mark.parametrize("use_kernels", [False, True],
+                         ids=["plain", "kernel"])
+def test_step_host_spans_nest_and_count(use_kernels):
+    from repro_torch.core.join import measured_sigma
+    tr = Tracer(enabled=True)
+    srv, a, b = _host_step(use_kernels, tr)
+    roots = _engine_tree(tr)
+    assert [n["name"] for n in roots] == ["batch-formation", "step"]
+    step = roots[1]
+    kids = [c["name"] for c in step["children"]]
+    assert kids == ["batch-inputs", "compile", "prepare", "to-host",
+                    "to-host", "decide", "sample", "exact", "finish"]
+    by = {}
+    for c in step["children"]:
+        by.setdefault(c["name"], []).append(c)
+    assert not by["batch-inputs"][0]["children"]
+    assert by["batch-inputs"][0]["args"]["slots"] == 2
+    assert by["batch-inputs"][0]["args"]["real"] == 2
+    decide, finish = by["decide"][0], by["finish"][0]
+    assert (decide["args"]["sampled"], decide["args"]["exact"]) == (1, 1)
+    assert [c["name"] for c in decide["children"]] == ["sigma-lookup"]
+    assert finish["args"]["requests"] == 2
+    assert [c["name"] for c in finish["children"]] == ["to-host",
+                                                       "sigma-update"]
+    # counts at the boundaries: the slot's strata, the copies' bytes
+    res = a.result
+    S = res.strata.keys.shape[0]
+    assert S == MS
+    pop, keys = (c["args"] for c in by["to-host"])
+    assert (pop["what"], keys["what"]) == ("population", "strata-keys")
+    assert pop["bytes"] == 2 * S * res.strata.population.element_size()
+    assert keys["bytes"] == 2 * S * res.strata.keys.element_size()
+    ok = res.stats.valid & (res.stats.n_sampled > 1)
+    sig = finish["children"][0]["args"]
+    assert sig["what"] == "sigma"
+    assert sig["bytes"] == measured_sigma(res.stats).nbytes + ok.nbytes
+    look = decide["children"][0]["args"]
+    upd = finish["children"][1]["args"]
+    assert look["strata"] == upd["strata"] == S
+    assert upd["kept"] == int(ok.sum()) > 0
+    for args in (look, upd):
+        assert args["query_id"] == "t0/q" and args["qspan"] == a._span_id
+    assert a._span_id is not None and b._span_id != a._span_id
+    # the host part is the step less its direct children
+    assert sum(c["dur"] for c in step["children"]) <= step["dur"]
+    validate_chrome_trace(chrome_trace(tr))
+
+
+@pytest.mark.parametrize("use_kernels", [False, True],
+                         ids=["plain", "kernel"])
+def test_step_spans_mirror_onto_the_profiler(use_kernels):
+    from torch.profiler import ProfilerActivity, profile
+    tr = Tracer(enabled=True)
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        _host_step(use_kernels, tr)
+    engine = [e["name"] for e in tr.events
+              if e["tid"] == "engine" and e["dur"] is not None]
+    assert set(HOST_SPANS) <= set(engine)
+    mirrored = [e.name for e in prof.events() if e.name in set(engine)]
+    assert sorted(mirrored) == sorted(engine)
+    # the ranges are not in the ring: the same step unprofiled records the
+    # same events
+    plain = Tracer(enabled=True)
+    _host_step(use_kernels, plain)
+    assert [(e["name"], e["tid"]) for e in plain.events] == \
+        [(e["name"], e["tid"]) for e in tr.events]
+    # with the tracer disabled nothing is mirrored, and nothing recorded
+    off = Tracer(enabled=False)
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        _host_step(use_kernels, off, trace=False)
+    assert not {e.name for e in prof.events()} & set(engine)
+    assert not off.events
+
+
+@pytest.mark.parametrize("use_kernels", [False, True],
+                         ids=["plain", "kernel"])
+def test_untraced_step_copies_only_its_inputs(use_kernels, monkeypatch):
+    """With tracing off a step of a sampled and an exact request copies to
+    the host the strata populations and keys, and the sampled request's
+    sigmas and validity: four copies, none for telemetry."""
+    import torch
+    srv = JoinServer(batch_slots=2)
+    srv.submit(_req(3, qid="t0/q", use_kernels=use_kernels))
+    srv.run()
+    srv.submit(_req(4, qid="t0/q", use_kernels=use_kernels))
+    srv.submit(_req(5, qid="t1/q", budget=QueryBudget(),
+                    use_kernels=use_kernels))
+    copies = []
+    cpu = torch.Tensor.cpu
+
+    def counted(t, *a, **k):
+        copies.append(tuple(t.shape))
+        return cpu(t, *a, **k)
+    monkeypatch.setattr(torch.Tensor, "cpu", counted)
+    assert srv.step() == 2
+    assert copies == [(2, MS), (2, MS), (MS,), (MS,)]
+
+
 # -- trace_dump CLI surface --------------------------------------------------
 
 def test_dump_and_summarize(tmp_path, capsys, monkeypatch):
