@@ -20,6 +20,7 @@ from __future__ import annotations
 
 import json
 import time
+from collections.abc import Mapping, MutableMapping
 from dataclasses import dataclass, field
 from typing import NamedTuple
 
@@ -134,32 +135,166 @@ def predicted_latency(cost: CostModel, b_i, d_dt) -> torch.Tensor:
         + cost.epsilon + d_dt
 
 
+_I64 = np.iinfo(np.int64)
+
+
+class QuerySigmas(Mapping):
+    """One query's sigmas as columns, read as ``{int key: float sigma}``.
+
+    ``key_array`` (int64) and ``sigmas`` (float64, so a value set as a Python
+    float reads back exactly) are in first-insertion order; ``sorted_keys``
+    is the keys' sorted view and ``order`` its permutation into that order.
+    Never changed in place: :meth:`merged` returns new columns, so a mapping
+    read from :attr:`SigmaRegistry.table` keeps what it held."""
+
+    def __init__(self, keys=(), sigmas=(), order=None, sorted_keys=None):
+        self.key_array = np.asarray(keys, np.int64)
+        self.sigmas = np.asarray(sigmas, np.float64)
+        self.order = np.argsort(self.key_array, kind="stable") \
+            if order is None else order
+        self.sorted_keys = self.key_array[self.order] \
+            if sorted_keys is None else sorted_keys
+
+    @classmethod
+    def of(cls, sigmas: Mapping) -> "QuerySigmas":
+        """``sigmas`` ({int key: float}) as columns."""
+        if isinstance(sigmas, QuerySigmas):
+            return sigmas
+        return cls([int(k) for k in sigmas],
+                   [float(v) for v in sigmas.values()])
+
+    def find(self, keys: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+        """Each int64 key's index in the columns, and whether it is there
+        (the index of a missing key is any valid one)."""
+        if not len(self.key_array):
+            return (np.zeros(keys.shape, np.int64),
+                    np.zeros(keys.shape, bool))
+        pos = np.minimum(np.searchsorted(self.sorted_keys, keys),
+                         len(self.sorted_keys) - 1)
+        return self.order[pos], self.sorted_keys[pos] == keys
+
+    def merged(self, keys: np.ndarray, sigmas: np.ndarray) -> "QuerySigmas":
+        """These columns with each int64 key of ``keys`` set to its float64
+        sigma (a key given twice takes its last): a stored key keeps its
+        place, a new one goes after the stored ones in the order of its
+        first occurrence."""
+        if not len(keys):
+            return self
+        uniq, first = np.unique(keys, return_index=True)
+        last = len(keys) - 1 - np.unique(keys[::-1], return_index=True)[1]
+        at, hit = self.find(uniq)
+        sig = self.sigmas.copy()
+        sig[at[hit]] = sigmas[last[hit]]
+        new = ~hit
+        fresh, arrival = uniq[new], np.argsort(first[new])
+        rank = np.empty(len(fresh), np.int64)
+        rank[arrival] = np.arange(len(fresh))
+        # ``fresh`` is sorted, so one insertion each merges the sorted view
+        ins = np.searchsorted(self.sorted_keys, fresh)
+        return QuerySigmas(
+            np.concatenate([self.key_array, fresh[arrival]]),
+            np.concatenate([sig, sigmas[last[new]][arrival]]),
+            np.insert(self.order, ins, len(self.key_array) + rank),
+            np.insert(self.sorted_keys, ins, fresh))
+
+    def __getitem__(self, key) -> float:
+        if isinstance(key, (int, np.integer)) and _I64.min <= key <= _I64.max:
+            at, hit = self.find(np.asarray([key], np.int64))
+            if hit[0]:
+                return float(self.sigmas[at[0]])
+        raise KeyError(key)
+
+    def __iter__(self):
+        return iter(self.key_array.tolist())
+
+    def __len__(self) -> int:
+        return len(self.key_array)
+
+    def to_dict(self) -> dict:
+        return dict(zip(self.key_array.tolist(), self.sigmas.tolist()))
+
+    def items(self):
+        return self.to_dict().items()
+
+    def __repr__(self) -> str:
+        return f"QuerySigmas({self.to_dict()!r})"
+
+
+_NO_SIGMAS = QuerySigmas()
+
+
+class SigmaTable(MutableMapping):
+    """query id -> :class:`QuerySigmas`; a mapping ``{int key: float}`` set
+    under a query id is stored as columns."""
+
+    def __init__(self, tables: Mapping = ()):
+        self._q: dict = {}
+        self.update(tables)
+
+    def __getitem__(self, query_id: str) -> QuerySigmas:
+        return self._q[query_id]
+
+    def __setitem__(self, query_id: str, sigmas: Mapping) -> None:
+        self._q[query_id] = QuerySigmas.of(sigmas)
+
+    def __delitem__(self, query_id: str) -> None:
+        del self._q[query_id]
+
+    def __iter__(self):
+        return iter(self._q)
+
+    def __len__(self) -> int:
+        return len(self._q)
+
+    def __repr__(self) -> str:
+        return f"SigmaTable({self._q!r})"
+
+
 @dataclass
 class SigmaRegistry:
     """Feedback store: per-(query, stratum-key) sigma estimates (§3.2-II).
 
     First execution -> no entry -> the caller falls back to a pilot fraction;
     after execution :meth:`update` records measured sigmas so later runs hit
-    the error-bound target directly."""
+    the error-bound target directly.  Each query's sigmas are columns
+    (:class:`QuerySigmas`), so a lookup or update over a request's strata is
+    a few numpy calls."""
 
-    table: dict = field(default_factory=dict)
+    table: Mapping = field(default_factory=dict)
+
+    def __post_init__(self):
+        self.table = SigmaTable(self.table)
 
     def lookup(self, query_id: str, keys: np.ndarray,
                default: float = 1.0) -> np.ndarray:
-        q = self.table.get(query_id, {})
-        return np.asarray([q.get(int(k), default) for k in keys], np.float32)
+        return self.find(query_id, keys, default)[0]
+
+    def find(self, query_id: str, keys: np.ndarray,
+             default: float = 1.0) -> tuple[np.ndarray, int]:
+        """:meth:`lookup`'s float32 sigmas (``default`` where a key has
+        none), and how many keys had one."""
+        keys = np.asarray(keys).astype(np.int64, copy=False)
+        q = self.table.get(query_id, _NO_SIGMAS)
+        at, hit = q.find(keys)
+        sig = np.where(hit, q.sigmas[at], default) if len(q) \
+            else np.full(keys.shape, default, np.float64)
+        return sig.astype(np.float32), int(hit.sum())
 
     def has(self, query_id: str) -> bool:
         return query_id in self.table
 
-    def update(self, query_id: str, keys, sigmas, valid) -> None:
+    def update(self, query_id: str, keys, sigmas, valid) -> int:
+        """Store each valid key's sigma (a key given twice keeps its last);
+        returns how many keys were new to the query."""
         keys = np.asarray(keys)
         sigmas = np.asarray(sigmas)
         valid = np.asarray(valid)
-        q = self.table.setdefault(query_id, {})
-        for k, s, v in zip(keys, sigmas, valid):
-            if v:
-                q[int(k)] = float(s)
+        n = min(len(keys), len(sigmas), len(valid))
+        ok = valid[:n].astype(bool)
+        q = self.table.get(query_id, _NO_SIGMAS)
+        self.table[query_id] = q.merged(keys[:n][ok].astype(np.int64),
+                                        sigmas[:n][ok].astype(np.float64))
+        return len(self.table[query_id]) - len(q)
 
     def save(self, path: str) -> None:
         with open(path, "w") as fh:

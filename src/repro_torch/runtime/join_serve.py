@@ -1791,8 +1791,10 @@ class JoinServer:
                 with self.tracer.span(
                         "sigma-lookup", cat="host", tid=self.trace_name,
                         strata=len(skeys[i]), query_id=req.query_id,
-                        qspan=req._span_id):
-                    sigma = self.sigma.lookup(req.query_id, skeys[i])
+                        qspan=req._span_id) as sp:
+                    sigma, hits = self.sigma.find(req.query_id, skeys[i])
+                    if self.tracer.enabled:
+                        sp.set(hits=hits)
             b_rows.append(decide_sample_sizes(
                 budget, strata_slice(i), self.cost_model, d_filter, sigma,
                 budget.confidence))
@@ -1845,9 +1847,9 @@ class JoinServer:
                     "sigma-update", cat="host", tid=self.trace_name,
                     strata=len(skeys[i]), query_id=req.query_id,
                     qspan=req._span_id) as sp:
+                new = self.sigma.update(req.query_id, skeys[i], sig, ok)
                 if self.tracer.enabled:
-                    sp.set(kept=int(ok.sum()))
-                self.sigma.update(req.query_id, skeys[i], sig, ok)
+                    sp.set(kept=int(ok.sum()), new=new)
             self.diagnostics.sampled_queries += 1
 
     def _to_host(self, what: str, *tensors) -> list:

@@ -392,6 +392,32 @@ def test_step_host_spans_nest_and_count(use_kernels):
 
 @pytest.mark.parametrize("use_kernels", [False, True],
                          ids=["plain", "kernel"])
+def test_sigma_spans_count_hits_and_new_keys(use_kernels):
+    """A traced step's ``sigma-lookup`` carries ``hits`` (the request's
+    strata keys the registry held) and its ``sigma-update`` ``new`` (the
+    kept keys it did not hold), as the registry before the step implies."""
+    tr = Tracer(enabled=False)
+    srv = JoinServer(batch_slots=2, tracer=tr)
+    srv.submit(_req(3, qid="t0/q", use_kernels=use_kernels))
+    srv.run()
+    before = dict(srv.sigma.table["t0/q"].items())
+    tr.enabled = True
+    a = srv.submit(_req(4, qid="t0/q", rels=_mb(3), use_kernels=use_kernels))
+    assert srv.step() == 1
+    keys = a.result.strata.keys.numpy()
+    ok = (a.result.stats.valid & (a.result.stats.n_sampled > 1)).numpy()
+    look, = [e["args"] for e in tr.events if e["name"] == "sigma-lookup"]
+    upd, = [e["args"] for e in tr.events if e["name"] == "sigma-update"]
+    assert look["hits"] == int(np.isin(keys, list(before)).sum()) > 0
+    assert look["hits"] < look["strata"] == len(keys)
+    new = set(keys[ok].tolist()) - set(before)
+    assert upd["new"] == len(new) > 0
+    assert upd["kept"] == int(ok.sum())
+    assert len(srv.sigma.table["t0/q"]) == len(before) + len(new)
+
+
+@pytest.mark.parametrize("use_kernels", [False, True],
+                         ids=["plain", "kernel"])
 def test_step_spans_mirror_onto_the_profiler(use_kernels):
     from torch.profiler import ProfilerActivity, profile
     tr = Tracer(enabled=True)

@@ -18,6 +18,10 @@ result line, then one JSON object:
   and ``compile``, as ``host_ms_per_step`` reads it);
 * ``to_host``: the copies' bytes a step by what they copy, and each step's
   slots beside its copied bytes;
+* ``sigma_counts``: the window's sums of the registry spans' counts:
+  ``sigma-lookup.strata`` and ``.hits`` (keys looked up, keys found),
+  ``sigma-update.strata``, ``.kept`` and ``.new`` (keys offered, stored,
+  new to their query); a count the program does not record is left out;
 * with the profiler, ``clock``: over the profiled steps' engine spans, the
   gap between a span's start mapped onto the profiler's clock by the
   harness's one anchor (``offset``) and the start of the span's mirrored
@@ -54,6 +58,7 @@ def split(events: list, span_tree) -> dict:
                                               "host")}
     by_what: dict = {}
     widths: dict = {}
+    counts: dict = {}
     for s in steps:
         got = {k: 0.0 for k in parts}
         copied = 0
@@ -66,6 +71,10 @@ def split(events: list, span_tree) -> dict:
             for g in [c] + c["children"]:
                 if g["name"] in ("sigma-lookup", "sigma-update"):
                     got[g["name"]] += g["dur"]
+                    for a in ("strata", "hits", "kept", "new"):
+                        key = f"{g['name']}.{a}"
+                        if a in g["args"]:
+                            counts[key] = counts.get(key, 0) + g["args"][a]
                 if g["name"] == "to-host":
                     what = g["args"]["what"]
                     by_what[what] = by_what.get(what, 0) + g["args"]["bytes"]
@@ -79,6 +88,7 @@ def split(events: list, span_tree) -> dict:
     n = max(len(steps), 1)
     return {"steps": len(steps),
             "split_ms": {k: _stats(v) for k, v in parts.items()},
+            "sigma_counts": counts,
             "to_host": {"bytes_per_step": {k: v / n
                                            for k, v in by_what.items()},
                         "bytes_by_slots": {k: sorted(v)
