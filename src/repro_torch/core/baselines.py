@@ -148,7 +148,7 @@ def postjoin_sampling(rels: Sequence[Relation], fraction: float, *,
     f_fn, _ = EXPRS[expr]
     sorted_rels = [sort_by_key(r) for r in rels]
     strata = build_strata(sorted_rels, max_strata or rels[0].capacity)
-    b_i = torch.ceil(fraction * strata.population)
+    b_i = torch.ceil(fraction * strata.population.to(torch.float32))
     sample = sample_edges(sorted_rels, strata, b_i, b_max, seed, f_fn)
     est: Estimate = clt_sum(sample.stats, confidence)
     cnt = exact_count(strata)

@@ -887,7 +887,8 @@ def dist_prepare_stage(slots: Sequence[Sequence[Relation]], num_blocks: int,
                  for ls, m in zip(local, merged)]
     return [DistPrepareOut(sorted_slots[b], local[b], merged[b],
                            live_counts[b], total_counts[b],
-                           merged[b].population, device_sent[b].sum(),
+                           merged[b].population.to(torch.float32),
+                           device_sent[b].sum(),
                            device_sent[b], device_dropped[b].sum(),
                            device_dropped[b], fb)
             for b in range(len(slots))]
@@ -956,18 +957,21 @@ def dist_sample_stage(preps: Sequence[DistPrepareOut],
                                   b.to(torch.float32))
         sample = _sample(p, b_local, b_max, seed, f, kernel_expr)
         st = sample.stats
-        fields.append([st.valid, st.population, st.n_sampled, st.sum_f,
-                       st.sum_f2, sample.unique_f, sample.unique_count])
+        # the populations cross no wire (it carries 32 bits an element):
+        # the merged strata's exact counts give them again
+        fields.append([st.valid, st.n_sampled, st.sum_f, st.sum_f2,
+                       sample.unique_f, sample.unique_count])
     _, merged = merge_by_key(
         torch.stack([p.local_strata.keys for p in preps]),
-        [torch.stack([fl[i] for fl in fields]) for i in range(7)], mesh,
+        [torch.stack([fl[i] for fl in fields]) for i in range(6)], mesh,
         axes, S)
     out = []
     for b, p in enumerate(preps):
         ok = merged[0][b] & p.strata.valid
         vals = [torch.where(ok, m[b], 0.0) for m in merged[1:]]
-        mstats = StratumStats(ok, *vals[:4])
-        msample = SampleResult(mstats, vals[4], vals[5],
+        mstats = StratumStats(ok, torch.where(ok, p.strata.population, 0),
+                              *vals[:3])
+        msample = SampleResult(mstats, vals[3], vals[4],
                                vals[0].new_zeros((1, 1)),
                                torch.zeros((1, 1), dtype=torch.bool,
                                            device=ok.device))

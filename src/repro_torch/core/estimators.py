@@ -43,11 +43,12 @@ class StratumStats(NamedTuple):
     """Per-stratum sufficient statistics emitted by the sampler.
 
     All tensors are [S] (or [B, S] for a batch); ``population`` is B_i, the
-    join-output population of stratum i (product of per-side counts).
+    join-output population of stratum i: the exact int64 product of the
+    per-side counts, cast to float32 where an estimator computes with it.
     """
 
     valid: torch.Tensor       # bool [S]
-    population: torch.Tensor  # f32  [S]  B_i
+    population: torch.Tensor  # i64  [S]  B_i
     n_sampled: torch.Tensor   # f32  [S]  b_i (actual draws)
     sum_f: torch.Tensor       # f32  [S]  sum of f(edge) over sample
     sum_f2: torch.Tensor      # f32  [S]  sum of f(edge)^2 over sample
@@ -91,7 +92,7 @@ class SumParts(NamedTuple):
 def clt_sum_parts(stats: StratumStats) -> SumParts:
     ok = stats.valid & (stats.n_sampled > 0)
     b = torch.clamp(stats.n_sampled, min=1.0)
-    B = stats.population
+    B = stats.population.to(_F32)
     tau = _masked(B * stats.sum_f / b, ok).sum()
     var_ok = ok & (stats.n_sampled > 1)
     r2 = (stats.sum_f2 - stats.sum_f**2 / b) / torch.clamp(b - 1.0, min=1.0)
@@ -111,8 +112,9 @@ def clt_finish(parts: SumParts, confidence: float = 0.95) -> Estimate:
 
 
 def clt_count(stats: StratumStats) -> torch.Tensor:
-    """COUNT of the join output is exact given the strata: sum_i B_i."""
-    return _masked(stats.population, stats.valid).sum()
+    """COUNT of the join output given the strata: sum_i B_i, each exact
+    int64 population cast to float32 and summed in float32."""
+    return _masked(stats.population.to(_F32), stats.valid).sum()
 
 
 def clt_avg_from(parts: SumParts, confidence: float = 0.95) -> Estimate:

@@ -106,8 +106,9 @@ def filter_relations(rels: Sequence[Relation],
 class PrepareOut(NamedTuple):
     """Stages 1-3 output: live sorted relations + strata + row counts.
 
-    ``population`` duplicates ``strata.population`` as a plain tensor, so it
-    can be read off a slot-stacked batch too.
+    ``population`` is ``strata.population`` in float32, as the host's
+    decisions read it (a plain tensor, so it can be read off a slot-stacked
+    batch too); the strata keep the exact int64 counts of edges.
     """
 
     sorted_rels: list[Relation]
@@ -125,7 +126,7 @@ def _prepare_tail(live: Sequence[Relation], rels: Sequence[Relation],
     return PrepareOut(sorted_rels, strata,
                       torch.stack([r.count() for r in live]),
                       torch.stack([r.count() for r in rels]),
-                      strata.population)
+                      strata.population.to(torch.float32))
 
 
 def prepare_stage(rels: Sequence[Relation], num_blocks: int, max_strata: int,
@@ -337,9 +338,7 @@ def sample_stage_kernels_batched(sorted_rels: Sequence[Relation],
     from repro_torch.kernels import ops as kops
     joinable = strata.valid & torch.all(strata.counts > 0, dim=1)
     population = torch.where(
-        joinable,
-        torch.prod(torch.clamp(strata.counts, min=0).to(torch.float32), dim=1),
-        0.0)
+        joinable, torch.prod(torch.clamp(strata.counts, min=0), dim=1), 0)
     stats = kops.sample_stats_batched(
         sorted_rels[0].values, sorted_rels[1].values,
         strata.keys, strata.starts, strata.counts, joinable, population,

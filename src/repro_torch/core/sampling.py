@@ -37,6 +37,8 @@ class Strata(NamedTuple):
     ``starts``/``counts`` are [n_sides, S]: the segment of each stratum in
     each side's sorted key array.  ``joinable`` marks strata present
     (count > 0) on every side; only those produce join output.
+    ``population`` is exact int64: a stratum can hold more edges than
+    float32 counts exactly (2^24), so each float32 consumer casts it.
     """
 
     keys: torch.Tensor      # int64 [S], uint32 values
@@ -51,9 +53,11 @@ class Strata(NamedTuple):
 
     @property
     def population(self) -> torch.Tensor:
-        """B_i: join-output size per stratum (product of side counts)."""
-        p = torch.prod(torch.clamp(self.counts, min=0).to(torch.float32), dim=0)
-        return torch.where(self.joinable, p, 0.0)
+        """B_i: join-output size per stratum, the exact int64 product of
+        the side counts (0 where not joinable)."""
+        return torch.where(self.joinable,
+                           torch.prod(torch.clamp(self.counts, min=0), dim=0),
+                           0)
 
     @property
     def num_strata(self) -> torch.Tensor:
@@ -217,7 +221,7 @@ def per_stratum_value_sums(sorted_rels, strata) -> torch.Tensor:
 def exact_sum_of_sums_from(S_k: torch.Tensor, strata: Strata) -> torch.Tensor:
     """Finish SUM(v_1 + ... + v_n) from per-stratum value sums [n, S]."""
     B_k = torch.clamp(strata.counts, min=0).to(torch.float32)   # [n, S]
-    total_B = strata.population                                 # [S]
+    total_B = strata.population.to(torch.float32)               # [S]
     per_stratum = torch.zeros_like(total_B)
     for k in range(S_k.shape[0]):
         term = torch.where(B_k[k] > 0,
@@ -247,7 +251,8 @@ def exact_sum_of_products(sorted_rels, strata) -> torch.Tensor:
 
 
 def exact_count(strata: Strata) -> torch.Tensor:
-    return strata.population.sum()
+    """COUNT of the join output, float32 like every other aggregate."""
+    return strata.population.to(torch.float32).sum()
 
 
 # ---------------------------------------------------------------------------

@@ -96,10 +96,11 @@ def plan_batch_mixture(doc_table: Relation, domain_table: Relation,
     if res.stats is not None:
         st = res.stats
         b = np.maximum(st.n_sampled.cpu().numpy(), 1.0)
-        mass = st.population.cpu().numpy() * st.sum_f.cpu().numpy() / b
+        pop = st.population.float().cpu().numpy()
+        mass = pop * st.sum_f.cpu().numpy() / b
         ok = st.valid.cpu().numpy()
     else:  # exact path: weight by stratum population
-        mass = strata.population.cpu().numpy()
+        mass = strata.population.float().cpu().numpy()
         ok = strata.joinable.cpu().numpy()
     mass = np.where(ok, np.maximum(mass, 0.0), 0.0)
     total = float(mass.sum()) or 1.0

@@ -919,6 +919,7 @@ class JoinServer:
         # tensors its byte-reconciliation records read after the step
         self._stage_spans: Optional[list] = None
         self._recon_inputs: Optional[dict] = None
+        self._draw_inputs: Optional[tuple] = None
         # completion callback (request -> None), fired by _notify_done for
         # every finished or shed request; the async tier installs its
         # future-resolver here
@@ -1398,7 +1399,7 @@ class JoinServer:
             self._notify_done(req)
         if tr.enabled:
             self._trace_step(cls, batch)
-        self._stage_spans = self._recon_inputs = None
+        self._stage_spans = self._recon_inputs = self._draw_inputs = None
         return len(batch)
 
     def _path_of(self, cls: ShapeClass) -> str:
@@ -1414,11 +1415,25 @@ class JoinServer:
         a complete per-query span tree (query -> queued/execute ->
         prepare/sample|exact -> complete) on a lane per request instance,
         its stage spans copied from the engine's, and the per-query byte
-        reconciliation records, computed here, off the step's clock."""
+        reconciliation records, computed here, off the step's clock.
+
+        A step that sampled also gets a ``draws`` instant on the engine
+        lane at its ``decide`` span's start, counted from the sampler's own
+        ``n_sampled`` over the sampled slots' joinable strata: ``draws``
+        (edges drawn), ``full`` (strata drawn as often as they have edges)
+        and ``joinable``."""
         tr, path = self.tracer, self._path_of(cls)
         stages = {sp.name: sp for sp in self._stage_spans or ()}
         recs = self._recon_records(cls, batch, **self._recon_inputs) \
             if self._recon_inputs is not None else {}
+        if self._draw_inputs is not None:
+            ts, pop, n = self._draw_inputs
+            n = n.cpu().numpy()
+            ok = pop > 0
+            tr.instant("draws", cat="host", tid=self.trace_name, ts=ts,
+                       draws=int(n[ok].astype(np.int64).sum()),
+                       full=int((n >= pop)[ok].sum()),
+                       joinable=int(ok.sum()))
         for req in batch:
             tid = f"q:{req.query_id}#{req._span_id}"
             base = dict(query_id=req.query_id, qspan=req._span_id, path=path)
@@ -1959,10 +1974,10 @@ class JoinServer:
         def slice_i(i):
             return _slot(prep.strata, i)
 
-        with tr.span("decide", cat="host", tid=lane) as sp:
+        with tr.span("decide", cat="host", tid=lane) as decide:
             sampled_idx, exact_idx, b_rows = self._decide_b_rows(
                 batch, B, population, skeys, slice_i, d_filter)
-            sp.set(sampled=len(sampled_idx), exact=len(exact_idx))
+            decide.set(sampled=len(sampled_idx), exact=len(exact_idx))
 
         # -- one call per stage, whole batch --------------------------------
         value = err = cnt = dof = stats = e_est = e_cnt = None
@@ -2026,6 +2041,10 @@ class JoinServer:
                 tup=None if meshless else prep.shuffled_tuple_bytes[:n_real],
                 dev=None if meshless
                 else prep.device_shuffled_bytes[:n_real])
+            # the sampled slots' populations and draws, counted after the step
+            self._draw_inputs = None if not sampled_idx else (
+                decide.t0, population[sampled_idx],
+                stats.n_sampled[sampled_idx])
 
     def _wire_bytes_model(self, cls: ShapeClass) -> float:
         """Static per-rank collective bytes for ONE query through the mesh

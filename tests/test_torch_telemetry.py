@@ -372,7 +372,8 @@ def test_step_host_spans_nest_and_count(use_kernels):
     assert S == MS
     pop, keys = (c["args"] for c in by["to-host"])
     assert (pop["what"], keys["what"]) == ("population", "strata-keys")
-    assert pop["bytes"] == 2 * S * res.strata.population.element_size()
+    # the exact int64 populations cross to the host as float32
+    assert pop["bytes"] == 2 * S * 4
     assert keys["bytes"] == 2 * S * res.strata.keys.element_size()
     ok = res.stats.valid & (res.stats.n_sampled > 1)
     sig = finish["children"][0]["args"]
