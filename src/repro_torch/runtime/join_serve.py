@@ -157,6 +157,7 @@ from repro_torch.core.join import (EXPRS, TUPLE_BYTES, JoinDiagnostics,
 from repro_torch.core.plan import CompiledPlan, Plan, compile_plan
 from repro_torch.core.relation import (Relation, bucket_capacity,
                                        bucket_to_pow2, fingerprint, relation)
+from repro_torch.core.sampling import Strata
 from repro_torch.runtime.telemetry import (NULL_TRACER, Histogram,
                                            MetricsRegistry, Tracer,
                                            latency_pcts, recon_pair,
@@ -534,6 +535,14 @@ def slot_budget(device, share: Optional[float] = None) -> int:
     index = torch.cuda.current_device() if device.index is None \
         else device.index
     return int(share * _card_memory(index))
+
+
+def _slot_totals(strata: Strata) -> torch.Tensor:
+    """Each slot's total population (int64 ``[B]``) of slot-stacked strata
+    (counts ``[B, n_sides, S]``): the sum of :attr:`Strata.population`.  No
+    count is negative, so a stratum some side lacks already multiplies to 0
+    and the validity alone masks the rest."""
+    return torch.prod(strata.counts, dim=1).mul_(strata.valid).sum(-1)
 
 
 # -- stage builders.  Every stage callable takes the engine's slot-stacked
@@ -1785,17 +1794,21 @@ class JoinServer:
         words_b = torch.stack(per_req + [per_req[-1]] * (B - len(batch)))
         return B, rels_b, words_b, seeds, fseeds, num_blocks
 
-    def _decide_b_rows(self, batch, B, population, skeys, strata_slice,
+    def _decide_b_rows(self, batch, B, totals, skeys, strata_slice,
                        d_filter):
-        """Host decisions: exact-affordable?  b_i from budget + sigma."""
+        """Host decisions: exact-affordable?  b_i from budget + sigma.
+
+        ``totals`` is each slot's exact total population (what a latency
+        budget weighs, as :func:`approx_join` does); ``skeys`` the strata
+        keys on the host, read by error budgets only (``None`` in a step of
+        exact requests alone)."""
         sampled_idx, b_rows = [], []
-        zeros_b = torch.zeros((population.shape[1],), dtype=torch.float32,
-                              device=strata_slice(0).keys.device)
+        zeros_b = torch.zeros_like(strata_slice(0).keys, dtype=torch.float32)
         for i, req in enumerate(batch):
-            budget, total_pop = req.budget, float(population[i].sum())
+            budget = req.budget
             exact_ok = budget.is_exact or (
                 budget.latency_s is not None and self.cost_model is not None
-                and float(self.cost_model.beta_compute) * total_pop
+                and float(self.cost_model.beta_compute) * float(totals[i])
                 + self.cost_model.epsilon + d_filter <= budget.latency_s
                 and budget.error is None)
             if exact_ok:
@@ -1926,11 +1939,13 @@ class JoinServer:
 
         Traced, the step's parts are live spans on the engine lane, inside
         its ``step``: ``batch-inputs``, ``compile`` (a fresh prepare's
-        warm-up), ``prepare``, ``to-host`` (each copy to the host: the
-        strata populations and keys; on a mesh the bucket overflow and the
-        meters), ``decide`` (with a ``sigma-lookup`` a registry lookup),
-        ``sample`` / ``exact``, and ``finish`` (with each sampled request's
-        ``to-host`` of its sigmas and a ``sigma-update``)."""
+        warm-up), ``prepare``, ``to-host`` (each copy to the host: every
+        slot's total population, 8 bytes a slot; the strata populations and
+        keys only in a step with a request that is not exact; on a mesh the
+        bucket overflow and the meters), ``decide`` (with a ``sigma-lookup``
+        a registry lookup), ``sample`` / ``exact``, and ``finish`` (with
+        each sampled request's ``to-host`` of its sigmas and a
+        ``sigma-update``)."""
         tr, lane, path = self.tracer, self.trace_name, self._path_of(cls)
         with tr.span("batch-inputs", cat="host", tid=lane) as sp:
             B, rels_b, words_b, seeds, fseeds, num_blocks = \
@@ -1968,15 +1983,21 @@ class JoinServer:
             d_filter = time.perf_counter() - t0
         self.diagnostics.filter_s += d_filter
 
-        population, = self._to_host("population", prep.population)
-        skeys, = self._to_host("strata-keys", prep.strata.keys)
+        # an exact request reads nothing of its strata on the host: only a
+        # latency budget, the registry and the draws meter read the [B, S]
+        # populations and keys
+        totals, = self._to_host("totals", _slot_totals(prep.strata))
+        population = skeys = None
+        if not all(r.budget.is_exact for r in batch):
+            population, = self._to_host("population", prep.population)
+            skeys, = self._to_host("strata-keys", prep.strata.keys)
 
         def slice_i(i):
             return _slot(prep.strata, i)
 
         with tr.span("decide", cat="host", tid=lane) as decide:
             sampled_idx, exact_idx, b_rows = self._decide_b_rows(
-                batch, B, population, skeys, slice_i, d_filter)
+                batch, B, totals, skeys, slice_i, d_filter)
             decide.set(sampled=len(sampled_idx), exact=len(exact_idx))
 
         # -- one call per stage, whole batch --------------------------------

@@ -353,7 +353,8 @@ def test_step_host_spans_nest_and_count(use_kernels):
     step = roots[1]
     kids = [c["name"] for c in step["children"]]
     assert kids == ["batch-inputs", "compile", "prepare", "to-host",
-                    "to-host", "decide", "sample", "exact", "finish"]
+                    "to-host", "to-host", "decide", "sample", "exact",
+                    "finish"]
     by = {}
     for c in step["children"]:
         by.setdefault(c["name"], []).append(c)
@@ -370,8 +371,11 @@ def test_step_host_spans_nest_and_count(use_kernels):
     res = a.result
     S = res.strata.keys.shape[0]
     assert S == MS
-    pop, keys = (c["args"] for c in by["to-host"])
-    assert (pop["what"], keys["what"]) == ("population", "strata-keys")
+    totals, pop, keys = (c["args"] for c in by["to-host"])
+    assert (totals["what"], pop["what"], keys["what"]) == (
+        "totals", "population", "strata-keys")
+    # each slot's exact total population: int64, 8 bytes a slot
+    assert totals["bytes"] == 2 * 8
     # the exact int64 populations cross to the host as float32
     assert pop["bytes"] == 2 * S * 4
     assert keys["bytes"] == 2 * S * res.strata.keys.element_size()
@@ -447,8 +451,9 @@ def test_step_spans_mirror_onto_the_profiler(use_kernels):
                          ids=["plain", "kernel"])
 def test_untraced_step_copies_only_its_inputs(use_kernels, monkeypatch):
     """With tracing off a step of a sampled and an exact request copies to
-    the host the strata populations and keys, and the sampled request's
-    sigmas and validity: four copies, none for telemetry."""
+    the host each slot's total population, the strata populations and keys,
+    and the sampled request's sigmas and validity: five copies, none for
+    telemetry."""
     import torch
     srv = JoinServer(batch_slots=2)
     srv.submit(_req(3, qid="t0/q", use_kernels=use_kernels))
@@ -464,7 +469,7 @@ def test_untraced_step_copies_only_its_inputs(use_kernels, monkeypatch):
         return cpu(t, *a, **k)
     monkeypatch.setattr(torch.Tensor, "cpu", counted)
     assert srv.step() == 2
-    assert copies == [(2, MS), (2, MS), (MS,), (MS,)]
+    assert copies == [(2,), (2, MS), (2, MS), (MS,), (MS,)]
 
 
 # -- trace_dump CLI surface --------------------------------------------------

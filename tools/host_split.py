@@ -16,8 +16,11 @@ result line, then one JSON object:
   ``sigma-lookup`` and ``sigma-update``, of ``rest`` (a step less its direct
   children) and of ``host`` (a step less ``prepare``, ``sample``, ``exact``
   and ``compile``, as ``host_ms_per_step`` reads it);
-* ``to_host``: the copies' bytes a step by what they copy, and each step's
-  slots beside its copied bytes;
+* ``to_host``: the copies' bytes a step by what they copy (``totals``,
+  each slot's total population, in every step; ``population`` and
+  ``strata-keys`` only in a step with a request that is not exact;
+  ``sigma``; a mesh's), each step's slots beside its copied bytes, and
+  ``keys_step_share``, the share of steps that copied the strata keys;
 * ``sigma_counts``: the window's sums of the registry spans' counts:
   ``sigma-lookup.strata`` and ``.hits`` (keys looked up, keys found),
   ``sigma-update.strata``, ``.kept`` and ``.new`` (keys offered, stored,
@@ -59,6 +62,7 @@ def split(events: list, span_tree) -> dict:
     by_what: dict = {}
     widths: dict = {}
     counts: dict = {}
+    keys_steps = 0
     for s in steps:
         got = {k: 0.0 for k in parts}
         copied = 0
@@ -79,6 +83,7 @@ def split(events: list, span_tree) -> dict:
                     what = g["args"]["what"]
                     by_what[what] = by_what.get(what, 0) + g["args"]["bytes"]
                     copied += g["args"]["bytes"]
+                    keys_steps += what == "strata-keys"
         got["rest"] = s["dur"] - sum(c["dur"] for c in s["children"])
         got["host"] = s["dur"] - sum(c["dur"] for c in s["children"]
                                      if c["name"] in STAGES)
@@ -92,7 +97,8 @@ def split(events: list, span_tree) -> dict:
             "to_host": {"bytes_per_step": {k: v / n
                                            for k, v in by_what.items()},
                         "bytes_by_slots": {k: sorted(v)
-                                           for k, v in widths.items()}}}
+                                           for k, v in widths.items()},
+                        "keys_step_share": keys_steps / n}}
 
 
 def main(argv=None) -> int:
