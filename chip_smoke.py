@@ -848,7 +848,7 @@ class Serving:
         return {name: w.launches for name, w in self.wrappers.items()}
 
     def prepares(self):
-        return sum(1 for key in self.srv._exec_cache if key[0] == "prepare")
+        return sum(1 for key in self.srv._stage_keys if key[0] == "prepare")
 
     def submit(self, dataset, spec, **kw):
         """Submit (query id, budget, seed) triples on a registered dataset;
@@ -1050,7 +1050,7 @@ def small_shape_kernels(small, torch, rates):
     args = [prep.sorted_rels[0].values, prep.sorted_rels[1].values, st.keys,
             st.starts[:, 0].contiguous(), st.counts[:, 0].contiguous(),
             st.starts[:, 1].contiguous(), st.counts[:, 1].contiguous(),
-            (st.valid & (st.counts > 0).all(1)).contiguous(), b_i]
+            st.joinable.contiguous(), b_i]
     got = ke.edge_sample_batched(*args, seeds, B_MAX)
     want = ke.edge_sample_ref(*args, B_MAX, seeds)
     check(torch.equal(got[0], want[0]) and float(got[0].sum()) > 0,
@@ -1498,7 +1498,7 @@ def stream_phase(rels, truth, torch, rates, wrappers):
     ops.edge_sample_batched = keep_operands
 
     def prepares():
-        return sum(1 for key in srv._exec_cache if key[0] == "prepare")
+        return sum(1 for key in srv._stage_keys if key[0] == "prepare")
 
     def counts():
         return {name: w.launches for name, w in wrappers.items()}
@@ -1849,6 +1849,7 @@ def plan_phase(torch, wrappers, dev):
     the relations by dataset name, the oracle by node)."""
     from repro_torch.core.budget import QueryBudget
     from repro_torch.data.synthetic import overlapping_relations
+    from repro_torch.runtime import join_serve as js
     from repro_torch.runtime.join_serve import JoinServer, slot_bytes
 
     t0 = time.perf_counter()
@@ -1871,7 +1872,7 @@ def plan_phase(torch, wrappers, dev):
         return {name: w.launches for name, w in wrappers.items()}
 
     def prepares():
-        return sum(1 for key in srv._exec_cache if key[0] == "prepare")
+        return sum(1 for key in srv._stage_keys if key[0] == "prepare")
 
     def step(label):
         req = srv.queue[0]
@@ -1974,26 +1975,29 @@ def plan_phase(torch, wrappers, dev):
               f"{s['peak'] / s['slot_bytes']:.3f} x slot_bytes "
               f"({s['slot_bytes'] / 2**30:.4f} GiB) x 1")
 
-    # a warm submission more: its sample stages captured, its 3-way step
-    # under the profiler
+    # a warm submission more: its sample stages captured (the sampler
+    # kernel's two-way one and the plain n-way one, keyed by inputs), its
+    # 3-way step under the profiler
     captured = {}
-    executable = srv._executable
+    samplers = {"sample_stage_kernels_batched": lambda a: len(a[0]),
+                "_sample_slots": lambda a: a[0].n_inputs}
 
-    def capturing(stage, cls, variant, builder):
-        fn, fresh = executable(stage, cls, variant, builder)
-        if stage != "sample":
-            return fn, fresh
+    def capturing(fn, inputs):
+        def run(*a, **k):
+            captured[inputs(a)] = (fn, a, k)
+            return fn(*a, **k)
+        return run
 
-        def run(*a):
-            captured[cls.n_inputs] = (fn, a)
-            return fn(*a)
-        return run, fresh
-
-    srv._executable = capturing
-    submit(plan, "P3", 4)
-    step("P3/ab")
-    wall_us, by_name = device_profile(torch, lambda: step("P3/abc"))
-    del srv._executable
+    originals = {name: getattr(js, name) for name in samplers}
+    for name, inputs in samplers.items():
+        setattr(js, name, capturing(originals[name], inputs))
+    try:
+        submit(plan, "P3", 4)
+        step("P3/ab")
+        wall_us, by_name = device_profile(torch, lambda: step("P3/abc"))
+    finally:
+        for name, fn in originals.items():
+            setattr(js, name, fn)
     if by_name:
         busy = sum(us for us, _ in by_name.values())
         print(f"plan profile: a 3-way step, wall {wall_us / 1e3:.3f} ms, "
@@ -2005,11 +2009,11 @@ def plan_phase(torch, wrappers, dev):
     else:
         print("plan profile: no device time recorded (not measured)")
     check(sorted(captured) == [2, 3], f"plan: sample stages {captured}")
-    for n_in, (fn, a) in sorted(captured.items()):
-        fn(*a)
+    for n_in, (fn, a, k) in sorted(captured.items()):
+        fn(*a, **k)
         torch.cuda.synchronize()
         wall_us, by_name = device_profile(
-            torch, lambda: (fn(*a), torch.cuda.synchronize()))
+            torch, lambda: (fn(*a, **k), torch.cuda.synchronize()))
         busy = sum(us for us, _ in by_name.values())
         what = ("the CUDA sampler and the estimator" if n_in == 2 else
                 "plain torch: draw, gather, dedup sort, estimator")

@@ -332,20 +332,16 @@ def sample_stage_kernels_batched(sorted_rels: Sequence[Relation],
 
     Inputs are slot-stacked (``[B, ...]`` leaves, as emitted by the batched
     prepare); the sampler kernel runs over the whole batch and the estimator
-    finish runs per slot.  ``joinable``/``population`` are recomputed over
-    the per-slot axes (same arithmetic, one axis over).
+    finish runs per slot.
     """
     from repro_torch.kernels import ops as kops
-    joinable = strata.valid & torch.all(strata.counts > 0, dim=1)
-    population = torch.where(
-        joinable, torch.prod(torch.clamp(strata.counts, min=0), dim=1), 0)
     stats = kops.sample_stats_batched(
         sorted_rels[0].values, sorted_rels[1].values,
-        strata.keys, strata.starts, strata.counts, joinable, population,
-        b_i, seeds, b_max, expr)
+        strata.keys, strata.starts, strata.counts, strata.joinable,
+        strata.population, b_i, seeds, b_max, expr)
     outs = [estimate_stage(_kernel_sample_result(_slot(stats, b)), agg=agg,
                            dedup=False, confidence=confidence)
-            for b in range(joinable.shape[0])]
+            for b in range(b_i.shape[0])]
     value, err, cnt, dof = (torch.stack(x) for x in zip(*outs))
     return value, err, cnt, dof, stats
 

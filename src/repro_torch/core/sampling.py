@@ -39,6 +39,8 @@ class Strata(NamedTuple):
     (count > 0) on every side; only those produce join output.
     ``population`` is exact int64: a stratum can hold more edges than
     float32 counts exactly (2^24), so each float32 consumer casts it.
+    The properties reduce over the side axis (-2) and the strata axis (-1),
+    so they hold for slot-stacked strata (``[B, ...]`` leaves) too.
     """
 
     keys: torch.Tensor      # int64 [S], uint32 values
@@ -49,20 +51,20 @@ class Strata(NamedTuple):
 
     @property
     def joinable(self) -> torch.Tensor:
-        return self.valid & torch.all(self.counts > 0, dim=0)
+        return self.valid & torch.all(self.counts > 0, dim=-2)
 
     @property
     def population(self) -> torch.Tensor:
         """B_i: join-output size per stratum, the exact int64 product of
         the side counts (0 where not joinable)."""
         return torch.where(self.joinable,
-                           torch.prod(torch.clamp(self.counts, min=0), dim=0),
+                           torch.prod(torch.clamp(self.counts, min=0), dim=-2),
                            0)
 
     @property
     def num_strata(self) -> torch.Tensor:
         """m: number of joinable strata."""
-        return self.joinable.sum()
+        return self.joinable.sum(-1)
 
 
 def _segment(sorted_keys: torch.Tensor, stratum_keys: torch.Tensor):

@@ -9,11 +9,12 @@ aggregate/expression, and a tenant ``query_id``.  The engine:
 * **buckets** every relation to a power-of-two capacity
   (:func:`repro_torch.core.relation.bucket_to_pow2`) so queries fall into a
   small number of *shape classes*;
-* keeps a **stage cache** keyed by ``(stage, shape_class, batch)``: one
-  build per key (``ServerDiagnostics.compiles``), reuses counted in
-  ``cache_hits``.  PyTorch compiles nothing, so a build makes a stage
-  callable; the first call of a fresh one also loads the CUDA kernels and
-  makes PyTorch's first allocations, and runs off the clock;
+* calls each step's stages directly (PyTorch compiles nothing) and keeps
+  the set of stage keys ``(stage, shape_class, batch)`` it has served: a
+  key's first sight counts in ``ServerDiagnostics.compiles`` and every
+  later one in ``cache_hits`` (the JAX package's diagnostics), and the
+  first prepare of a class at a width runs once more off the clock, where
+  it loads the CUDA kernels and makes PyTorch's first allocations;
 * **batches same-shape-class queries** across the filter-probe/sort/strata
   and sample/estimate stages.  On the kernel route (``use_kernels=True``)
   one engine step is one launch of the probe per input and one of the
@@ -127,7 +128,6 @@ import weakref
 from collections import OrderedDict
 from collections.abc import Mapping
 from dataclasses import dataclass, field
-from functools import partial
 from typing import NamedTuple, Optional, Sequence
 
 import numpy as np
@@ -157,7 +157,6 @@ from repro_torch.core.join import (EXPRS, TUPLE_BYTES, JoinDiagnostics,
 from repro_torch.core.plan import CompiledPlan, Plan, compile_plan
 from repro_torch.core.relation import (Relation, bucket_capacity,
                                        bucket_to_pow2, fingerprint, relation)
-from repro_torch.core.sampling import Strata
 from repro_torch.runtime.telemetry import (NULL_TRACER, Histogram,
                                            MetricsRegistry, Tracer,
                                            latency_pcts, recon_pair,
@@ -537,77 +536,31 @@ def slot_budget(device, share: Optional[float] = None) -> int:
     return int(share * _card_memory(index))
 
 
-def _slot_totals(strata: Strata) -> torch.Tensor:
-    """Each slot's total population (int64 ``[B]``) of slot-stacked strata
-    (counts ``[B, n_sides, S]``): the sum of :attr:`Strata.population`.  No
-    count is negative, so a stratum some side lacks already multiplies to 0
-    and the validity alone masks the rest."""
-    return torch.prod(strata.counts, dim=1).mul_(strata.valid).sum(-1)
+# -- the plain route's stages, slot by slot.  Each takes the engine's
+# -- slot-stacked batch plus ``n_real``, the number of slots before the pad
+# -- slots (which repeat the last real one); its outputs cover all the
+# -- batch's slots. ----------------------------------------------------------
+
+def _prepare_slots(cls: ShapeClass, rels, words, seeds, n_real: int):
+    return pad_stack([prepare_stage_pre(_slot(rels, b), words[b],
+                                        cls.max_strata, seeds[b])
+                      for b in range(n_real)], words.shape[0])
 
 
-# -- stage builders.  Every stage callable takes the engine's slot-stacked
-# -- batch plus ``n_real``, the number of slots before the pad slots (which
-# -- repeat the last real one); its outputs cover all the batch's slots. ---
-
-def _make_prepare(max_strata: int):
-    def fn(rels, words, seeds, n_real):
-        return pad_stack([prepare_stage_pre(_slot(rels, b), words[b],
-                                            max_strata, seeds[b])
-                          for b in range(n_real)], words.shape[0])
-    return fn
+def _sample_slots(cls: ShapeClass, sorted_rels, strata, b_i, seeds,
+                  n_real: int):
+    f_fn = EXPRS[cls.expr][0]
+    return pad_stack([list(sample_stage(
+        _slot(sorted_rels, b), _slot(strata, b), b_i[b], cls.b_max, seeds[b],
+        agg=cls.agg, dedup=cls.dedup, confidence=cls.confidence, f_fn=f_fn))
+        for b in range(n_real)], b_i.shape[0])
 
 
-def _make_sample(b_max: int, agg: str, dedup: bool, confidence: float,
-                 expr: str):
-    f_fn = EXPRS[expr][0]
-
-    def fn(sorted_rels, strata, b_i, seeds, n_real):
-        return pad_stack([list(sample_stage(
-            _slot(sorted_rels, b), _slot(strata, b), b_i[b], b_max, seeds[b],
-            agg=agg, dedup=dedup, confidence=confidence, f_fn=f_fn))
-            for b in range(n_real)], b_i.shape[0])
-    return fn
-
-
-def _make_exact(agg: str, expr: str):
-    def fn(sorted_rels, strata, n_real):
-        return pad_stack([list(exact_stage(_slot(sorted_rels, b),
-                                           _slot(strata, b), agg=agg,
-                                           expr=expr))
-                          for b in range(n_real)], strata.keys.shape[0])
-    return fn
-
-
-def _make_filter_build(num_blocks: int):
-    def fn(keys, valid, seed):
-        return bloom.build(keys, valid, num_blocks, seed).words
-    return fn
-
-
-# -- kernel-backed stage builders (the kernels own the slot dimension, so
-# -- these take the engine's slot-stacked batch whole) -----------------------
-
-def _make_prepare_kernels(max_strata: int):
-    def fn(rels, words, seeds, n_real):
-        return prepare_stage_kernels_batched(rels, words, max_strata, seeds,
-                                             n_real=n_real)
-    return fn
-
-
-def _make_sample_kernels(b_max: int, agg: str, confidence: float, expr: str):
-    def fn(sorted_rels, strata, b_i, seeds, n_real):
-        return sample_stage_kernels_batched(
-            sorted_rels, strata, b_i, b_max, seeds, agg=agg,
-            confidence=confidence, expr=expr)
-    return fn
-
-
-def _make_filter_build_kernels(num_blocks: int):
-    from repro_torch.kernels import ops as kops
-
-    def fn(keys, valid, seed):
-        return kops.build_filter(keys, valid, num_blocks, seed).words
-    return fn
+def _exact_slots(cls: ShapeClass, sorted_rels, strata, n_real: int):
+    return pad_stack([list(exact_stage(_slot(sorted_rels, b),
+                                       _slot(strata, b), agg=cls.agg,
+                                       expr=cls.expr))
+                      for b in range(n_real)], strata.keys.shape[0])
 
 
 class ShardedRelation:
@@ -905,10 +858,9 @@ class JoinServer:
         self.datasets: dict[str, list[Relation]] = {}
         self._dataset_fps: dict[str, list[str]] = {}
         self._dataset_overlap: dict[str, float] = {}
-        self._exec_cache: dict = {}
-        # compiled plans, cached by plan signature the way shape classes key
-        # the stage cache: resubmitting a plan shape skips the
-        # flatten/validate/cost pass entirely
+        self._stage_keys: set = set()   # the stage keys served (_seen)
+        # compiled plans, cached by plan signature: resubmitting a plan shape
+        # skips the flatten/validate/cost pass entirely
         self._plan_cache: dict = {}
         self.plans: dict[str, PlanHandle] = {}   # in-flight plan handles
         # LRU of (fingerprint, num_blocks, seed) -> words: bounded so a
@@ -958,7 +910,6 @@ class JoinServer:
             self._wkeys = itertools.count()
             # (fp, num_blocks, seed) -> word id of the filter cache's entry
             self._word_ids: dict = {}
-            self._step_words: list = []  # inline relations' words, a step
             if tracer is not None:
                 tracer.tags.setdefault(
                     "mesh", "x".join(str(n) for _, n in self.mesh_shape))
@@ -1001,22 +952,25 @@ class JoinServer:
             out.append(r)
         return out
 
-    def _full_rows(self, rel, memo: Optional[dict] = None) -> Relation:
+    def _full_rows(self, rel, memo: dict, kernel: bool = False) -> Relation:
         """A relation's rows in their global order on rank 0: a mesh
-        handle's blocks gathered (metered in ``host_gather_bytes``; at mesh
-        1 rank 0's block is the relation)."""
+        handle's blocks gathered once per ``memo`` (at mesh 1 rank 0's
+        block is the relation), metered in ``kernel_gather_bytes`` for a
+        kernel class's step, else in ``host_gather_bytes``."""
         if not isinstance(rel, ShardedRelation):
             return rel
         if self.mesh_k == 1:
             return rel.local
-        if memo is not None and rel.rid in memo:
-            return memo[rel.rid]
-        full = self._ranks.call("gather", rid=rel.rid)
-        # a row crosses as three int32s (gather_fields)
-        self.host_gather_bytes += float(
-            12 * rel.capacity * (self.mesh_k - 1) // self.mesh_k)
-        if memo is not None:
-            memo[rel.rid] = full
+        full = memo.get(rel.rid)
+        if full is None:
+            full = memo[rel.rid] = self._ranks.call("gather", rid=rel.rid)
+            # a row crosses as three int32s (gather_fields)
+            nbytes = float(12 * rel.capacity * (self.mesh_k - 1)
+                           // self.mesh_k)
+            if kernel:
+                self.diagnostics.kernel_gather_bytes += nbytes
+            else:
+                self.host_gather_bytes += nbytes
         return full
 
     def register_dataset(self, name: str, rels: Sequence[Relation]) -> None:
@@ -1067,8 +1021,8 @@ class JoinServer:
             req.max_strata = max(r.capacity for r in req.rels)
         if req.b_max is None:
             # approx_join's b_max=None adaptive grid sizes the draw capacity
-            # from data-dependent peak b_i — incompatible with a pre-keyed
-            # stage cache, so refuse rather than silently diverge.
+            # from data-dependent peak b_i — incompatible with a shape class
+            # keyed by its b_max, so refuse rather than silently diverge.
             raise ValueError("JoinServer needs a concrete b_max "
                              f"(e.g. the default {DEFAULT_B_MAX}); the "
                              "adaptive b_max=None grid is driver-side only")
@@ -1182,21 +1136,17 @@ class JoinServer:
         cap = planned_bucket_cap(local_n, self.mesh_k, overlap)
         return min(bucket_capacity(cap), local_n)
 
-    # -- stage + filter-word caches -----------------------------------------
+    # -- stage keys + filter-word cache -------------------------------------
 
-    def _executable(self, stage: str, cls, variant, builder):
-        """Fetch-or-build a stage callable; ``variant`` is the rest of the
-        cache key (the batch bucket).  Returns (fn, freshly_built)."""
-        key = (stage, cls, variant)
-        fn = self._exec_cache.get(key)
-        fresh = fn is None
-        if fresh:
-            fn = builder()
-            self._exec_cache[key] = fn
-            self.diagnostics.compiles += 1
-        else:
+    def _seen(self, *key) -> bool:
+        """Count a stage key: its first sight in ``compiles`` (returning
+        False), every later one in ``cache_hits`` (returning True)."""
+        if key in self._stage_keys:
             self.diagnostics.cache_hits += 1
-        return fn, fresh
+            return True
+        self._stage_keys.add(key)
+        self.diagnostics.compiles += 1
+        return False
 
     def _words_for(self, rel: Relation, fp: Optional[str], num_blocks: int,
                    seed: int, use_kernels: bool = False) -> torch.Tensor:
@@ -1216,14 +1166,13 @@ class JoinServer:
                 return words
         t0 = time.perf_counter()
         if use_kernels:
-            build, _ = self._executable(
-                "fbuild_k", (rel.capacity, num_blocks), None,
-                partial(_make_filter_build_kernels, num_blocks))
+            from repro_torch.kernels import ops as kops
+            self._seen("fbuild_k", (rel.capacity, num_blocks))
+            build = kops.build_filter
         else:
-            build, _ = self._executable(
-                "fbuild", (rel.capacity, num_blocks), None,
-                partial(_make_filter_build, num_blocks))
-        words = build(rel.keys, rel.valid, seed)
+            self._seen("fbuild", (rel.capacity, num_blocks))
+            build = bloom.build
+        words = build(rel.keys, rel.valid, num_blocks, seed).words
         sync(words.device)
         if fp is not None:
             self._filter_words[key] = words
@@ -1259,15 +1208,15 @@ class JoinServer:
                 wkey = self._word_ids[key] = self._push_words(words)
             return wkey, words
         t0 = time.perf_counter()
-        build, _ = self._executable(
-            "fbuild", (rel.capacity, num_blocks, self.mesh_shape, use_kernels),
-            None, lambda: partial(self._ranks.call, "fbuild",
-                                  num_blocks=num_blocks, kernels=use_kernels))
+        self._seen("fbuild", (rel.capacity, num_blocks, self.mesh_shape,
+                              use_kernels))
         # a handle lives through its build (the ranks drop a scattered
         # sub-window's block at the next header once it is gone)
         rel = self._admit_rels([rel])[0]
         wkey = next(self._wkeys)
-        words = build(rid=rel.rid, wkey=wkey, seed=seed)
+        words = self._ranks.call("fbuild", num_blocks=num_blocks,
+                                 kernels=use_kernels, rid=rel.rid, wkey=wkey,
+                                 seed=seed)
         sync(words.device)
         self.diagnostics.filter_exchange_bytes_measured += float(
             words.numel() * words.element_size() * (self.mesh_k - 1))
@@ -1510,8 +1459,8 @@ class JoinServer:
     # sigma table, queue descriptors, scalar counters), in the JAX
     # package's layout.  Keys are index-based (``ds/0/1/keys``) so
     # user-chosen names never have to round-trip through a file name.  NOT
-    # captured: the stage cache (rebuilt on the restoring server, a warmup
-    # cost, not state) and in-flight latency timestamps (latency across a
+    # captured: the stage keys served (seen afresh on the restoring server,
+    # a warmup cost, not state) and in-flight latency timestamps (latency across a
     # crash is ill-defined; restored requests re-stamp at restore
     # admission).
 
@@ -1687,112 +1636,75 @@ class JoinServer:
 
     # -- execution ----------------------------------------------------------
 
-    def _kernel_gather(self, rel: ShardedRelation, memo: dict) -> Relation:
-        """A kernel class's rows on rank 0 (the CUDA kernels serve on one
-        device): at mesh 1 rank 0's block is the relation; at k > 1 the
-        ranks' blocks gather to rank 0, once per relation a step, metered
-        in ``kernel_gather_bytes`` as the bytes rank 0 received."""
-        if not isinstance(rel, ShardedRelation):
-            return rel                  # rows kept on rank 0
-        if self.mesh_k == 1:
-            return rel.local
-        hit = memo.get(rel.rid)
-        if hit is None:
-            hit = memo[rel.rid] = self._ranks.call("gather", rid=rel.rid)
-            # a row crosses as three int32s (gather_fields)
-            self.diagnostics.kernel_gather_bytes += float(
-                12 * rel.capacity * (self.mesh_k - 1) // self.mesh_k)
-        return hit
-
-    def _mesh_batch_inputs(self, cls: ShapeClass, batch: list[JoinRequest]):
-        """:meth:`_batch_inputs` on a mesh: a mesh class's step names its
-        relations and filters by id (every rank stacks its own blocks); a
-        kernel class's gathers its rows to rank 0 and stacks them there.  A
-        request's prebuilt words serve as they are on a kernel class; a
-        mesh class takes them by their word ids on the ranks, or broadcasts
-        them for the step when the ranks lack them."""
-        B = bucket_capacity(len(batch))
-        reqs = batch + [batch[-1]] * (B - len(batch))
-        dev = _rows_of(batch[0].rels[0]).device
-        seeds = torch.tensor([r.seed & MASK for r in reqs], device=dev)
-        fseeds = torch.tensor([(r.seed if r.filter_seed is None
-                                else r.filter_seed) & MASK for r in reqs],
-                              device=dev)
-        num_blocks = bloom.num_blocks_for(max(cls.caps), cls.fp_rate)
-        step_words: list = []
-        per_req = []
-        for r in batch:
-            if r._words is not None:
-                if len(r._words) != cls.n_inputs:
-                    raise ValueError(f"{len(r._words)} prebuilt filters for "
-                                     f"{cls.n_inputs} inputs")
-                if cls.use_kernels:
-                    keys = [None] * cls.n_inputs
-                elif r._word_keys is not None:
-                    keys = r._word_keys
-                    step_words += keys
-                    r._word_keys = None      # released with the step's
-                else:
-                    keys = [self._push_words(w) for w in r._words]
-                    step_words += keys
-                per_req.append(list(zip(keys, r._words)))
-                continue
-            fs = r.seed if r.filter_seed is None else r.filter_seed
-            per_req.append([self._mesh_words_for(
-                r.rels[s], r._fps[s], num_blocks, fs, cls.use_kernels,
-                step_words) for s in range(cls.n_inputs)])
-        per_req += [per_req[-1]] * (B - len(batch))
-        self._step_words = step_words    # dropped once the step is done
-        if cls.use_kernels:
-            memo: dict = {}
-            rows = [[self._kernel_gather(r.rels[s], memo) for r in reqs]
-                    for s in range(cls.n_inputs)]
-            rels_b = [Relation(*(torch.stack([rel[f] for rel in side])
-                                 for f in range(3))) for side in rows]
-            words_b = torch.stack([torch.stack([w for _, w in ws])
-                                   for ws in per_req])
-            return B, rels_b, words_b, seeds, fseeds, num_blocks
-        slots = [[r.rels[s].rid for s in range(cls.n_inputs)] for r in reqs]
-        wkeys = [[w for w, _ in ws] for ws in per_req]
-        return B, slots, wkeys, seeds, fseeds, num_blocks
-
     def _batch_inputs(self, cls: ShapeClass, batch: list[JoinRequest]):
         """Pad to the pow2 batch bucket; stack relations, words and seeds.
 
         Seeds come back as int64 ``[B]`` tensors on the batch's device,
-        each wrapped mod 2^32, as the kernels take them."""
-        if self.mesh is not None:
-            return self._mesh_batch_inputs(cls, batch)
+        each wrapped mod 2^32, as the kernels take them.  A mesh class's
+        step names its relations and filters by id instead (every rank
+        stacks its own blocks); a kernel class on a mesh gathers its rows
+        to rank 0 and stacks them there."""
         B = bucket_capacity(len(batch))
-        reqs = batch + [batch[-1]] * (B - len(batch))  # pad slots (discarded)
-        rels_b = [Relation(torch.stack([r.rels[s].keys for r in reqs]),
-                           torch.stack([r.rels[s].values for r in reqs]),
-                           torch.stack([r.rels[s].valid for r in reqs]))
-                  for s in range(cls.n_inputs)]
-        dev = rels_b[0].keys.device
+        pad = B - len(batch)
+        reqs = batch + [batch[-1]] * pad              # pad slots (discarded)
+        # rows before the seeds: the seeds' copies wait for the row stacks,
+        # so that wait stays in batch-inputs, not in the prepare span
+        if cls.mesh:
+            rels_b = [[r.rels[s].rid for s in range(cls.n_inputs)]
+                      for r in reqs]
+        else:
+            memo: dict = {}
+            rows = [[self._full_rows(r.rels[s], memo, kernel=True)
+                     for r in reqs] for s in range(cls.n_inputs)]
+            rels_b = [Relation(*(torch.stack([rel[f] for rel in side])
+                                 for f in range(3))) for side in rows]
+        dev = _rows_of(batch[0].rels[0]).device
+        fs = [r.seed if r.filter_seed is None else r.filter_seed
+              for r in reqs]
         seeds = torch.tensor([r.seed & MASK for r in reqs], device=dev)
-        fseeds = torch.tensor([(r.seed if r.filter_seed is None
-                                else r.filter_seed) & MASK for r in reqs],
-                              device=dev)
+        fseeds = torch.tensor([f & MASK for f in fs], device=dev)
         num_blocks = bloom.num_blocks_for(max(cls.caps), cls.fp_rate)
         # words are fetched per REAL request only (pad slots replay the last
-        # request's words) so the build/reuse counters stay honest; a
-        # request may carry prebuilt words instead
-        per_req = []
-        for r in batch:
-            if r._words is not None:
-                if len(r._words) != cls.n_inputs:
-                    raise ValueError(f"{len(r._words)} prebuilt filters for "
-                                     f"{cls.n_inputs} inputs")
-                ws = list(r._words)
-            else:
-                fs = r.seed if r.filter_seed is None else r.filter_seed
-                ws = [self._words_for(r.rels[s], r._fps[s], num_blocks, fs,
-                                      use_kernels=cls.use_kernels)
-                      for s in range(cls.n_inputs)]
-            per_req.append(torch.stack(ws))
-        words_b = torch.stack(per_req + [per_req[-1]] * (B - len(batch)))
-        return B, rels_b, words_b, seeds, fseeds, num_blocks
+        # request's words) so the build/reuse counters stay honest
+        self._step_words = []            # dropped once the step is done
+        per_req = [self._request_words(cls, r, fs[i], num_blocks)
+                   for i, r in enumerate(batch)]
+        if cls.mesh:
+            wkeys = [[w for w, _ in ws] for ws in per_req]
+            return B, rels_b, wkeys + wkeys[-1:] * pad, seeds, fseeds, \
+                num_blocks
+        words = [torch.stack([w for _, w in ws]) for ws in per_req]
+        return B, rels_b, torch.stack(words + words[-1:] * pad), seeds, \
+            fseeds, num_blocks
+
+    def _request_words(self, cls: ShapeClass, r: JoinRequest, fseed: int,
+                       num_blocks: int) -> list:
+        """A real request's ``(word id, words)`` per input: its prebuilt
+        words, or the per-dataset cache's.  A mesh class takes prebuilt
+        words by their ids on the ranks, or broadcasts them for the step."""
+        n = cls.n_inputs
+        if r._words is None:
+            if self.mesh is None:
+                return [(None, self._words_for(r.rels[s], r._fps[s],
+                                               num_blocks, fseed,
+                                               cls.use_kernels))
+                        for s in range(n)]
+            return [self._mesh_words_for(r.rels[s], r._fps[s], num_blocks,
+                                         fseed, cls.use_kernels,
+                                         self._step_words)
+                    for s in range(n)]
+        if len(r._words) != n:
+            raise ValueError(f"{len(r._words)} prebuilt filters for {n} "
+                             "inputs")
+        if not cls.mesh:
+            keys = [None] * n
+        elif r._word_keys is not None:
+            keys, r._word_keys = r._word_keys, None   # released with the step
+            self._step_words += keys
+        else:
+            keys = [self._push_words(w) for w in r._words]
+            self._step_words += keys
+        return list(zip(keys, r._words))
 
     def _decide_b_rows(self, batch, B, totals, skeys, strata_slice,
                        d_filter):
@@ -1888,54 +1800,13 @@ class JoinServer:
                               what=what):
             return [t.cpu().numpy() for t in tensors]
 
-    def _stage_builders(self, cls: ShapeClass, num_blocks: int) -> dict:
-        """Per-route stage builders.
-
-        The plain, kernel and mesh routes share every other line of the
-        step (warmup, timing, host decisions, result assembly).  Kernel
-        classes the sampler kernel does not take (:func:`kernel_sampler`)
-        keep the kernel prepare and take the plain sampler — exactly
-        approx_join's own use_kernels composition.  A mesh class's stages
-        broadcast their header and run on every rank, on the per-rank state
-        the prepare left there (its ``sorted_rels`` / ``strata`` arguments
-        are rank 0's copy, unread).
-        """
-        if self.mesh is not None and not cls.use_kernels:
-            ranks = self._ranks
-            cap = cls.bucket_cap or max(cls.caps) // self.mesh_k
-            merge = "psum" if cls.serve_mode == "psum" else "gather"
-            pspec = ("prepare", cls.n_inputs, num_blocks, cls.max_strata,
-                     cap, merge)
-            sspec = ("sample", merge, cls.b_max, cls.agg, cls.dedup,
-                     cls.confidence, cls.expr)
-            espec = ("exact", merge, cls.agg, cls.expr)
-
-            def prepare(slots, wkeys, fseeds, n_real):
-                return ranks.call("prepare", spec=pspec, slots=slots,
-                                  wkeys=wkeys, fseeds=fseeds.tolist(),
-                                  n_real=n_real)
-
-            def sample(sorted_rels, strata, b, seeds, n_real):
-                return ranks.call("sample", b, spec=sspec,
-                                  seeds=seeds.tolist(), n_real=n_real)
-
-            def exact(sorted_rels, strata, n_real):
-                return ranks.call("exact", spec=espec, n_real=n_real)
-            return dict(prepare=lambda: prepare, sample=lambda: sample,
-                        exact=lambda: exact)
-        prepare = partial(_make_prepare, cls.max_strata)
-        sample = partial(_make_sample, cls.b_max, cls.agg, cls.dedup,
-                         cls.confidence, cls.expr)
-        if cls.use_kernels:
-            prepare = partial(_make_prepare_kernels, cls.max_strata)
-        if kernel_sampler(cls):
-            sample = partial(_make_sample_kernels, cls.b_max, cls.agg,
-                             cls.confidence, cls.expr)
-        return dict(prepare=prepare, sample=sample,
-                    exact=partial(_make_exact, cls.agg, cls.expr))
-
     def _run_batch(self, cls: ShapeClass, batch: list[JoinRequest]) -> None:
         """One engine step: one call per stage for the whole batch.
+
+        A kernel class the sampler kernel does not take samples with plain
+        torch (approx_join's own use_kernels composition).  A mesh class's
+        stages broadcast their header and run on every rank, on the
+        per-rank state the prepare left there.
 
         Traced, the step's parts are live spans on the engine lane, inside
         its ``step``: ``batch-inputs``, ``compile`` (a fresh prepare's
@@ -1952,7 +1823,15 @@ class JoinServer:
                 self._batch_inputs(cls, batch)
             sp.set(slots=B, real=len(batch))
         n_real, device = len(batch), seeds.device
-        builders = self._stage_builders(cls, num_blocks)
+        specs = None
+        if cls.mesh:         # the per-rank stages, as _mesh_stage builds them
+            cap = cls.bucket_cap or max(cls.caps) // self.mesh_k
+            merge = "psum" if cls.serve_mode == "psum" else "gather"
+            specs = dict(prepare=("prepare", cls.n_inputs, num_blocks,
+                                  cls.max_strata, cap, merge),
+                         sample=("sample", merge, cls.b_max, cls.agg,
+                                 cls.dedup, cls.confidence, cls.expr),
+                         exact=("exact", merge, cls.agg, cls.expr))
         # the step's stage spans, for the requests' lanes ([] only while
         # tracing, so the untraced path waits for the device no more than it
         # must)
@@ -1964,9 +1843,17 @@ class JoinServer:
                 stages.append(sp)
             return sp
 
-        prepare, fresh = self._executable("prepare", cls, B,
-                                          builders["prepare"])
-        if fresh and not cls.mesh:
+        def prepare():
+            if specs is not None:
+                return self._ranks.call(
+                    "prepare", spec=specs["prepare"], slots=rels_b,
+                    wkeys=words_b, fseeds=fseeds.tolist(), n_real=n_real)
+            if cls.use_kernels:
+                return prepare_stage_kernels_batched(
+                    rels_b, words_b, cls.max_strata, fseeds, n_real=n_real)
+            return _prepare_slots(cls, rels_b, words_b, fseeds, n_real)
+
+        if not self._seen("prepare", cls, B) and not cls.mesh:
             # warm the stage off the clock: d_filter feeds the latency cost
             # function (§3.2), which models repeated query execution —
             # charging the kernels' load and the first allocations would
@@ -1974,11 +1861,11 @@ class JoinServer:
             # mesh class loads no kernel, and its warm-up would shuffle
             # every slot's rows once more
             with stage("compile", stage="prepare"):
-                prepare(rels_b, words_b, fseeds, n_real)
+                prepare()
                 sync(device)
         with stage("prepare"):
             t0 = time.perf_counter()
-            prep = prepare(rels_b, words_b, fseeds, n_real)
+            prep = prepare()
             sync(device)
             d_filter = time.perf_counter() - t0
         self.diagnostics.filter_s += d_filter
@@ -1986,7 +1873,7 @@ class JoinServer:
         # an exact request reads nothing of its strata on the host: only a
         # latency budget, the registry and the draws meter read the [B, S]
         # populations and keys
-        totals, = self._to_host("totals", _slot_totals(prep.strata))
+        totals, = self._to_host("totals", prep.strata.population.sum(-1))
         population = skeys = None
         if not all(r.budget.is_exact for r in batch):
             population, = self._to_host("population", prep.population)
@@ -2003,18 +1890,33 @@ class JoinServer:
         # -- one call per stage, whole batch --------------------------------
         value = err = cnt = dof = stats = e_est = e_cnt = None
         if sampled_idx:
-            sample, _ = self._executable("sample", cls, B,
-                                         builders["sample"])
+            self._seen("sample", cls, B)
             with stage("sample", queries=len(sampled_idx)):
-                value, err, cnt, dof, stats = sample(
-                    prep.sorted_rels, prep.strata, torch.stack(b_rows),
-                    (seeds + 1) & MASK, n_real)
+                b, sseeds = torch.stack(b_rows), (seeds + 1) & MASK
+                if specs is not None:
+                    out = self._ranks.call("sample", b, spec=specs["sample"],
+                                           seeds=sseeds.tolist(),
+                                           n_real=n_real)
+                elif kernel_sampler(cls):
+                    out = sample_stage_kernels_batched(
+                        prep.sorted_rels, prep.strata, b, cls.b_max, sseeds,
+                        agg=cls.agg, confidence=cls.confidence,
+                        expr=cls.expr)
+                else:
+                    out = _sample_slots(cls, prep.sorted_rels, prep.strata,
+                                        b, sseeds, n_real)
+                value, err, cnt, dof, stats = out
                 if stages is not None:
                     sync(device)
         if exact_idx:
-            exact, _ = self._executable("exact", cls, B, builders["exact"])
+            self._seen("exact", cls, B)
             with stage("exact", queries=len(exact_idx)):
-                e_est, e_cnt = exact(prep.sorted_rels, prep.strata, n_real)
+                if specs is not None:
+                    e_est, e_cnt = self._ranks.call(
+                        "exact", spec=specs["exact"], n_real=n_real)
+                else:
+                    e_est, e_cnt = _exact_slots(cls, prep.sorted_rels,
+                                                prep.strata, n_real)
                 if stages is not None:
                     sync(device)
 
@@ -2051,9 +1953,8 @@ class JoinServer:
             d.per_device_dropped_tuples = d.per_device_dropped_tuples \
                 + dev_dropped
             d.dist_wire_bytes_model += n_real * self._wire_bytes_model(cls)
-        if self.mesh is not None:
-            for wkey in self._step_words:
-                self._ranks.release_words(wkey)
+        for wkey in self._step_words:           # none off a mesh
+            self._ranks.release_words(wkey)
         if stages is not None:
             self._stage_spans = stages
             # the tensors the reconciliation records read, after the step

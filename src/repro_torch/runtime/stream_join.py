@@ -445,7 +445,7 @@ class StreamJoinServer(JoinServer):
     ``window_slots`` bounds each session's queued-but-unserved windows;
     emitting past the bound sheds the session's OLDEST queued window
     (freshness over completeness — the shed window is marked and counted,
-    never silently lost).  Everything else — stage cache, filter-word
+    never silently lost).  Everything else — stage keys, filter-word
     cache, sigma registry, deadline-aware scheduling, sigma pipelining — is
     the base engine, shared with static queries on the same server.
     """

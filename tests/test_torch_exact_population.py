@@ -16,7 +16,7 @@ from repro_torch.core.budget import QueryBudget
 from repro_torch.core.estimators import clt_sum
 from repro_torch.core.join import approx_join
 from repro_torch.core.relation import relation, sort_by_key
-from repro_torch.core.sampling import build_strata
+from repro_torch.core.sampling import Strata, build_strata
 from repro_torch.runtime.join_serve import JoinRequest, JoinServer
 from repro_torch.runtime.telemetry import Tracer
 from torch_accuracy import one_torch_thread  # noqa: F401  (autouse)
@@ -44,16 +44,36 @@ def _float32_population(counts, joinable):
     return torch.where(joinable, p, 0.0)
 
 
-def test_two_way_population_is_exact_int64():
+def _stacked(strata):
+    """Strata stacked slot by slot (``[B, ...]`` leaves), as a served
+    step's prepare holds them."""
+    return Strata(*(torch.stack(leaves) for leaves in zip(*strata)))
+
+
+@pytest.mark.parametrize("slots", [None, 3], ids=["one", "stacked"])
+def test_two_way_population_is_exact_int64(slots):
+    """The population is the exact int64 product of the counts, for one
+    slot's strata and for three slots stacked ``[B, n, S]``: there each
+    slot's population, joinable mask and number of strata are what that
+    slot's strata alone give, and so is its total."""
     assert np.float32(BIG) * np.float32(SMALL) == EXACT + 1
-    st = build_strata([sort_by_key(r) for r in _pair()], S)
-    pop = st.population
-    assert pop.dtype == torch.int64
-    i = int(torch.nonzero(st.keys == 7)[0, 0])
-    assert int(pop[i]) == EXACT
-    assert torch.equal(pop[~st.joinable], torch.zeros_like(pop[~st.joinable]))
-    assert int(pop.sum()) == int((st.counts[0] * st.counts[1]
-                                  * st.joinable).sum())
+    each = [build_strata([sort_by_key(r) for r in _pair(seed)], S)
+            for seed in range(slots or 1)]
+    st = each[0] if slots is None else _stacked(each)
+    assert st.population.dtype == torch.int64
+    views = [(st.population, st.joinable, st.num_strata)] if slots is None \
+        else list(zip(st.population, st.joinable, st.num_strata))
+    for one, (pop, joinable, m) in zip(each, views, strict=True):
+        i = int(torch.nonzero(one.keys == 7)[0, 0])
+        assert int(pop[i]) == EXACT
+        assert torch.equal(pop[~joinable], torch.zeros_like(pop[~joinable]))
+        assert int(pop.sum()) == int((one.counts[0] * one.counts[1]
+                                      * joinable).sum())
+        assert torch.equal(pop, one.population)
+        assert torch.equal(joinable, one.joinable)
+        assert int(m) == int(one.num_strata)
+    assert [int(t) for t in st.population.sum(-1).reshape(-1)] == \
+        [int(one.population.sum()) for one in each]
 
 
 @pytest.mark.parametrize("use_kernels", [False, True],
