@@ -109,6 +109,8 @@ class PrepareOut(NamedTuple):
     ``population`` is ``strata.population`` in float32, as the host's
     decisions read it (a plain tensor, so it can be read off a slot-stacked
     batch too); the strata keep the exact int64 counts of edges.
+    ``sorted_rows`` is ``live_counts`` as the host read it: the rows each
+    side's sort took.
     """
 
     sorted_rels: list[Relation]
@@ -116,17 +118,25 @@ class PrepareOut(NamedTuple):
     live_counts: torch.Tensor   # int64 [n]
     total_counts: torch.Tensor  # int64 [n]
     population: torch.Tensor    # f32   [S]
+    sorted_rows: torch.Tensor   # int64 [n], on the CPU
 
 
 def _prepare_tail(live: Sequence[Relation], rels: Sequence[Relation],
-                  max_strata: int) -> PrepareOut:
-    """Shared sort/group-by tail of every prepare variant."""
-    sorted_rels = [sort_by_key(r) for r in live]
+                  max_strata: int,
+                  counts: Optional[torch.Tensor] = None) -> PrepareOut:
+    """Shared sort/group-by tail of every prepare variant.
+
+    ``counts`` holds each side's live rows on the CPU; without it the tail
+    reads them from the device, once for all sides.
+    """
+    live_counts = torch.stack([r.count() for r in live])
+    if counts is None:
+        counts = live_counts.cpu()
+    sorted_rels = [sort_by_key(r, c) for r, c in zip(live, counts.tolist())]
     strata = build_strata(sorted_rels, max_strata)
-    return PrepareOut(sorted_rels, strata,
-                      torch.stack([r.count() for r in live]),
+    return PrepareOut(sorted_rels, strata, live_counts,
                       torch.stack([r.count() for r in rels]),
-                      strata.population.to(torch.float32))
+                      strata.population.to(torch.float32), counts)
 
 
 def prepare_stage(rels: Sequence[Relation], num_blocks: int, max_strata: int,
@@ -224,7 +234,8 @@ def prepare_stage_kernels_batched(rels: Sequence[Relation],
     ``n_real`` says that the slots from ``n_real`` on repeat slot
     ``n_real - 1``'s inputs (an engine's pad slots): the tail then runs for
     the first ``n_real`` slots only, and the last one's outputs fill the
-    rest, which is what running it for them would give.
+    rest, which is what running it for them would give.  The sorts take
+    their live rows from one host read of the real slots' counts.
     """
     from repro_torch.kernels import ops as kops
     if filter_words.shape[1] != len(rels):
@@ -238,9 +249,11 @@ def prepare_stage_kernels_batched(rels: Sequence[Relation],
                      r.valid & kops.probe_filter_batched(jwords, r.keys, seeds))
             for r in rels]
     B = filter_words.shape[0]
+    n = B if n_real is None else n_real
+    counts = torch.stack([r.valid[:n].sum(-1) for r in live], -1).cpu()
     return pad_stack([_prepare_tail(_slot(live, b), _slot(list(rels), b),
-                                    max_strata)
-                      for b in range(B if n_real is None else n_real)], B)
+                                    max_strata, counts[b])
+                      for b in range(n)], B)
 
 
 def _finish(est, cnt, agg: str):

@@ -5,15 +5,18 @@ A :class:`Relation` is the stand-in for an RDD of key/value pairs: dense
 by masking, and every pipeline stage is a dense pass).
 
 Keys are uint32 values carried in int64: PyTorch has no ``>>`` or ``%`` on
-``torch.uint32``, and int32 bit patterns would sort keys >= 2^31 first, which
-breaks the order :func:`sort_by_key` and ``sampling.build_strata`` rely on.
-Values are float32 and ``valid`` is bool.
+``torch.uint32``, and a raw cast to int32 would sort keys >= 2^31 first.
+:func:`sort_by_key` sorts on int32 all the same, through the offset map
+``key - 2^31``, which keeps the keys' unsigned order in 4 bytes, and sorts
+only the valid rows: a stable partition puts them first and the invalid
+rows after them, each in row order.  Values are float32 and ``valid`` is
+bool.
 """
 
 from __future__ import annotations
 
 import hashlib
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -142,9 +145,30 @@ def shard_to_mesh(rel: Relation, mesh, axes) -> Relation:
                       for x in shard_rows(rel, k)))
 
 
-def sort_by_key(rel: Relation) -> Relation:
-    """Sort valid rows by key; invalid rows go last (stable)."""
-    order = torch.argsort(rel.masked_keys(), stable=True)
+def sort_by_key(rel: Relation, live: Optional[int] = None) -> Relation:
+    """Sort valid rows by key; invalid rows go last (stable).
+
+    The order is ``torch.argsort(rel.masked_keys(), stable=True)``'s for a
+    1-D relation whose valid keys are below ``2^32 - 1``, built from two
+    parts: a stable partition of the rows by ``valid`` (the valid rows in
+    row order, then the invalid ones in row order), and one stable sort of
+    the valid rows alone on the int32 keys ``key - 2^31``.  ``live`` is the
+    number of valid rows, which sizes the partition; without it the
+    function reads it from the device.
+    """
+    if live is None:
+        live = int(rel.valid.sum())
+    # the live rows' sorted order fills order[:live], the dead rows the rest
+    order = torch.empty_like(rel.keys)
+    torch.nonzero_static(~rel.valid, size=rel.capacity - live,
+                         out=order[live:].view(-1, 1))
+    rows = torch.nonzero_static(rel.valid, size=live).squeeze(1)
+    # each key's low 32-bit word (the first, little-endian) with its top bit
+    # flipped is ``key - 2^31`` in int32
+    low = rel.keys.contiguous().view(torch.int32)[::2]
+    keys32 = low[rows] ^ -2**31
+    torch.index_select(rows, 0, torch.argsort(keys32, stable=True),
+                       out=order[:live])
     return Relation(rel.keys[order], rel.values[order], rel.valid[order])
 
 

@@ -1863,11 +1863,14 @@ class JoinServer:
             with stage("compile", stage="prepare"):
                 prepare()
                 sync(device)
-        with stage("prepare"):
+        with stage("prepare") as sp:
             t0 = time.perf_counter()
             prep = prepare()
             sync(device)
             d_filter = time.perf_counter() - t0
+            if tr.enabled and specs is None:
+                sp.set(rows=n_real * sum(r.capacity for r in rels_b),
+                       sorted=int(prep.sorted_rows[:n_real].sum()))
         self.diagnostics.filter_s += d_filter
 
         # an exact request reads nothing of its strata on the host: only a

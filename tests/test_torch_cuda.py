@@ -309,6 +309,33 @@ def test_exact_value_sums_deterministic_on_card(card, n_keys):
         np.testing.assert_allclose(got, want[order], rtol=1e-4)
 
 
+@pytest.mark.parametrize("n,share", [(2**24 + 3, 0.11), (2**22, 1.0),
+                                     (4096, 0.0), (1, 1.0)])
+def test_sort_by_key_on_card_is_the_int64_argsort(card, n, share):
+    """Given its live count, ``sort_by_key`` waits for the device nowhere,
+    and its rows are those of the stable int64 argsort of the masked keys,
+    on the card and on the CPU: keys on both sides of 2^31, each live key
+    held by about 256 rows."""
+    rng = np.random.default_rng(n)
+    edges = np.array([0, 2**31 - 1, 2**31, 2**32 - 2])
+    pool = np.append(rng.integers(0, 2**32 - 1, max(n >> 8, 1)), edges)
+    valid = rng.random(n) < share
+    rel = relation(rng.choice(pool, n).astype(np.uint32),
+                   rng.normal(0, 1, n).astype(np.float32), valid,
+                   device=card)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = sort_by_key(rel, int(valid.sum()))
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    order = torch.argsort(rel.masked_keys(), stable=True)
+    on_cpu = sort_by_key(Relation(*(f.cpu() for f in rel)))
+    for x, f, y in zip(got, rel, on_cpu):
+        assert torch.equal(x, f[order])
+        assert torch.equal(x.cpu(), y)
+
+
 def test_join_server_launches_once_per_step_and_stage(card):
     """A step of any width launches the probe once per input and the
     sampler at most once; the build launches once per filter-cache miss."""

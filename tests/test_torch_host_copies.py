@@ -172,8 +172,11 @@ def test_latency_budget_decides_from_the_exact_total(use_kernels, side):
 @ROUTES
 def test_untraced_exact_step_serves_the_traced_bits(use_kernels,
                                                     monkeypatch):
-    """Untraced, a step of exact requests copies the totals alone (one
-    ``[B]`` tensor) and serves the bits a traced step serves."""
+    """Untraced, a step of exact requests copies the live rows a side that
+    its sorts take (one ``[n_real, 2]`` tensor on the kernel route, one
+    ``[2]`` a slot on the plain route, in the warm-up's prepare and in the
+    step's) and the totals (one ``[B]`` tensor),
+    and serves the bits a traced step serves."""
     on = JoinServer(batch_slots=4, tracer=Tracer(enabled=True))
     off = JoinServer(batch_slots=4)
     seeds = (51, 52)
@@ -189,7 +192,10 @@ def test_untraced_exact_step_serves_the_traced_bits(use_kernels,
     monkeypatch.setattr(torch.Tensor, "cpu", counted)
     assert off.step() == 2
     monkeypatch.undo()
-    assert copies == [((2,), torch.int64)]
+    # the live rows, read by the width's first prepare (its warm-up) and
+    # by the step's
+    live = ([(2, 2)] if use_kernels else [(2,), (2,)]) * 2
+    assert copies == [(shape, torch.int64) for shape in live + [(2,)]]
     assert not off.tracer.events
     for x, y in zip(traced, plain):
         assert _bits(x.result) == _bits(y.result)

@@ -451,9 +451,11 @@ def test_step_spans_mirror_onto_the_profiler(use_kernels):
                          ids=["plain", "kernel"])
 def test_untraced_step_copies_only_its_inputs(use_kernels, monkeypatch):
     """With tracing off a step of a sampled and an exact request copies to
-    the host each slot's total population, the strata populations and keys,
-    and the sampled request's sigmas and validity: five copies, none for
-    telemetry."""
+    the host each slot's live rows a side (the sorts' sizes: one copy of
+    the batch on the kernel route, one a slot on the plain route, in the
+    warm-up's prepare and in the step's), each
+    slot's total population, the strata populations and keys, and the
+    sampled request's sigmas and validity: none for telemetry."""
     import torch
     srv = JoinServer(batch_slots=2)
     srv.submit(_req(3, qid="t0/q", use_kernels=use_kernels))
@@ -469,7 +471,10 @@ def test_untraced_step_copies_only_its_inputs(use_kernels, monkeypatch):
         return cpu(t, *a, **k)
     monkeypatch.setattr(torch.Tensor, "cpu", counted)
     assert srv.step() == 2
-    assert copies == [(2,), (2, MS), (2, MS), (MS,), (MS,)]
+    # the live rows, read by the width's first prepare (its warm-up) and
+    # by the step's
+    live = ([(2, 2)] if use_kernels else [(2,), (2,)]) * 2
+    assert copies == live + [(2,), (2, MS), (2, MS), (MS,), (MS,)]
 
 
 # -- trace_dump CLI surface --------------------------------------------------

@@ -21,6 +21,9 @@ result line, then one JSON object:
   ``strata-keys`` only in a step with a request that is not exact;
   ``sigma``; a mesh's), each step's slots beside its copied bytes, and
   ``keys_step_share``, the share of steps that copied the strata keys;
+* ``sorted_rows_pct``: the ``prepare`` spans' ``sorted`` (live rows the
+  prepare tail sorted) over their ``rows`` (the real slots' capacity rows
+  entering it), in percent; null where the program records neither;
 * ``sigma_counts``: the window's sums of the registry spans' counts:
   ``sigma-lookup.strata`` and ``.hits`` (keys looked up, keys found),
   ``sigma-update.strata``, ``.kept`` and ``.new`` (keys offered, stored,
@@ -63,6 +66,7 @@ def split(events: list, span_tree) -> dict:
     widths: dict = {}
     counts: dict = {}
     keys_steps = 0
+    tail = {"rows": 0, "sorted": 0}
     for s in steps:
         got = {k: 0.0 for k in parts}
         copied = 0
@@ -72,6 +76,9 @@ def split(events: list, span_tree) -> dict:
                 got[c["name"]] += c["dur"]
             if c["name"] == "batch-inputs":
                 slots = c["args"]["slots"]
+            if c["name"] == "prepare":
+                for a in tail:
+                    tail[a] += c["args"].get(a, 0)
             for g in [c] + c["children"]:
                 if g["name"] in ("sigma-lookup", "sigma-update"):
                     got[g["name"]] += g["dur"]
@@ -93,6 +100,8 @@ def split(events: list, span_tree) -> dict:
     n = max(len(steps), 1)
     return {"steps": len(steps),
             "split_ms": {k: _stats(v) for k, v in parts.items()},
+            "sorted_rows_pct": (100 * tail["sorted"] / tail["rows"]
+                                if tail["rows"] else None),
             "sigma_counts": counts,
             "to_host": {"bytes_per_step": {k: v / n
                                            for k, v in by_what.items()},
