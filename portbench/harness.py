@@ -16,6 +16,20 @@ at the close is served after it and checked, not timed.  Once the program
 is freed, the plain reference works every answer out again and
 :mod:`portbench.verify` compares.  With ``trace`` the program's ``Tracer``
 records the window and ``torch.profiler`` a few steady steps of it.
+
+A client pattern may start processes of its own, as a cell over several
+cards does: its mesh starts in the pattern, one process a rank, and the
+harness stays unaware of ranks.  Such a pattern's ``Clients`` gives two
+hooks, which a pattern without them (``closed_loop.py``) goes without:
+``peaks()``, called right after ``window()`` returns, lists the window's
+peak allocated bytes of each card its processes hold (their peak statistics
+reset as its window starts), and the run reports the fullest card's, its
+own or theirs; ``close()``, called exactly once, after ``drain()`` or after
+``warm``, ``window`` or ``drain`` raised, and before the reference runs,
+stops those processes and frees their cards.  The profiler traces the
+harness's own process alone, which is rank 0's: a multi-card cell's
+``device_idle_pct``, device operations and kernels' rooflines are rank
+0's card.
 """
 
 from __future__ import annotations
@@ -114,9 +128,10 @@ def reader(bench: Path, metric: str):
 def client_pattern(cell: Cell):
     """The module ``traffic/<kind>.py`` of the cell's mix: its
     ``Clients(ctx)`` makes the program's server and drives it (``warm``,
-    ``window``, ``drain``); its ``planned(cell, seed, n)`` lists the
-    requests a run sends, and ``filter_seed(seed)`` is the filter-hash seed
-    of a run's requests."""
+    ``window``, ``drain``, and where it starts processes ``peaks`` and
+    ``close``: see the module's docstring); its ``planned(cell, seed, n)``
+    lists the requests a run sends, and ``filter_seed(seed)`` is the
+    filter-hash seed of a run's requests."""
     return _module(cell.bench, "traffic", cell.traffic["kind"])
 
 
@@ -142,7 +157,9 @@ class Records(NamedTuple):
 
     ``requests``: one dict a request answered in the window (``queue_s``, the
     program's ingest-to-dispatch time, and ``e2e_s``, submit to the answer on
-    the host); ``steps``: one dict a window step (``served``); ``events``: the
+    the host); ``steps``: one dict a window step (``served``);
+    ``peak_bytes``: the window's peak allocated bytes of the fullest card
+    (0 off a card); ``events``: the
     program's Tracer events of the window (traced runs); ``device``: the
     profiled steps (traced runs on a card): ``lo``/``hi`` (seconds, profiler
     clock), ``ops`` ((name, start, end) of each device operation) and
@@ -281,28 +298,36 @@ def run_cell(root: Path, name: str, seed: int, seconds: float, trace: bool,
     clients = pattern.Clients(Context(
         cell, seed, device,
         lambda i: dataset_inputs(cell, seed, i, device), tracer))
-    _sync(device)
-    marks.append(("inputs and registration", time.perf_counter()))
-    clients.warm()
-    _sync(device)
-    marks.append(("warm-up", time.perf_counter()))
-    profile = Profile(PROFILE_AFTER, PROFILE_STEPS, cuda) if trace else None
-    if profile is not None:
-        profile.warm()
-        marks.append(("profiler", time.perf_counter()))
-    setup_s = time.perf_counter() - t_start
-    parts = ", ".join(f"{k} {t - marks[i - 1][1] if i else t - t_start:.3f}"
-                      for i, (k, t) in enumerate(marks))
-    log(f"portbench: {name} set up in {setup_s:.3f} s ({parts})")
+    try:
+        _sync(device)
+        marks.append(("inputs and registration", time.perf_counter()))
+        clients.warm()
+        _sync(device)
+        marks.append(("warm-up", time.perf_counter()))
+        profile = Profile(PROFILE_AFTER, PROFILE_STEPS, cuda) if trace \
+            else None
+        if profile is not None:
+            profile.warm()
+            marks.append(("profiler", time.perf_counter()))
+        setup_s = time.perf_counter() - t_start
+        parts = ", ".join(
+            f"{k} {t - marks[i - 1][1] if i else t - t_start:.3f}"
+            for i, (k, t) in enumerate(marks))
+        log(f"portbench: {name} set up in {setup_s:.3f} s ({parts})")
 
-    if cuda:
-        torch.cuda.reset_peak_memory_stats()
-    tracer.enabled = trace
-    window_s = clients.window(seconds, profile)
-    tracer.enabled = False
-    peak = torch.cuda.max_memory_allocated() if cuda else 0
-    events = list(tracer.events)
-    clients.drain()
+        if cuda:
+            torch.cuda.reset_peak_memory_stats()
+        tracer.enabled = trace
+        window_s = clients.window(seconds, profile)
+        tracer.enabled = False
+        peaks = getattr(clients, "peaks", None)
+        peak = max([torch.cuda.max_memory_allocated() if cuda else 0,
+                    *(peaks() if peaks is not None else ())])
+        events = list(tracer.events)
+        clients.drain()
+    finally:
+        if hasattr(clients, "close"):
+            clients.close()
     for a in clients.answers:
         if "detail" in a:
             a["detail"] = {k: v.cpu().numpy() for k, v in a["detail"].items()}
@@ -369,14 +394,21 @@ def _busy(d: dict) -> float:
 
 def _host_spans(events: list, client_spans: list) -> list:
     """(name, start, end, depth) of what the host did, perf_counter clock:
-    the program's engine spans and the benchmark's own client work."""
-    depth = {"batch-formation": 1, "step": 1, "compile": 2, "prepare": 2,
-             "sample": 2, "exact": 2}
-    spans = [(e["name"], e["ts"], e["ts"] + e["dur"], depth[e["name"]])
-             for e in events
-             if e["tid"] == "engine" and e["name"] in depth and e["dur"]]
-    spans += [("client", a, b, 1) for a, b in client_spans]
-    return spans
+    every span of the program's engine lane, its depth the number of engine
+    spans that hold it, found by time (``to-host`` is a child of ``step``
+    after ``prepare`` and a grandchild inside ``finish``), and the
+    benchmark's own client work."""
+    spans = sorted(((e["ts"], e["ts"] + e["dur"], e["name"]) for e in events
+                    if e["tid"] == "engine" and e["dur"]),
+                   key=lambda s: (s[0], -s[1]))
+    out, holders = [], []       # the ends of the spans holding the next
+    for a, b, name in spans:
+        while holders and holders[-1] < b:
+            holders.pop()
+        out.append((name, a, b, len(holders)))
+        holders.append(b)
+    out += [("client", a, b, 0) for a, b in client_spans]
+    return out
 
 
 def _breakdown(d: dict) -> dict:

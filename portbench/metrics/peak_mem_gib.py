@@ -1,5 +1,7 @@
-"""peak_mem_gib: ``torch.cuda.max_memory_allocated()`` over the window, the
-peak statistics reset at its start, in GiB."""
+"""peak_mem_gib: the fullest card's peak allocated bytes over the window, in
+GiB: ``torch.cuda.max_memory_allocated()`` of the harness's process, or a
+larger peak that the client pattern's ``peaks()`` reads of the cards its own
+processes hold; every peak statistic reset at the window's start."""
 
 
 def read(rec):

@@ -15,26 +15,27 @@ for p in (str(ROOT), str(ROOT / "src")):
     if p not in sys.path:
         sys.path.insert(0, p)
 
-# the cut each configuration gets on the CPU (every other key kept)
-TINY = {
-    "s51-2e26": {"rows": [4096, 4096], "keys_per_dataset": 256,
-                 "query": {"fp_rate": 0.01, "max_strata": 512,
-                           "b_max": 256, "batch_slots": 4}},
-    "tpch-sf30": {"orders_rows": 3000, "customer_rows": 300,
-                  "customers_with_orders": 200,
-                  "query": {"fp_rate": 0.01, "max_strata": 256,
-                            "b_max": 64, "batch_slots": 4}},
-}
+# the cut each configuration gets on the CPU (every other key kept), one
+# file a configuration: cuts/<config>.json.  Netflix's keeps 16 movies, the
+# largest strata about 4,000 x 20,001 edges (past 2^24), so a float32
+# population reads wrong on the CPU too.
+CUTS = Path(__file__).resolve().parent / "cuts"
+TINY = {p.stem: json.loads(p.read_text())
+        for p in sorted(CUTS.glob("*.json"))}
 
 
 def tiny_tree(dest: Path) -> Path:
     """A root holding the benchmark with its configurations cut to TINY and
     each mix's verified sample drawn from the answers to the clients' first
-    requests (a window on the CPU may answer few more)."""
+    requests (a window on the CPU may answer few more).  A configuration
+    with no cut file is refused."""
     shutil.copytree(ROOT / "portbench", dest / "portbench",
                     ignore=shutil.ignore_patterns("tests", "__pycache__"))
     manifest = json.loads((ROOT / "BENCHMARK.json").read_text())
     for c in manifest["configs"]:
+        if c["name"] not in TINY:
+            raise FileNotFoundError(f"configuration {c['name']!r} has no CPU "
+                                    f"cut: {CUTS / (c['name'] + '.json')}")
         path = dest / c["file"]
         cfg = json.loads(path.read_text())
         cfg.update(TINY[c["name"]])

@@ -4,8 +4,11 @@ CPU at the sizes of ``conftest.TINY``."""
 from __future__ import annotations
 
 import json
+import os
 import re
 import shutil
+import subprocess
+import sys
 
 import pytest
 import torch
@@ -39,7 +42,13 @@ def test_manifest_keys_and_names():
 @pytest.mark.parametrize("cell", [w["name"] for w in MANIFEST["workloads"]])
 def test_every_entry_resolves_to_its_files(cell):
     c = harness.load_cell(ROOT, cell)
-    assert c.chips == 1
+    # one card, or four where at most a quarter of the cells (one always)
+    # take four, and their client pattern stops its processes and reads
+    # their cards' peaks
+    assert c.chips in (1, 4)
+    workloads = MANIFEST["workloads"]
+    assert sum(w["chips"] == 4 for w in workloads) <= \
+        max(1, len(workloads) // 4)
     assert c.config["name"] == next(w["config"] for w in MANIFEST["workloads"]
                                     if w["name"] == cell)
     assert {"kind", "source", "clients", "queries", "query_of",
@@ -47,6 +56,9 @@ def test_every_entry_resolves_to_its_files(cell):
     assert c.traffic["query_of"] in ("client", "request")
     pattern = harness.client_pattern(c)
     assert callable(pattern.Clients) and callable(pattern.planned)
+    if c.chips == 4:
+        assert callable(getattr(pattern.Clients, "close", None))
+        assert callable(getattr(pattern.Clients, "peaks", None))
     assert {"unanswered", "live_diff", "overflow", "path_diff",
             "strata_diff"} <= set(c.limits)
     reported = {m["name"] for m in c.end_to_end + c.per_layer}
@@ -182,6 +194,133 @@ def test_a_client_pattern_is_found_by_the_mix_kind(tmp_path):
     with pytest.raises(ValueError, match="no_such_pattern"):
         harness.run_cell(root, "tpch-one", SEED, 1.0, False, device="cpu",
                          log=lambda *a: None)
+
+
+def test_a_configuration_without_a_cut_is_refused(tmp_path, monkeypatch):
+    import conftest
+    monkeypatch.setattr(conftest, "TINY", {
+        k: v for k, v in conftest.TINY.items() if k != "tpch-sf30"})
+    with pytest.raises(FileNotFoundError,
+                       match=re.escape(str(conftest.CUTS / "tpch-sf30.json"))):
+        conftest.tiny_tree(tmp_path)
+
+
+# a pattern over four cards, on the closed loop's code: its processes' peak
+# above the harness's own, a log of its close, and a raise where the mix
+# says
+FOUR_PEAK = 3 * 2**30 + 12345
+FOUR_CARDS = """\
+import importlib.util, pathlib
+_p = pathlib.Path(__file__).with_name('closed_loop.py')
+_s = importlib.util.spec_from_file_location('four_cards_base', _p)
+_m = importlib.util.module_from_spec(_s)
+_s.loader.exec_module(_m)
+filter_seed, planned, verify_indices = \\
+    _m.filter_seed, _m.planned, _m.verify_indices
+LOG = pathlib.Path(__file__).with_name('calls.log')
+
+
+class Clients(_m.Clients):
+    def _maybe_raise(self, where):
+        if self.cell.traffic.get('raise_in') == where:
+            raise RuntimeError(f'{where} failed')
+
+    def warm(self):
+        self._maybe_raise('warm')
+        super().warm()
+
+    def window(self, seconds, profile):
+        self._maybe_raise('window')
+        return super().window(seconds, profile)
+
+    def drain(self):
+        self._maybe_raise('drain')
+        super().drain()
+
+    def peaks(self):
+        return [PEAK, 2**20]
+
+    def close(self):
+        with LOG.open('a') as f:
+            f.write('close\\n')
+
+
+PEAK = %d
+""" % FOUR_PEAK
+
+
+def _four_card_tree(tmp_path, raise_in=None):
+    """A cell over four cards added from files alone: a client pattern with
+    ``peaks`` and ``close``, a mix, a limits file and a manifest entry."""
+    from conftest import tiny_tree
+    root = tiny_tree(tmp_path)
+    bench = root / "portbench"
+    (bench / "traffic/four_cards.py").write_text(FOUR_CARDS)
+    mix = json.loads((bench / "traffic/exact-mixed.json").read_text())
+    mix.update(kind="four_cards", raise_in=raise_in)
+    (bench / "traffic/exact-four.json").write_text(json.dumps(mix))
+    shutil.copy(bench / "workloads/tpch-sf30-exact.json",
+                bench / "workloads/tpch-four.json")
+    manifest = json.loads((root / "BENCHMARK.json").read_text())
+    manifest["workloads"].append({"name": "tpch-four", "config": "tpch-sf30",
+                                  "traffic": "exact-four", "chips": 4,
+                                  "why": "test"})
+    (root / "BENCHMARK.json").write_text(json.dumps(manifest))
+    return root
+
+
+@pytest.mark.parametrize("raise_in", [None, "warm", "window", "drain"])
+def test_a_four_card_cell_added_from_files_alone(tmp_path, monkeypatch,
+                                                 raise_in):
+    """The run reports the fullest card's peak, the pattern's, and calls
+    its ``close`` once: before the reference, or after a failed stage."""
+    root = _four_card_tree(tmp_path, raise_in)
+    log = root / "portbench/traffic/calls.log"
+    prepare = harness.ref_join.prepare
+
+    def logged(*a, **k):
+        with log.open("a") as f:
+            f.write("prepare\n")
+        return prepare(*a, **k)
+    monkeypatch.setattr(harness.ref_join, "prepare", logged)
+
+    def run():
+        return harness.run_cell(root, "tpch-four", SEED, 1.0, False,
+                                device="cpu", log=lambda *a: None)
+    if raise_in is not None:
+        with pytest.raises(RuntimeError, match=f"{raise_in} failed"):
+            run()
+        assert log.read_text().split() == ["close"]
+        return
+    r = run()
+    assert r["correct"], r["checks"]
+    assert r["attempted"] >= 2 and r["failed"] == 0
+    assert r["device"]["count"] == 4
+    assert r["device"]["memory_peak_bytes"] == FOUR_PEAK
+    assert r["metrics"]["peak_mem_gib"]["value"] == FOUR_PEAK / 2**30
+    cell = harness.load_cell(root, "tpch-four")
+    assert log.read_text().split() == ["close"] + ["prepare"] * cell.datasets
+
+
+@pytest.mark.parametrize("found", [0, 1])
+def test_the_command_refuses_a_four_card_cell_on_fewer_cards(tmp_path,
+                                                             found):
+    """With fewer cards than the cell asks for (none on the CPU) the command
+    exits with code 2 and prints no result."""
+    root = _four_card_tree(tmp_path)
+    code = ("import runpy, sys, torch; "
+            + (f"torch.cuda.is_available = lambda: True; "
+               f"torch.cuda.device_count = lambda: {found}; " if found
+               else "")
+            + "sys.argv = ['run.py', '--workload', 'tpch-four', "
+            "'--seed', '3000000001', '--seconds', '1', '--trace', '0']; "
+            "runpy.run_path('portbench/run.py', run_name='__main__')")
+    out = subprocess.run([sys.executable, "-c", code], cwd=root,
+                         env=dict(os.environ, PYTHONPATH=str(ROOT / "src")),
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 2, out.stderr
+    assert out.stdout.strip() == ""
+    assert f"needs 4 CUDA card(s), found {found}" in out.stderr
 
 
 def _rec(**kw):

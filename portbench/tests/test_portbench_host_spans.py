@@ -79,3 +79,73 @@ def test_other_lanes_are_left_out(metric):
     # another lane's extra step does not divide the engine's sum
     more = ev + [_ev("step", 5.0, 1.0, tid="replica1")]
     assert read(_rec(more)) == read(_rec(engine))
+
+
+def _nested_step(t0=0.0):
+    """One step of every engine span the breakdown names, nested as the
+    program nests them: ``to-host`` after ``prepare`` and inside
+    ``finish``, ``sigma-lookup`` inside ``decide``."""
+    return [_ev("batch-formation", t0 + 0.000, 0.005),
+            _ev("step", t0 + 0.010, 0.990),
+            _ev("batch-inputs", t0 + 0.020, 0.040),
+            _ev("prepare", t0 + 0.060, 0.440),
+            _ev("to-host", t0 + 0.500, 0.020, bytes=64, what="totals"),
+            _ev("decide", t0 + 0.520, 0.180),
+            _ev("sigma-lookup", t0 + 0.550, 0.100, strata=512),
+            _ev("sample", t0 + 0.700, 0.100),
+            _ev("finish", t0 + 0.800, 0.180),
+            _ev("to-host", t0 + 0.820, 0.030, bytes=640, what="sigma"),
+            _ev("sigma-update", t0 + 0.860, 0.090, strata=512, kept=500)]
+
+
+def test_host_span_depth_is_found_by_time():
+    ev = _nested_step() + _nested_step(2.0)
+    # another lane's spans and an instant are left out
+    ev += [dict(e, tid="replica1") for e in _nested_step()]
+    ev.append({"tid": "engine", "name": "draws", "ts": 0.52, "dur": None,
+               "args": {}})
+    spans = harness._host_spans(ev, [(1.0, 2.0)])
+    depth = {}
+    for name, a, _, d in spans:
+        depth.setdefault(name, set()).add((round(a % 2.0, 3), d))
+    assert depth == {
+        "batch-formation": {(0.0, 0)}, "step": {(0.01, 0)},
+        "batch-inputs": {(0.02, 1)}, "prepare": {(0.06, 1)},
+        "to-host": {(0.5, 1), (0.82, 2)}, "decide": {(0.52, 1)},
+        "sigma-lookup": {(0.55, 2)}, "sample": {(0.7, 1)},
+        "finish": {(0.8, 1)}, "sigma-update": {(0.86, 2)},
+        "client": {(1.0, 0)}}
+    assert len(spans) == 2 * 11 + 1
+
+
+# device idle gaps, profiler clock, one inside each span of a step, and
+# the span each belongs to: ten names, as many as the breakdown lists
+GAPS = [((0.025, 0.035), "batch-inputs"), ((0.100, 0.120), "prepare"),
+        ((0.505, 0.512), "to-host"), ((0.530, 0.540), "decide"),
+        ((0.600, 0.630), "sigma-lookup"), ((0.720, 0.724), "sample"),
+        ((0.805, 0.811), "finish"), ((0.830, 0.845), "to-host"),
+        ((0.870, 0.920), "sigma-update"), ((0.985, 0.995), "step.host"),
+        ((1.100, 1.190), "client")]
+
+
+def test_each_idle_gap_goes_to_its_innermost_span():
+    offset = 7.5       # the profiler's clock lags the host's by this much
+    ev = [dict(e, ts=e["ts"] + offset) for e in _nested_step()]
+    edges = [0.0] + [x for (a, b), _ in GAPS for x in (a, b)] + [1.4]
+    ops = [("k", edges[i], edges[i + 1]) for i in range(0, len(edges), 2)]
+    d = {"lo": 0.0, "hi": 1.4, "ops": ops, "steps": [], "offset": offset,
+         "spans": harness._host_spans(
+             ev, [(1.0 + offset, 1.2 + offset)])}
+    idle = dict(harness._breakdown(d)["idle_gaps"])
+    want: dict = {}
+    for (a, b), name in GAPS:
+        want[name] = want.get(name, 0.0) + (b - a)
+    assert idle == pytest.approx(want)
+    # a gap covered by the step alone reads step.host; without the step's
+    # children their gaps would too
+    bare = [e for e in ev if e["name"] in ("batch-formation", "step")]
+    d["spans"] = harness._host_spans(bare, [(1.0 + offset, 1.2 + offset)])
+    idle = dict(harness._breakdown(d)["idle_gaps"])
+    assert set(idle) == {"step.host", "client"}
+    assert idle["step.host"] == pytest.approx(sum(
+        b - a for (a, b), name in GAPS if name != "client"))
